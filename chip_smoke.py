@@ -49,8 +49,7 @@ REPLACES = {
         "datafusion_distributed_tpu/ops/pallas_hash.py:433",
 }
 #: the __global__ functions of SOURCE, to find them in a profiler trace
-HASH_TABLE_KERNELS = ("init_rows", "fill_int", "claim_round", "win_round",
-                      "resolve_round", "fold_rows", "clear_unused_rep",
+HASH_TABLE_KERNELS = ("group_build_kernel", "group_aggregate_kernel",
                       "probe_rows")
 
 
@@ -175,11 +174,15 @@ def phase_kernels(n: int, h: int, reps: int) -> dict:
     live[:live_rows] = True
 
     # --- kernel 1: group build -------------------------------------------
-    # ~0.48 load factor at the planner's 2x sizing; overflow: more
-    # distinct keys than slots
+    # (name, lanes, distinct keys, Zipf-skewed): ~0.48 load factor at the
+    # planner's 2x sizing; one key for every live row; a table loaded near
+    # 0.85, whose chains take hundreds of rounds; overflow: more distinct
+    # keys than slots
     cases = [
         ("uniform L=1", 1, int(h * 0.48), False),
         ("skewed L=3", 3, int(h * 0.48), True),
+        ("hot key L=3", 3, 1, False),
+        ("long chain L=1", 1, int(h * 0.85), False),
         ("overflow L=1", 1, h + h // 2, False),
     ]
     k1 = {}
@@ -187,16 +190,21 @@ def phase_kernels(n: int, h: int, reps: int) -> dict:
         keys_np, _ = _keys(rng, n, ndv, lanes, skew)
         keys = torch.from_numpy(keys_np).to(dev)
         s0 = slot0_of(keys, h)
+        hk.reset_round_stats()
         got = hk.build_group_ids(keys, s0, live, h)
+        stats = hk.round_stats()  # the device counters, read once
         ref = hk.build_group_ids_plain(keys, s0, live, h)
+        rounds = int(got[4])
         err = max_abs_err(zip(got[:4], ref[:4]))
-        check(err == 0 and got[4] == ref[4],
+        check(err == 0 and rounds == int(ref[4]),
               f"build_group_ids {name}: kernel != plain (err {err}, rounds "
-              f"{got[4]} vs {ref[4]})")
+              f"{rounds} vs {int(ref[4])})")
+        check(stats == {"builds": 1, "total": rounds, "max": rounds},
+              f"build_group_ids {name}: round stats {stats}, rounds {rounds}")
         over = bool(got[3])
         check(over == (name.startswith("overflow")),
               f"build_group_ids {name}: overflow={over}")
-        case = {"rounds": got[4], "overflow": over, "max_abs_err": err,
+        case = {"rounds": rounds, "overflow": over, "max_abs_err": err,
                 "groups": int(got[2].sum())}
         if not over:
             case["ms"] = time_ms(lambda: hk.build_group_ids(keys, s0, live, h),
@@ -264,7 +272,7 @@ def phase_kernels(n: int, h: int, reps: int) -> dict:
     # --- kernel 3: group build + int32 fold --------------------------------
     k3 = {}
     ops = ("sum", "sum", "min", "max")  # count, sum, min, max
-    for name, lanes, ndv, skew in cases[:2]:
+    for name, lanes, ndv, skew in cases:
         keys_np, _ = _keys(rng, n, ndv, lanes, skew)
         keys = torch.from_numpy(keys_np).to(dev)
         s0 = slot0_of(keys, h)
@@ -273,21 +281,30 @@ def phase_kernels(n: int, h: int, reps: int) -> dict:
             rng.integers(-2**31, 2**31 - 1, n), rng.integers(-2**31, 2**31 - 1, n),
         ], axis=1).astype(np.int32)
         vals = torch.from_numpy(vals_np).to(dev)
+        hk.reset_round_stats()
         got = hk.group_aggregate(keys, s0, live, vals, h, ops)
+        stats = hk.round_stats()
         ref = hk.group_aggregate_plain(keys, s0, live, vals, h, ops)
+        rounds = int(got[5])
         err = max_abs_err(zip(got[:5], ref[:5]))
-        check(err == 0 and got[5] == ref[5],
-              f"group_aggregate {name}: kernel != plain (err {err})")
-        case = {
-            "rounds": got[5], "max_abs_err": err,
-            "ms": time_ms(lambda: hk.group_aggregate(keys, s0, live, vals, h,
-                                                     ops), reps),
-            "plain_ms": time_ms(lambda: hk.group_aggregate_plain(
-                keys, s0, live, vals, h, ops), 1),
-            "library_ms": None,
-            "bound_ms": bound_ms(nbytes(keys, s0, live, vals)
-                                 + nbytes(got[0], got[1], got[2], got[3])),
-        }
+        check(err == 0 and rounds == int(ref[5]),
+              f"group_aggregate {name}: kernel != plain (err {err}, rounds "
+              f"{rounds} vs {int(ref[5])})")
+        check(stats == {"builds": 1, "total": rounds, "max": rounds},
+              f"group_aggregate {name}: round stats {stats}, rounds {rounds}")
+        over = bool(got[4])
+        check(over == (name.startswith("overflow")),
+              f"group_aggregate {name}: overflow={over}")
+        case = {"rounds": rounds, "overflow": over, "max_abs_err": err}
+        if not over:
+            case["ms"] = time_ms(
+                lambda: hk.group_aggregate(keys, s0, live, vals, h, ops), reps)
+            case["plain_ms"] = time_ms(lambda: hk.group_aggregate_plain(
+                keys, s0, live, vals, h, ops), 1)
+            case["library_ms"] = None
+            case["bound_ms"] = bound_ms(
+                nbytes(keys, s0, live, vals)
+                + nbytes(got[0], got[1], got[2], got[3]))
         k3[name] = case
         log(f"[kernels] group_aggregate {name}: {case}")
         del keys, s0, vals, got, ref
@@ -357,7 +374,7 @@ def phase_main(sf: float, names, seed: int) -> dict:
     def run_counting_rounds(sql):
         hk.reset_round_stats()
         out = _run(ctx, sql)
-        stats = dict(hk.ROUND_STATS)
+        stats = hk.round_stats()  # the device counters, read once a query
         rounds["builds"] += stats["builds"]
         rounds["total"] += stats["total"]
         rounds["max"] = max(rounds["max"], stats["max"])

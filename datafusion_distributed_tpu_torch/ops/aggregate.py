@@ -313,6 +313,8 @@ def _try_global_hash_aggregate(
             ops.append("max")
             vcols.append(torch.where(valid, data, int32_min))
         plan.append((spec.func, spec.output_name, vidx, (cnt_idx, col)))
+    if len(ops) > hash_kernels.MAX_ACCS:
+        return None
 
     key_cols = [table.column(g).data for g in group_names]
     key_valids = [table.column(g).validity for g in group_names]

@@ -26,6 +26,12 @@ the CPU; for CUDA tensors it launches the kernel or raises. Each launch adds
 one to ``LAUNCHES[<wrapper name>]``. Key lanes are int32; int64 lanes
 (``DFTPU_PRECISION=x64``) are split into (lo, hi) int32 pairs, which keeps
 equality — and therefore every slot — unchanged.
+
+Builds. A build's round count and overflow flag are 0-d tensors on the
+build's device, and each build adds to that device's ``ROUND_STATS``
+counter (the CUDA kernel on the card, the plain path on the CPU), so a
+build on the card makes no host sync; `round_stats()` reads the counters
+when asked.
 """
 
 from __future__ import annotations
@@ -42,17 +48,39 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 _INT32_MIN = int(np.iinfo(np.int32).min)
 #: accumulator ops of group_aggregate, with their identities
 AGG_OPS = {"sum": (0, 0), "min": (1, _INT32_MAX), "max": (2, _INT32_MIN)}
+#: most accumulators of one group_aggregate (two bits of a 64-bit op word each)
+MAX_ACCS = 32
 
 #: kernel launches per wrapper (the plain CPU versions do not count)
 LAUNCHES = {"build_group_ids": 0, "multiway_probe": 0, "group_aggregate": 0}
-#: claim-loop rounds of the builds since the last reset (CPU and CUDA):
-#: number of builds, their rounds summed, the most rounds of one build
-ROUND_STATS = {"builds": 0, "total": 0, "max": 0}
+#: claim-loop rounds of the builds since the last reset, one int64 [3]
+#: counter per device (builds, rounds summed, most rounds of one build):
+#: the CUDA builds add to theirs on the card, the plain path to the CPU's
+ROUND_STATS: dict = {}
+
+
+def _round_stats_of(dev: torch.device) -> torch.Tensor:
+    t = ROUND_STATS.get(dev)
+    if t is None:
+        t = ROUND_STATS[dev] = torch.zeros(3, dtype=torch.int64, device=dev)
+    return t
+
+
+def round_stats() -> dict:
+    """The round counters summed over devices (reads each card's counter:
+    one device-to-host copy per device)."""
+    out = {"builds": 0, "total": 0, "max": 0}
+    for t in ROUND_STATS.values():
+        builds, total, most = (int(v) for v in t.tolist())
+        out["builds"] += builds
+        out["total"] += total
+        out["max"] = max(out["max"], most)
+    return out
 
 
 def reset_round_stats() -> None:
-    for k in ROUND_STATS:
-        ROUND_STATS[k] = 0
+    for t in ROUND_STATS.values():
+        t.zero_()
 
 
 def reset_launch_counts() -> None:
@@ -61,10 +89,12 @@ def reset_launch_counts() -> None:
     reset_round_stats()
 
 
-def _note_rounds(rounds: int) -> None:
-    ROUND_STATS["builds"] += 1
-    ROUND_STATS["total"] += rounds
-    ROUND_STATS["max"] = max(ROUND_STATS["max"], rounds)
+def _note_rounds_cpu(rounds: torch.Tensor) -> None:
+    r = int(rounds)
+    t = _round_stats_of(torch.device("cpu"))
+    t[0] += 1
+    t[1] += r
+    t[2] = max(int(t[2]), r)
 
 
 # ---------------------------------------------------------------------------
@@ -74,14 +104,14 @@ def _note_rounds(rounds: int) -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-_IP = ctypes.POINTER(ctypes.c_int)
+_ULL = ctypes.c_ulonglong
 _SIGNATURES = {
     "dftpu_group_build": [_P, _P, _P, _LL, _I, _LL, _I, _P, _P, _P, _P, _P,
-                          _P, _P, _IP, _IP, _P],
+                          _P, _P, _P, _P, _P],
     "dftpu_multiway_probe": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P,
                              _P, _P],
-    "dftpu_group_aggregate": [_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P,
-                              _P, _P, _P, _P, _P, _P, _P, _P, _IP, _IP, _P],
+    "dftpu_group_aggregate": [_P, _P, _P, _P, _ULL, _LL, _I, _I, _LL, _I, _P,
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -149,7 +179,7 @@ def build_group_ids_plain(keys_mat, slot0, live, num_slots: int,
     """The reference's XLA claim loop as torch ops (one host-checked round
     per iteration). keys_mat [N, L] int, slot0 [N] int32, live [N] bool ->
     (gid [N] i32, slot_keys [H, L], slot_used [H] bool, overflow 0-d bool,
-    rounds int)."""
+    rounds 0-d i32)."""
     n, lanes = keys_mat.shape
     dev = keys_mat.device
     h = num_slots
@@ -182,7 +212,8 @@ def build_group_ids_plain(keys_mat, slot0, live, num_slots: int,
         slot = torch.where(advance, (slot + 1) & (h - 1), slot)
         rounds += 1
     overflow = ~resolved.all()
-    return gid, slot_keys[:h], slot_used[:h], overflow, rounds
+    return (gid, slot_keys[:h], slot_used[:h], overflow,
+            torch.tensor(rounds, dtype=torch.int32, device=dev))
 
 
 def build_group_ids(keys_mat, slot0, live, num_slots: int,
@@ -190,46 +221,63 @@ def build_group_ids(keys_mat, slot0, live, num_slots: int,
     """Assign each live row the slot of its key in an open-addressed table
     of ``num_slots`` (power of two) slots, by linear probing from ``slot0``;
     the first row of a key claims its slot. Same outputs as
-    `build_group_ids_plain`."""
-    _pow2(num_slots)
+    `build_group_ids_plain`; on the card the overflow flag and the round
+    count stay device tensors, so a build makes no host sync."""
+    _check_build_args(num_slots, max_rounds, keys_mat.shape[0])
     lane_dtype = keys_mat.dtype
     keys = _i32_lanes(keys_mat)
     if keys.device.type == "cpu":
         out = build_group_ids_plain(keys, slot0, live, num_slots, max_rounds)
-        _note_rounds(out[4])
+        _note_rounds_cpu(out[4])
         return (out[0], _lanes_back(out[1], lane_dtype)) + out[2:]
     _require_cuda(slot0, live)
     n, lanes = keys.shape
     dev = keys.device
     slot0 = slot0.to(torch.int32).contiguous()
     live = live.to(torch.bool).contiguous()
-    gid = torch.empty(n, dtype=torch.int32, device=dev)
-    slot_keys = torch.empty((num_slots, lanes), dtype=torch.int32, device=dev)
-    slot_used = torch.empty(num_slots, dtype=torch.bool, device=dev)
-    scratch = _build_scratch(n, num_slots, dev)
-    rounds, over = ctypes.c_int(0), ctypes.c_int(0)
+    outs = _build_outputs(n, lanes, num_slots, dev)
+    scratch = _build_scratch(n, num_slots, max_rounds, dev)  # held past launch
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.dftpu_group_build(
             _ptr(keys), _ptr(slot0), _ptr(live), n, lanes, num_slots,
-            max_rounds, _ptr(gid), _ptr(slot_keys), _ptr(slot_used),
-            *[_ptr(s) for s in scratch], ctypes.byref(rounds),
-            ctypes.byref(over), _stream(keys),
+            max_rounds, *[_ptr(t) for t in outs],
+            _ptr(_round_stats_of(dev)), *[_ptr(t) for t in scratch],
+            _stream(keys),
         )
     _check(lib, err, "dftpu_group_build")
     LAUNCHES["build_group_ids"] += 1
-    _note_rounds(rounds.value)
-    overflow = torch.tensor(bool(over.value), device=dev)
+    gid, slot_keys, slot_used, rounds, overflow = outs
     return (gid, _lanes_back(slot_keys, lane_dtype), slot_used, overflow,
-            rounds.value)
+            rounds)
 
 
-def _build_scratch(n: int, num_slots: int, dev):
+def _check_build_args(num_slots: int, max_rounds: int, n: int) -> None:
+    _pow2(num_slots)
+    if max_rounds < 1:
+        raise ValueError(f"max_rounds must be at least 1, got {max_rounds}")
+    if n > _INT32_MAX:
+        raise ValueError(f"{n} rows: row ids must fit int32")
+
+
+def _build_outputs(n: int, lanes: int, num_slots: int, dev):
+    """gid, slot_keys, slot_used, rounds, overflow: written by the kernel."""
     return (
-        torch.empty(n, dtype=torch.int32, device=dev),  # current slot
-        torch.empty(n, dtype=torch.uint8, device=dev),  # resolved
+        torch.empty(n, dtype=torch.int32, device=dev),
+        torch.empty((num_slots, lanes), dtype=torch.int32, device=dev),
+        torch.empty(num_slots, dtype=torch.bool, device=dev),
+        torch.empty((), dtype=torch.int32, device=dev),
+        torch.empty((), dtype=torch.bool, device=dev),
+    )
+
+
+def _build_scratch(n: int, num_slots: int, max_rounds: int, dev):
+    return (
+        # two lists of (row, slot) pairs: the rows left unresolved
+        torch.empty((2, n, 2), dtype=torch.int32, device=dev),
         torch.empty(num_slots, dtype=torch.int32, device=dev),  # owner
-        torch.empty(1, dtype=torch.int32, device=dev),  # unresolved count
+        # live rows, then the rows left unresolved after each round
+        torch.empty(max_rounds + 1, dtype=torch.int32, device=dev),
     )
 
 
@@ -355,12 +403,14 @@ def group_aggregate_plain(keys_mat, slot0, live, values, num_slots: int,
 
 def group_aggregate(keys_mat, slot0, live, values, num_slots: int,
                     ops: tuple, max_rounds: int = MAX_ROUNDS):
-    """Group build + int32 accumulator fold in one call; same outputs as
-    `group_aggregate_plain`."""
-    _pow2(num_slots)
+    """Group build + int32 accumulator fold in one call (at most
+    ``MAX_ACCS`` accumulators); same outputs as `group_aggregate_plain`."""
+    _check_build_args(num_slots, max_rounds, keys_mat.shape[0])
     for op in ops:
         if op not in AGG_OPS:
             raise ValueError(f"unknown accumulator op {op!r}")
+    if len(ops) > MAX_ACCS:
+        raise ValueError(f"{len(ops)} accumulators, at most {MAX_ACCS}")
     if values.shape[1] != len(ops):
         raise ValueError(f"{values.shape[1]} value columns for {len(ops)} ops")
     if keys_mat.dtype != torch.int32 or values.dtype != torch.int32:
@@ -368,38 +418,31 @@ def group_aggregate(keys_mat, slot0, live, values, num_slots: int,
     if keys_mat.device.type == "cpu":
         out = group_aggregate_plain(keys_mat, slot0, live, values, num_slots,
                                     ops, max_rounds)
-        _note_rounds(out[5])
+        _note_rounds_cpu(out[5])
         return out
     _require_cuda(slot0, live, values)
     dev = keys_mat.device
     n, lanes = keys_mat.shape
-    naccs = len(ops)
     keys = keys_mat.contiguous()
     values = values.contiguous()
     slot0 = slot0.to(torch.int32).contiguous()
     live = live.to(torch.bool).contiguous()
-    ops_t = torch.tensor([AGG_OPS[o][0] for o in ops] or [0],
-                         dtype=torch.int32, device=dev)
-    idents = torch.tensor([AGG_OPS[o][1] for o in ops], dtype=torch.int32,
-                          device=dev)
-    acc = idents.repeat(num_slots, 1).contiguous()
-    rep = torch.full((num_slots,), _INT32_MAX, dtype=torch.int32, device=dev)
-    gid = torch.empty(n, dtype=torch.int32, device=dev)
-    slot_keys = torch.empty((num_slots, lanes), dtype=torch.int32, device=dev)
-    used = torch.empty(num_slots, dtype=torch.bool, device=dev)
-    scratch = _build_scratch(n, num_slots, dev)
-    rounds, over = ctypes.c_int(0), ctypes.c_int(0)
+    # the op codes travel by value, two bits each: no host-to-device copy
+    op_word = sum(AGG_OPS[o][0] << (2 * a) for a, o in enumerate(ops))
+    acc = torch.empty((num_slots, len(ops)), dtype=torch.int32, device=dev)
+    rep = torch.empty(num_slots, dtype=torch.int32, device=dev)
+    gid, slot_keys, used, rounds, overflow = _build_outputs(
+        n, lanes, num_slots, dev)
+    scratch = _build_scratch(n, num_slots, max_rounds, dev)  # held past launch
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.dftpu_group_aggregate(
-            _ptr(keys), _ptr(slot0), _ptr(live), _ptr(values), _ptr(ops_t),
-            n, lanes, naccs, num_slots, max_rounds, _ptr(gid),
-            _ptr(slot_keys), _ptr(used), _ptr(acc), _ptr(rep),
-            *[_ptr(s) for s in scratch], ctypes.byref(rounds),
-            ctypes.byref(over), _stream(keys),
+            _ptr(keys), _ptr(slot0), _ptr(live), _ptr(values), op_word,
+            n, lanes, len(ops), num_slots, max_rounds, _ptr(gid),
+            _ptr(slot_keys), _ptr(used), _ptr(acc), _ptr(rep), _ptr(rounds),
+            _ptr(overflow), _ptr(_round_stats_of(dev)),
+            *[_ptr(t) for t in scratch], _stream(keys),
         )
     _check(lib, err, "dftpu_group_aggregate")
     LAUNCHES["group_aggregate"] += 1
-    _note_rounds(rounds.value)
-    overflow = torch.tensor(bool(over.value), device=dev)
-    return gid, rep, used, acc, overflow, rounds.value
+    return gid, rep, used, acc, overflow, rounds

@@ -259,9 +259,10 @@ def test_group_aggregate_build_equals_group_build():
 
 
 def test_round_stats_stay_bounded_aggregates():
-    """Every build adds to three fixed counters (builds, summed rounds, the
-    most rounds), however many builds a session makes; the plain versions
-    do not count as launches."""
+    """Every build adds to one fixed counter per device (builds, summed
+    rounds, the most rounds), however many builds a session makes; rounds
+    come back as 0-d tensors, and the plain versions do not count as
+    launches."""
     rng = np.random.default_rng(6)
     n, h = 600, 256
     keys = torch.from_numpy(_lane_keys(rng, n, 1, 100))
@@ -271,13 +272,17 @@ def test_round_stats_stay_bounded_aggregates():
     hk.reset_launch_counts()
     r1 = hk.build_group_ids(keys, slot0, live, h)[4]
     r3 = hk.group_aggregate(keys, slot0, live, vals, h, ("sum",))[5]
+    assert r1.shape == () and r3.shape == ()
+    r1, r3 = int(r1), int(r3)
     for _ in range(50):
         hk.build_group_ids(keys, slot0, live, h)
-    assert hk.ROUND_STATS == {"builds": 52, "total": r1 + r3 + 50 * r1,
-                              "max": max(r1, r3)}
+    assert hk.round_stats() == {"builds": 52, "total": r1 + r3 + 50 * r1,
+                                "max": max(r1, r3)}
+    assert list(hk.ROUND_STATS) == [torch.device("cpu")]
+    assert hk.ROUND_STATS[torch.device("cpu")].shape == (3,)
     assert set(hk.LAUNCHES.values()) == {0}
     hk.reset_round_stats()
-    assert hk.ROUND_STATS == {"builds": 0, "total": 0, "max": 0}
+    assert hk.round_stats() == {"builds": 0, "total": 0, "max": 0}
 
 
 @pytest.mark.parametrize("max_rounds", [512, 3])
@@ -328,12 +333,40 @@ def test_multiway_probe_matches_reference_k3(max_rounds):
         assert np_of(over).any()
 
 
+@pytest.mark.parametrize("live_fraction", [0.0, 0.9])
+def test_build_reports_rounds_and_overflow_as_tensors(live_fraction):
+    """rounds and overflow are 0-d tensors (on the card they stay there);
+    a build with no live row takes no round, as the reference's loop."""
+    rng = np.random.default_rng(8)
+    n, h = 400, 128
+    keys = torch.from_numpy(_lane_keys(rng, n, 2, 40))
+    live = torch.from_numpy(rng.random(n) < live_fraction)
+    slot0 = _slot0(keys.numpy(), h)
+    vals = torch.ones((n, 1), dtype=torch.int32)
+    _g, _tk, _u, over, rounds = hk.build_group_ids(keys, slot0, live, h)
+    out3 = hk.group_aggregate(keys, slot0, live, vals, h, ("sum",))
+    for t, dtype in ((over, torch.bool), (rounds, torch.int32),
+                     (out3[4], torch.bool), (out3[5], torch.int32)):
+        assert t.shape == () and t.dtype == dtype
+    assert not bool(over) and not bool(out3[4])
+    assert int(rounds) == int(out3[5])
+    assert (int(rounds) == 0) == (live_fraction == 0.0)
+    if live_fraction == 0.0:
+        assert not bool(out3[2].any()) and not bool(out3[1].any())
+
+
 def test_wrappers_validate_arguments():
     keys = torch.zeros((4, 1), dtype=torch.int32)
     s0 = torch.zeros(4, dtype=torch.int32)
     live = torch.ones(4, dtype=torch.bool)
     with pytest.raises(ValueError):
         hk.build_group_ids(keys, s0, live, 6)  # not a power of two
+    with pytest.raises(ValueError):
+        hk.build_group_ids(keys, s0, live, 8, max_rounds=0)
+    with pytest.raises(ValueError):
+        hk.group_aggregate(keys, s0, live,
+                           torch.zeros((4, 33), dtype=torch.int32), 8,
+                           ("sum",) * 33)  # more than MAX_ACCS
     with pytest.raises(TypeError):
         hk.build_group_ids(keys.float(), s0, live, 8)
     with pytest.raises(ValueError):
