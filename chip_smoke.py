@@ -9,8 +9,8 @@ Phases, each of which must pass:
    started together) and print the card's name and power limit.
 2. kernels — each hash-table kernel against its plain PyTorch version on the
    card at main-path shapes (8,388,608 rows = lineitem's padded capacity at
-   TPC-H SF 1, 2^21 slots): bit-exact, with kernel / plain / library times
-   and the bytes bound.
+   TPC-H SF 1, 2^21 slots; probe tables at the main path's sizes): bit-exact,
+   with call, kernel-only, plain and library times and the bytes bound.
 3. main   — TPC-H SF 1 generated by the port, every query through
    SessionContext(device="cuda").sql(...).collect_table().to_numpy(), twice:
    both runs byte-identical, and every kernel's launch count above 0.
@@ -18,7 +18,7 @@ Phases, each of which must pass:
    strings and row order exact, floats at precision.test_rtol() of the
    column's scale.
 5. profile — each query once more under torch.profiler: device busy time,
-   idle share and the hash-table kernels' share per query.
+   idle share, sync calls and the port's kernels' device time per query.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -29,9 +29,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -39,7 +41,12 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 QUERY_DIR = Path(__file__).resolve().parent / "benchmarks" / "queries" / "tpch"
-SOURCE = "datafusion_distributed_tpu_torch/csrc/hash_table.cu"
+CSRC = "datafusion_distributed_tpu_torch/csrc"
+SOURCES = {
+    "build_group_ids": f"{CSRC}/hash_table.cu",
+    "multiway_probe": f"{CSRC}/probe.cu",
+    "group_aggregate": f"{CSRC}/hash_table.cu",
+}
 REPLACES = {
     "build_group_ids":
         "datafusion_distributed_tpu/ops/pallas_hash.py:94",
@@ -48,9 +55,17 @@ REPLACES = {
     "group_aggregate":
         "datafusion_distributed_tpu/ops/pallas_hash.py:433",
 }
-#: the __global__ functions of SOURCE, to find them in a profiler trace
-HASH_TABLE_KERNELS = ("group_build_kernel", "group_aggregate_kernel",
-                      "probe_rows")
+_GLOBAL = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
+def hash_table_kernels() -> tuple:
+    """The __global__ functions of the port's CUDA sources, to find them in
+    a profiler trace."""
+    from datafusion_distributed_tpu_torch.ops import _build
+
+    return tuple(sorted({m for src in _build.CSRC.glob("*.cu")
+                         for m in _GLOBAL.findall(src.read_text())}))
 
 
 def log(*a) -> None:
@@ -72,20 +87,67 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean wall time per call on the card: CUDA events around ``reps``
-    calls after one warm-up call."""
+    """Mean device time per call: CUDA events around ``reps`` calls after
+    one warm-up call. The card first sleeps while the host enqueues the
+    calls, so that the events time the card's work back to back and not
+    the host's launch overhead (a call that syncs the host waits anyway)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host time per call to enqueue ``fn`` (no host sync inside)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def kernel_of(event_name: str, kernels) -> str | None:
+    """The port's kernel a profiler event ran, or None."""
+    for k in kernels:
+        if f"::{k}(" in event_name or f"::{k}<" in event_name:
+            return k
+    return None
+
+
+def kernel_ms(fn, reps: int, kernels) -> dict:
+    """Device time per call of each of the port's kernels that ``fn``
+    launches, from torch.profiler (kernel durations only: no launch gaps,
+    copies or memsets)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        k = kernel_of(e.name, kernels) if e.device_type == DeviceType.CUDA \
+            else None
+        if k:
+            out[k] = out.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
 
 
 def bound_ms(nbytes: int) -> float:
@@ -154,6 +216,74 @@ def _keys(rng, n, ndv, lanes, skew: bool):
     return np.stack(cols[:lanes], axis=1).astype(np.int32), ids
 
 
+def _rng(case: str):
+    """Each case's own random stream, seeded from its name: adding a case
+    moves no other case's inputs."""
+    return np.random.default_rng(zlib.crc32(case.encode()))
+
+
+def _probe_tables(name: str, rng, n: int, h: int):
+    """A kernel-2 case: (tables, probe keys [n, K, L] int32). A table is
+    (slots, its distinct build keys [B, L] int32) or, for the full table,
+    (slots, slot keys [H, L], used [H]) given as they stand."""
+    if name in ("K=1", "K=3"):
+        # ~0.25 load at 2^21 slots; about a third of the probe keys present
+        tables, keys = [], []
+        for hslots in (h, h // 2, h // 32)[:int(name[2:])]:
+            ndv = int(hslots * 0.4)
+            tables.append((hslots, rng.integers(0, ndv, ndv)[:, None]))
+            keys.append(rng.integers(0, 2 * ndv, n)[:, None])
+        return tables, np.stack(keys, axis=1).astype(np.int32)
+    if name == "orders":  # lineitem -> orders at SF 1: every key present
+        build = rng.choice(6_000_000, 1_500_000, replace=False) + 1
+        return ([(h, build[:, None])],
+                build[rng.integers(0, len(build), n)][:, None, None])
+    if name == "supplier":  # one key lane: 164 KB, the shared-memory route
+        build = np.arange(1, 10_001)
+        return [(1 << 15, build[:, None])], rng.integers(1, 10_001, n)[:, None, None]
+    if name == "nation":
+        return [(64, np.arange(25)[:, None])], rng.integers(0, 25, n)[:, None, None]
+    if name == "customer L=2":  # key + validity lane; 3 in 4 keys present
+        build = np.stack([np.arange(1, 150_001), np.ones(150_000)], axis=1)
+        probe = np.stack([rng.integers(1, 200_001, n), np.ones(n)], axis=1)
+        return [(1 << 19, build)], probe[:, None, :]
+    if name == "full table":  # every slot used: absent keys walk max_rounds
+        slots = 1 << 12
+        tkeys = rng.permutation(1_000_000)[:slots][:, None]
+        probe = np.where(rng.random(n) < 0.5,
+                         tkeys[rng.integers(0, slots, n), 0],
+                         rng.integers(1_000_000, 2_000_000, n))
+        return [(slots, tkeys, np.ones(slots, bool))], probe[:, None, None]
+    raise ValueError(name)
+
+
+PROBE_CASES = ("K=1", "K=3", "orders", "supplier", "nation", "customer L=2",
+               "full table")
+
+
+def probe_steps(keys, slot0, active, tkeys, used, table_slots,
+                max_rounds: int) -> int:
+    """Table reads a probe's data needs: per active pair, the steps of its
+    chain to a match, an empty slot or max_rounds (multiway_probe_plain's
+    loop, counted)."""
+    import torch
+
+    total, off = 0, 0
+    for k, hslots in enumerate(table_slots):
+        act = active[:, k].clone()
+        slot = slot0[:, k].long()
+        for _ in range(max_rounds):
+            live = int(act.sum())
+            if not live:
+                break
+            total += live
+            u = used[off + slot]
+            act &= u & ~(tkeys[off + slot] == keys[:, k]).all(dim=1)
+            slot = torch.where(act, (slot + 1) & (hslots - 1), slot)
+        off += hslots
+    return total
+
+
 def phase_kernels(n: int, h: int, reps: int) -> dict:
     import torch
 
@@ -161,7 +291,6 @@ def phase_kernels(n: int, h: int, reps: int) -> dict:
     from datafusion_distributed_tpu_torch.ops.hash import hash_columns
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(20261016)
     out: dict = {}
 
     def slot0_of(keys_t, hslots):
@@ -187,7 +316,7 @@ def phase_kernels(n: int, h: int, reps: int) -> dict:
     ]
     k1 = {}
     for name, lanes, ndv, skew in cases:
-        keys_np, _ = _keys(rng, n, ndv, lanes, skew)
+        keys_np, _ = _keys(_rng(name), n, ndv, lanes, skew)
         keys = torch.from_numpy(keys_np).to(dev)
         s0 = slot0_of(keys, h)
         hk.reset_round_stats()
@@ -214,65 +343,99 @@ def phase_kernels(n: int, h: int, reps: int) -> dict:
             case["library_ms"] = time_ms(
                 lambda: torch.unique(keys[:live_rows], dim=0,
                                      return_inverse=True), reps)
+            # keys and slot0 of the live rows only: what the build needs
             case["bound_ms"] = bound_ms(
-                nbytes(keys, s0, live) + nbytes(got[0], got[1], got[2]))
+                nbytes(keys[:live_rows], s0[:live_rows], live)
+                + nbytes(got[0], got[1], got[2]))
         k1[name] = case
         log(f"[kernels] build_group_ids {name}: {case}")
         del keys, s0, got, ref
     out["build_group_ids"] = dict(k1["skewed L=3"], cases=k1)
 
     # --- kernel 2: probe of K tables --------------------------------------
+    # Every probe row of a case is active where `live` is (72%). Where the
+    # package has them (a parent tree may not), the routes are printed and
+    # both records of the L2 route are timed: used flags apart from the key
+    # lanes, and packed into one record with them (packing pass included).
+    variants = hasattr(hk, "probe_cuda")
+    kernels = hash_table_kernels()
     k2 = {}
-    tables = []
-    for hslots in (h, h // 2, h // 32):
-        ndv = int(hslots * 0.4)
-        bkeys_np, _ = _keys(rng, ndv, ndv, 1, False)
-        bkeys = torch.from_numpy(bkeys_np).to(dev)
-        blive = torch.ones(ndv, dtype=torch.bool, device=dev)
-        _g, tk, used, bover, _r = hk.build_group_ids(
-            bkeys, slot0_of(bkeys, hslots), blive, hslots)
-        check(not bool(bover), "probe table build overflowed")
-        tables.append((hslots, ndv, tk, used))
-    for ntab in (1, 3):
-        tabs = tables[:ntab]
-        pkeys = []
-        slot0s = []
-        for hslots, ndv, _tk, _u in tabs:
-            # half the probe keys are present, half absent
-            kn = rng.integers(0, 2 * ndv, n).astype(np.int32)[:, None]
-            kt = torch.from_numpy(kn).to(dev)
-            pkeys.append(kt)
-            slot0s.append(slot0_of(kt, hslots))
-        keys = torch.stack(pkeys, dim=1)  # [n, K, 1]
-        s0 = torch.stack(slot0s, dim=1)
+    for name in PROBE_CASES:
+        specs, keys_np = _probe_tables(name, _rng(name), n, h)
+        tparts, uparts = [], []
+        for spec in specs:
+            if len(spec) == 3:  # a table as it stands
+                tparts.append(torch.from_numpy(spec[1].astype(np.int32)).to(dev))
+                uparts.append(torch.from_numpy(spec[2]).to(dev))
+                continue
+            bkeys = torch.from_numpy(spec[1].astype(np.int32)).to(dev)
+            blive = torch.ones(len(bkeys), dtype=torch.bool, device=dev)
+            _g, tk, used, bover, _r = hk.build_group_ids(
+                bkeys, slot0_of(bkeys, spec[0]), blive, spec[0])
+            check(not bool(bover), f"probe table of {name} overflowed")
+            tparts.append(tk)
+            uparts.append(used)
+        slots = tuple(spec[0] for spec in specs)
+        keys = torch.from_numpy(keys_np.astype(np.int32)).to(dev)
+        ntab = len(slots)
+        s0 = torch.stack([slot0_of(keys[:, k], slots[k]) for k in range(ntab)],
+                         dim=1)
         active = live[:, None].expand(n, ntab).contiguous()
-        tkeys = torch.cat([t[2] for t in tabs], dim=0)
-        used = torch.cat([t[3] for t in tabs], dim=0)
-        slots = tuple(t[0] for t in tabs)
-        got = hk.multiway_probe(keys, s0, active, tkeys, used, slots)
-        ref = hk.multiway_probe_plain(keys, s0, active, tkeys, used, slots)
+        args = (keys, s0, active, torch.cat(tparts), torch.cat(uparts), slots)
+        got = hk.multiway_probe(*args)
+        ref = hk.multiway_probe_plain(*args)
         err = max_abs_err(zip(got, ref))
-        check(err == 0, f"multiway_probe K={ntab}: kernel != plain")
-        found_frac = float((got[0] >= 0).float().mean())
+        check(err == 0, f"multiway_probe {name}: kernel != plain")
+        over = [bool(v) for v in got[1].tolist()]
+        check(any(over) == (name == "full table"),
+              f"multiway_probe {name}: overflow {over}")
         case = {
-            "max_abs_err": err, "found_fraction": found_frac,
-            "ms": time_ms(lambda: hk.multiway_probe(keys, s0, active, tkeys,
-                                                    used, slots), reps),
-            "plain_ms": time_ms(lambda: hk.multiway_probe_plain(
-                keys, s0, active, tkeys, used, slots), 1),
+            "max_abs_err": err, "overflow": over,
+            "active_pairs": int(active.sum()),
+            "steps": probe_steps(*args, hk.MAX_ROUNDS),
+            "found_fraction": float((got[0] >= 0).float().mean()),
+            "ms": time_ms(lambda: hk.multiway_probe(*args), reps),
+            "host_us": host_us(lambda: hk.multiway_probe(*args), reps),
+            "kernel_ms": kernel_ms(lambda: hk.multiway_probe(*args), reps,
+                                   kernels),
+            "plain_ms": time_ms(lambda: hk.multiway_probe_plain(*args), 1),
             "library_ms": None,
-            "bound_ms": bound_ms(nbytes(keys, s0, active, tkeys, used)
-                                 + nbytes(got[0], got[1])),
+            # keys and slot0 of the active pairs only: what the probe needs
+            "bound_ms": bound_ms(
+                int(active.sum()) * (4 * keys.shape[2] + 4)
+                + nbytes(active, *args[3:5]) + nbytes(*got)),
         }
-        k2[f"K={ntab}"] = case
-        log(f"[kernels] multiway_probe K={ntab}: {case}")
-        del keys, s0, active, got, ref
-    out["multiway_probe"] = dict(k2["K=1"], cases=k2)
+        # yardstick of the table reads: one random read of a key record per
+        # active pair of table 0, as one library gather (index_select)
+        gidx = s0[:, 0][active[:, 0]]
+        case["gather_ms"] = time_ms(
+            lambda: tparts[0].index_select(0, gidx), reps)
+        if variants:
+            launches = hk.probe_launches(slots, keys.shape[2],
+                                         hk.smem_limit(dev))
+            case["routes"] = [launch.route for launch in launches]
+            case["packs"] = [hk.packs_records(
+                n * len(launch.slots), sum(launch.slots), keys.shape[2])
+                for launch in launches if launch.route == "l2"]
+        if variants and "l2" in case["routes"]:
+            for label, pack in (("unpacked", False), ("packed", True)):
+                res = hk.probe_cuda(*args, hk.MAX_ROUNDS, pack)
+                check(max_abs_err(zip(res, ref)) == 0,
+                      f"multiway_probe {name} {label}: kernel != plain")
+                case[f"{label}_ms"] = time_ms(
+                    lambda: hk.probe_cuda(*args, hk.MAX_ROUNDS, pack), reps)
+        k2[name] = case
+        log(f"[kernels] multiway_probe {name}: {case}")
+        del keys, s0, active, args, got, ref, gidx
+    out["multiway_probe"] = dict(
+        k2["K=1"], cases=k2,
+        max_abs_err=max(c["max_abs_err"] for c in k2.values()))
 
     # --- kernel 3: group build + int32 fold --------------------------------
     k3 = {}
     ops = ("sum", "sum", "min", "max")  # count, sum, min, max
     for name, lanes, ndv, skew in cases:
+        rng = _rng(name)  # kernel 1's keys for the same case, then values
         keys_np, _ = _keys(rng, n, ndv, lanes, skew)
         keys = torch.from_numpy(keys_np).to(dev)
         s0 = slot0_of(keys, h)
@@ -303,8 +466,8 @@ def phase_kernels(n: int, h: int, reps: int) -> dict:
                 keys, s0, live, vals, h, ops), 1)
             case["library_ms"] = None
             case["bound_ms"] = bound_ms(
-                nbytes(keys, s0, live, vals)
-                + nbytes(got[0], got[1], got[2], got[3]))
+                nbytes(keys[:live_rows], s0[:live_rows], vals[:live_rows],
+                       live) + nbytes(got[0], got[1], got[2], got[3]))
         k3[name] = case
         log(f"[kernels] group_aggregate {name}: {case}")
         del keys, s0, vals, got, ref
@@ -402,8 +565,17 @@ def phase_main(sf: float, names, seed: int) -> dict:
     launches = dict(hk.LAUNCHES)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
+    # the probe launches by (rows, tables, lanes, table slots), both runs
+    probe_shapes = sorted(
+        ([n, k, lanes, list(slots), c] for (n, k, lanes, slots), c
+         in getattr(hk, "PROBE_SHAPES", {}).items()),
+        key=lambda s: (-s[0], s[3]))
+    for shape in probe_shapes:
+        log(f"[main] probe shape rows={shape[0]} tables={shape[1]} "
+            f"lanes={shape[2]} slots={shape[3]} launches={shape[4]}")
     return {
         "setup_s": setup_s, "queries": per_query, "launches": launches,
+        "probe_shapes": probe_shapes,
         "rounds": {"builds": rounds["builds"], "max": rounds["max"],
                    "mean": (rounds["total"] / rounds["builds"]
                             if rounds["builds"] else 0.0)},
@@ -422,6 +594,7 @@ def phase_profile(sf: float, names, seed: int, out_dir) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     ctx = _session("cuda", sf, seed)
+    kernels = hash_table_kernels()
     result = {}
     for q, sql in _queries(names):
         _run(ctx, sql)  # warm: builds, dictionaries, plan-time subqueries
@@ -437,15 +610,19 @@ def phase_profile(sf: float, names, seed: int, out_dir) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        ours = sum(ms for name, ms in by_name.items()
-                   if any(f"::{k}(" in name for k in HASH_TABLE_KERNELS))
+        ours: dict = {}  # the port's kernels' device ms, by kernel
+        for name, ms in by_name.items():
+            k = kernel_of(name, kernels)
+            if k:
+                ours[k] = ours.get(k, 0.0) + ms
         ka = prof.key_averages()
         syncs = sum(e.count for e in ka
                     if e.key in ("cudaStreamSynchronize",
                                  "cudaDeviceSynchronize", "cudaMemcpyAsync"))
         result[q] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                      "idle_share": 1.0 - busy_ms / wall_ms,
-                     "hash_kernels_ms": ours,
+                     "hash_kernels_ms": sum(ours.values()),
+                     "hash_kernels_by_name": ours,
                      "device_activities": len(dev), "sync_calls": syncs,
                      "top_device_ms": top}
         log(f"[profile] {q}: {result[q]}")
@@ -502,6 +679,7 @@ QUERIES = [f"q{i}" for i in range(1, 23)]
 ROWS = 8_388_608  # lineitem's padded capacity at TPC-H SF 1
 SLOTS = 1 << 21  # PlannerConfig.max_slots
 REPS = 5  # timed calls per kernel, after one warm-up
+SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -570,7 +748,7 @@ def main(argv=None) -> int:
     launches = results.get("main", {}).get("launches", {})
     for name, k in results.get("kernels", {}).items():
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches.get(name),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -1,11 +1,11 @@
-// Open-addressed hash-table kernels for sm_90a: group build, multi-table
-// probe, and group build fused with an int32 accumulator fold.
+// Open-addressed hash-table kernels for sm_90a: group build, and group build
+// fused with an int32 accumulator fold.
 //
-// Replaces the three Pallas TPU kernels of the reference package
+// Replaces two Pallas TPU kernels of the reference package
 // (datafusion_distributed_tpu/ops/pallas_hash.py):
 //   dftpu_group_build      <- pallas_build_group_ids        (kernel 1)
-//   dftpu_multiway_probe   <- pallas_multiway_probe         (kernel 2)
 //   dftpu_group_aggregate  <- pallas_global_hash_aggregate  (kernel 3)
+// (Kernel 2, the read-only multi-table probe, is csrc/probe.cu.)
 //
 // Layout. The TPU kernels insert rows one at a time into 2^16-slot VMEM
 // partitions; that layout is an artifact of VMEM. These kernels instead
@@ -20,7 +20,7 @@
 //             it to (slot + 1) & (H - 1).
 // The loop ends when no row is unresolved, or after max_rounds (overflow).
 //
-// What bounds them on the card. All three are memory-bound gathers and
+// What bounds them on the card. Both are memory-bound gathers and
 // scatters: per round each unresolved row reads its L key lanes and its
 // slot's L lanes (random 4-byte reads). The table fits the H100's 50 MB L2
 // (H = 2^21, L = 3: slot keys 25.2 MB, used 2.1 MB, owner 8.4 MB); the rows
@@ -86,13 +86,6 @@ constexpr long long kTailRows = 4LL * kThreads;
 // (ops/hash_kernels.py MAX_ACCS)
 constexpr int kCacheGroups = 64;
 constexpr int kMaxAccs = 32;
-
-inline int grid_for(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  return static_cast<int>(blocks);
-}
 
 struct Build {
   // inputs, read-only for the whole launch
@@ -511,49 +504,6 @@ Build make_build(const int* keys, const int* slot0, const unsigned char* live,
   return b;
 }
 
-__global__ void probe_rows(const int* __restrict__ keys,
-                           const int* __restrict__ slot0,
-                           const unsigned char* __restrict__ active,
-                           const int* __restrict__ tkeys,
-                           const unsigned char* __restrict__ used,
-                           const long long* __restrict__ offsets,
-                           const long long* __restrict__ slots, long long n,
-                           int ntab, int lanes, int max_rounds,
-                           int* __restrict__ found, int* __restrict__ over) {
-  const long long total = n * ntab;
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const int k = static_cast<int>(t % ntab);
-    int result = -1;
-    if (active[t]) {
-      const long long off = offsets[k];
-      const int mask = static_cast<int>(slots[k] - 1);
-      const int* mine = keys + t * lanes;
-      int s = slot0[t];
-      bool done = false;
-      for (int step = 0; step < max_rounds; ++step) {
-        const long long at = off + s;
-        if (!used[at]) {  // empty slot: the key is absent
-          done = true;
-          break;
-        }
-        bool match = true;
-        for (int l = 0; l < lanes && match; ++l) {
-          match = tkeys[at * lanes + l] == mine[l];
-        }
-        if (match) {
-          result = s;
-          done = true;
-          break;
-        }
-        s = (s + 1) & mask;
-      }
-      if (!done) over[k] = 1;
-    }
-    found[t] = result;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -581,24 +531,6 @@ int dftpu_group_build(const int* keys, const int* slot0,
   cudaError_t err = launch_build((const void*)group_build_kernel, b,
                                  static_cast<cudaStream_t>(stream));
   if (err) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Kernel 2: every (row, table) pair walks its table's chain, read-only.
-// keys [n, ntab, lanes] i32, slot0 [n, ntab] i32, active [n, ntab] u8,
-// tkeys [sum H_k, lanes] i32, used [sum H_k] u8, offsets/slots [ntab] i64
-// (device) -> found [n, ntab] i32 (-1 = absent), over [ntab] i32 (caller
-// zero-fills).
-int dftpu_multiway_probe(const int* keys, const int* slot0,
-                         const unsigned char* active, const int* tkeys,
-                         const unsigned char* used, const long long* offsets,
-                         const long long* slots, long long n, int ntab,
-                         int lanes, int max_rounds, int* found, int* over,
-                         void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  probe_rows<<<grid_for(n * ntab), kThreads, 0, st>>>(
-      keys, slot0, active, tkeys, used, offsets, slots, n, ntab, lanes,
-      max_rounds, found, over);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,17 +1,17 @@
 """The three hash-table kernels: CUDA wrappers and their plain PyTorch versions.
 
 Each kernel replaces one Pallas TPU kernel of the reference package
-(`datafusion_distributed_tpu/ops/pallas_hash.py`); the CUDA sources are in
-`csrc/hash_table.cu`, whose header says what bounds them on the card and what
-their design does about it.
+(`datafusion_distributed_tpu/ops/pallas_hash.py`); the CUDA sources are
+`csrc/hash_table.cu` (kernels 1 and 3) and `csrc/probe.cu` (kernel 2), whose
+headers say what bounds them on the card and what their design does about it.
 
-=====================  ============================================  =========================
+=====================  ============================================  ==============================
 wrapper                replaces                                      CUDA entry point
-=====================  ============================================  =========================
+=====================  ============================================  ==============================
 build_group_ids        pallas_build_group_ids  (pallas_hash.py:94)   dftpu_group_build
-multiway_probe         pallas_multiway_probe   (pallas_hash.py:259)  dftpu_multiway_probe
+multiway_probe         pallas_multiway_probe   (pallas_hash.py:259)  dftpu_multiway_probe (probe.cu)
 group_aggregate        pallas_global_hash_aggregate (:433)           dftpu_group_aggregate
-=====================  ============================================  =========================
+=====================  ============================================  ==============================
 
 Layout. All three keep the slot layout of the reference's XLA claim loop
 (`ops/aggregate.py build_group_table`), not the Pallas kernels' sequential
@@ -32,11 +32,33 @@ build's device, and each build adds to that device's ``ROUND_STATS``
 counter (the CUDA kernel on the card, the plain path on the CPU), so a
 build on the card makes no host sync; `round_stats()` reads the counters
 when asked.
+
+Probe. Kernel 2 walks (row, table) pairs in chunks of two a thread, read
+coalesced, and each thread walks its two chains in lock step, issuing a
+step's table reads of both before it compares either. A launch takes at most
+``MAX_TABLES_PER_LAUNCH`` tables, whose descriptors (first slot, slot count)
+travel by value as the kernel's parameter: no host-to-device copy per
+launch; more tables take one launch per group (`probe_launches`). Each group
+takes one of two routes, chosen from its tables' bytes (`probe_route`):
+``"smem"`` when the key lanes and used flags fit one block's shared memory
+(every block bulk-copies them in once, then probes from shared memory),
+else ``"l2"``, which reads the tables through L2 (the read-only path) while
+the row stream is streamed past it, the key lanes of a slot only once its
+used flag says it is used. Where a launch has at least
+``PACK_PAIRS_PER_SLOT`` pairs per table slot (`packs_records`), the L2 route
+first packs each slot's key lanes and used flag into one record, so a step
+reads one 32-byte sector instead of two; the packing pass reads and writes
+the whole table, so it pays only for probes large beside their tables
+(PERF.md). A route the card refuses raises; neither falls back to the
+other. ``PROBE_SHAPES`` counts the launches by shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,6 +75,19 @@ MAX_ACCS = 32
 
 #: kernel launches per wrapper (the plain CPU versions do not count)
 LAUNCHES = {"build_group_ids": 0, "multiway_probe": 0, "group_aggregate": 0}
+#: probe launches since the last reset, by shape: (rows, tables, lanes,
+#: table slots) -> launches
+PROBE_SHAPES: dict = {}
+#: most tables of one probe launch (csrc/probe.cu kMaxTables)
+MAX_TABLES_PER_LAUNCH = 8
+#: most (row, table) pairs of one probe on the card (csrc/probe.cu kMaxPairs)
+MAX_PAIRS = 2**31 - 2**23
+#: the L2 route packs each slot's key lanes and used flag into one record
+#: before it probes when the launch has at least this many (row, table)
+#: pairs per table slot: the packing pass reads and writes the whole table,
+#: and pays only where the probe's reads far outnumber the slots; at 4, the
+#: 22 TPC-H queries spent more device time than at 16 or never (PERF.md)
+PACK_PAIRS_PER_SLOT = 16
 #: claim-loop rounds of the builds since the last reset, one int64 [3]
 #: counter per device (builds, rounds summed, most rounds of one build):
 #: the CUDA builds add to theirs on the card, the plain path to the CPU's
@@ -86,6 +121,7 @@ def reset_round_stats() -> None:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    PROBE_SHAPES.clear()
     reset_round_stats()
 
 
@@ -105,20 +141,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _ULL = ctypes.c_ulonglong
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "dftpu_group_build": [_P, _P, _P, _LL, _I, _LL, _I, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P],
-    "dftpu_multiway_probe": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P,
-                             _P, _P],
-    "dftpu_group_aggregate": [_P, _P, _P, _P, _ULL, _LL, _I, _I, _LL, _I, _P,
-                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "hash_table.cu": {
+        "dftpu_group_build": [_P, _P, _P, _LL, _I, _LL, _I, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P],
+        "dftpu_group_aggregate": [_P, _P, _P, _P, _ULL, _LL, _I, _I, _LL, _I,
+                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P],
+    },
+    "probe.cu": {
+        "dftpu_multiway_probe": [_P, _P, _P, _P, _P, _PLL, _PLL, _I, _I, _I,
+                                 _LL, _I, _I, _I, _P, _P, _P, _P],
+        "dftpu_probe_smem_limit": [_PLL],
+    },
 }
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("hash_table.cu")
+def _lib(source: str = "hash_table.cu") -> ctypes.CDLL:
+    lib = _build.load(source)
     if not getattr(lib, "_dftpu_typed", False):
-        for name, args in _SIGNATURES.items():
+        for name, args in _SIGNATURES[source].items():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -340,27 +383,121 @@ def multiway_probe(keys, slot0, active, tkeys_packed, used_packed,
     if keys.device.type == "cpu":
         return multiway_probe_plain(keys, slot0, active, tkeys, used_packed,
                                     table_slots, max_rounds)
-    _require_cuda(slot0, active, tkeys, used_packed)
+    return probe_cuda(keys, slot0, active, tkeys, used_packed, table_slots,
+                      max_rounds)
+
+
+class ProbeLaunch(NamedTuple):
+    """One probe launch: a group of consecutive tables and its route."""
+
+    k0: int  # the group's first table
+    offsets: tuple  # each table's first slot in the packed arrays
+    slots: tuple  # each table's slot count
+    route: str  # "smem" or "l2"
+
+
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def smem_table_bytes(slots: int, lanes: int) -> int:
+    """Shared memory the shared-memory route takes for tables of ``slots``
+    slots in all: their int32 key lanes and their used flags, each span
+    widened to 16-byte boundaries for the bulk copies (csrc/probe.cu)."""
+    return _round16(4 * lanes * slots) + 16 + _round16(slots) + 16
+
+
+def probe_route(slots: int, lanes: int, smem_limit: int) -> str:
+    """"smem" when tables of ``slots`` slots in all fit ``smem_limit`` bytes
+    of a block's shared memory, else "l2"."""
+    return "smem" if smem_table_bytes(slots, lanes) <= smem_limit else "l2"
+
+
+@functools.lru_cache(maxsize=256)
+def probe_launches(table_slots: tuple, lanes: int, smem_limit: int,
+                   cap: int = MAX_TABLES_PER_LAUNCH) -> tuple:
+    """The launches of one probe: consecutive groups of at most ``cap``
+    tables, each with its tables' descriptors and the route their bytes
+    choose. ``table_slots`` is a tuple of ints."""
+    offsets = (0,) + tuple(itertools.accumulate(table_slots))[:-1]
+    return tuple(
+        ProbeLaunch(k0, offsets[k0:k0 + cap], table_slots[k0:k0 + cap],
+                    probe_route(sum(table_slots[k0:k0 + cap]), lanes,
+                                smem_limit))
+        for k0 in range(0, len(table_slots), cap))
+
+
+_ROUTE_CODES = {"l2": 0, "l2_packed": 1, "smem": 2}  # csrc/probe.cu Route
+_SMEM_LIMITS: dict = {}  # device index -> bytes
+
+
+def smem_limit(dev: torch.device) -> int:
+    """Bytes of shared memory a block of the shared-memory route may take
+    on the card ``dev`` (asked once per card)."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    limit = _SMEM_LIMITS.get(index)
+    if limit is None:
+        lib = _lib("probe.cu")
+        out = ctypes.c_longlong(0)
+        with torch.cuda.device(index):
+            _check(lib, lib.dftpu_probe_smem_limit(ctypes.byref(out)),
+                   "dftpu_probe_smem_limit")
+        limit = _SMEM_LIMITS[index] = out.value
+    return limit
+
+
+def packs_records(pairs: int, slots: int, lanes: int) -> bool:
+    """Whether an L2-route launch of ``pairs`` (row, table) pairs against
+    tables of ``slots`` slots in all first packs each slot's key lanes and
+    used flag into one record (at most 3 int32 lanes)."""
+    return lanes <= 3 and pairs >= PACK_PAIRS_PER_SLOT * slots
+
+
+def probe_cuda(keys, slot0, active, tkeys, used, table_slots,
+               max_rounds: int, pack_used=None):
+    """`multiway_probe` on the card: one launch per group of tables
+    (`probe_launches`), by the route the group's bytes choose. The L2
+    route packs its records as `packs_records` says, or as ``pack_used``
+    forces (True packs where the lanes allow, False never)."""
+    _require_cuda(keys, slot0, active, tkeys, used)
     dev = keys.device
-    lanes = keys.shape[2]
+    keys = _i32_lanes(keys)
+    tkeys = _i32_lanes(tkeys)
+    n, ntab, lanes = keys.shape
+    if n * ntab > MAX_PAIRS:
+        raise ValueError(f"{n} rows x {ntab} tables: at most {MAX_PAIRS} "
+                         "(row, table) pairs a probe")
     slot0 = slot0.to(torch.int32).contiguous()
     active = active.to(torch.bool).contiguous()
-    used = used_packed.to(torch.bool).contiguous()
-    offsets = np.concatenate([[0], np.cumsum(table_slots)[:-1]])
-    offsets_t = torch.tensor(offsets, dtype=torch.int64, device=dev)
-    slots_t = torch.tensor(table_slots, dtype=torch.int64, device=dev)
+    used = used.to(torch.bool).contiguous()
     found = torch.empty((n, ntab), dtype=torch.int32, device=dev)
-    over = torch.zeros(ntab, dtype=torch.int32, device=dev)
-    lib = _lib()
+    over = torch.empty(ntab, dtype=torch.bool, device=dev)  # the C side fills
+    lib = _lib("probe.cu")
+    launches = probe_launches(table_slots, lanes, smem_limit(dev))
     with torch.cuda.device(dev):
-        err = lib.dftpu_multiway_probe(
-            _ptr(keys), _ptr(slot0), _ptr(active), _ptr(tkeys), _ptr(used),
-            _ptr(offsets_t), _ptr(slots_t), n, ntab, lanes, max_rounds,
-            _ptr(found), _ptr(over), _stream(keys),
-        )
-    _check(lib, err, "dftpu_multiway_probe")
-    LAUNCHES["multiway_probe"] += 1
-    return found, over != 0
+        for launch in launches:
+            g = len(launch.slots)
+            pack = (packs_records(n * g, sum(launch.slots), lanes)
+                    if pack_used is None else pack_used and lanes <= 3)
+            route, scratch = launch.route, None
+            if route == "l2" and pack:
+                route = "l2_packed"
+                scratch = torch.empty((sum(launch.slots), 2 if lanes == 1 else 4),
+                                      dtype=torch.int32, device=dev)
+            err = lib.dftpu_multiway_probe(
+                _ptr(keys), _ptr(slot0), _ptr(active), _ptr(tkeys), _ptr(used),
+                (ctypes.c_longlong * g)(*launch.offsets),
+                (ctypes.c_longlong * g)(*launch.slots), g, launch.k0, ntab, n,
+                lanes, max_rounds, _ROUTE_CODES[route],
+                None if scratch is None else _ptr(scratch), _ptr(found),
+                _ptr(over), _stream(keys),
+            )
+            _check(lib, err, "dftpu_multiway_probe")
+            LAUNCHES["multiway_probe"] += 1
+            shape = (n, g, lanes, launch.slots)
+            PROBE_SHAPES[shape] = PROBE_SHAPES.get(shape, 0) + 1
+    return found, over
 
 
 # ---------------------------------------------------------------------------

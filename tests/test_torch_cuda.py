@@ -25,6 +25,12 @@ def dev():
     return torch.device("cuda")
 
 
+def _slot0(keys, h):
+    lanes = keys.shape[1]
+    return (hash_columns([keys[:, i] for i in range(lanes)], [None] * lanes)
+            & (h - 1)).to(torch.int32)
+
+
 def _inputs(dev, n=1 << 16, h=1 << 14, lanes=2, ndv=5000, seed=0,
             dtype=np.int32, live=0.9):
     rng = np.random.default_rng(seed)
@@ -33,8 +39,7 @@ def _inputs(dev, n=1 << 16, h=1 << 14, lanes=2, ndv=5000, seed=0,
     else:
         vocab = rng.integers(-1000, 1000, (ndv, lanes)).astype(dtype)
     keys = torch.from_numpy(vocab[rng.integers(0, ndv, n)]).to(dev)
-    slot0 = (hash_columns([keys[:, i] for i in range(lanes)], [None] * lanes)
-             & (h - 1)).to(torch.int32)
+    slot0 = _slot0(keys, h)
     live = torch.from_numpy(rng.random(n) < live).to(dev)
     return rng, keys, slot0, live, h
 
@@ -111,14 +116,103 @@ def test_group_aggregate_matches_plain(dev, case):
     assert hk.round_stats()["builds"] == 1
 
 
+def _probe_inputs(dev, slots=(1 << 16,), n=1 << 16, lanes=2, seed=0,
+                  dtype=np.int32, active=0.9, full=False):
+    """n probe rows against tables of ``slots`` slots each: built from a
+    third as many keys, or with ``full`` holding a key in every slot and
+    each row starting a few slots before its key's. Keys of the tables are
+    even; half the rows carry a key of the table, half an odd one.
+    -> multiway_probe's arguments."""
+    rng = np.random.default_rng(seed)
+    tparts, uparts, kparts, sparts = [], [], [], []
+    for h in slots:
+        if dtype == np.int64:  # both halves of a lane vary
+            vocab = rng.integers(-2**40, 2**40, (h, lanes)) * 2
+        else:
+            vocab = rng.integers(-10**6, 10**6, (h, lanes)).astype(dtype) * 2
+        ndv = h if full else max(1, h // 3)
+        pick = rng.integers(0, ndv, n)
+        present = vocab[pick]
+        pk = torch.from_numpy(np.where(rng.random((n, 1)) < 0.5, present,
+                                       present + 1)).to(dev)
+        if full:
+            tk = torch.from_numpy(vocab).to(dev)
+            used = torch.ones(h, dtype=torch.bool, device=dev)
+            s0 = torch.from_numpy(
+                ((pick - rng.integers(0, 8, n)) % h).astype(np.int32)).to(dev)
+        else:
+            bkeys = torch.from_numpy(vocab[:ndv]).to(dev)
+            _g, tk, used, over, _r = hk.build_group_ids(
+                bkeys, _slot0(bkeys, h),
+                torch.ones(ndv, dtype=torch.bool, device=dev), h)
+            assert not bool(over)
+            s0 = _slot0(pk, h)
+        tparts.append(tk)
+        uparts.append(used)
+        kparts.append(pk)
+        sparts.append(s0)
+    active_t = torch.from_numpy(rng.random((n, len(slots))) < active).to(dev)
+    return (torch.stack(kparts, dim=1), torch.stack(sparts, dim=1), active_t,
+            torch.cat(tparts), torch.cat(uparts), tuple(slots))
+
+
+# name -> (_probe_inputs arguments, max_rounds, the launches' routes,
+# overflow expected). L2 tables are larger than a block's shared memory
+# (227 KB on the H100), shared-memory tables smaller. In a full table an
+# absent key walks until max_rounds.
+PROBE_CASES = {
+    "K=1 l2": ({}, hk.MAX_ROUNDS, ["l2"], False),
+    "K=1 smem": ({"slots": (1 << 12,)}, hk.MAX_ROUNDS, ["smem"], False),
+    "K=3 l2": ({"slots": (1 << 16, 1 << 14, 1 << 12)}, hk.MAX_ROUNDS,
+               ["l2"], False),
+    "K=3 smem": ({"slots": (1 << 10, 1 << 9, 1 << 8)}, hk.MAX_ROUNDS,
+                 ["smem"], False),
+    "int64 lanes l2": ({"dtype": np.int64}, hk.MAX_ROUNDS, ["l2"], False),
+    "int64 lanes smem": ({"dtype": np.int64, "slots": (1 << 10,)},
+                         hk.MAX_ROUNDS, ["smem"], False),
+    "n=0": ({"n": 0}, hk.MAX_ROUNDS, ["l2"], False),
+    "n=20": ({"n": 20, "slots": (64,)}, hk.MAX_ROUNDS, ["smem"], False),
+    "ragged n l2": ({"n": 70001}, hk.MAX_ROUNDS, ["l2"], False),
+    "ragged n smem": ({"n": 70001, "slots": (1 << 11,)}, hk.MAX_ROUNDS,
+                      ["smem"], False),
+    "no active row": ({"active": 0.0}, hk.MAX_ROUNDS, ["l2"], False),
+    "one slot": ({"slots": (1,), "n": 300}, hk.MAX_ROUNDS, ["smem"], True),
+    "full table l2, 512 rounds": ({"lanes": 1, "full": True}, hk.MAX_ROUNDS,
+                                  ["l2"], True),
+    "full table l2, 3 rounds": ({"lanes": 1, "full": True}, 3, ["l2"], True),
+    "full table smem, 512 rounds": ({"slots": (1 << 12,), "lanes": 1,
+                                     "full": True}, hk.MAX_ROUNDS, ["smem"],
+                                    True),
+    "full table smem, 3 rounds": ({"slots": (1 << 12,), "lanes": 1,
+                                   "full": True}, 3, ["smem"], True),
+    # more tables than one launch's descriptors hold: one launch per group
+    "K=10": ({"slots": (1 << 13,) * 8 + (1 << 10,) * 2, "lanes": 1,
+              "n": 5000}, hk.MAX_ROUNDS, ["l2", "smem"], False),
+}
+
+
 @pytest.mark.cuda
-def test_probe_matches_plain(dev):
-    _rng, keys, slot0, live, h = _inputs(dev)
-    _g, tk, used, _o, _r = hk.build_group_ids(keys, slot0, live, h)
-    perm = torch.randperm(keys.shape[0], device=dev)
-    args = (keys[perm][:, None, :], slot0[perm][:, None], live[perm][:, None],
-            tk, used, (h,))
-    got = hk.multiway_probe(*args)
-    ref = hk.multiway_probe_plain(*args)
+@pytest.mark.parametrize("pack_used", [None, False, True])
+@pytest.mark.parametrize("case", list(PROBE_CASES))
+def test_probe_matches_plain(dev, case, pack_used):
+    kwargs, max_rounds, routes, over = PROBE_CASES[case]
+    args = _probe_inputs(dev, **kwargs)
+    keys, table_slots = args[0], args[5]
+    lanes = keys.shape[2] * (2 if keys.dtype == torch.int64 else 1)
+    launches = hk.probe_launches(table_slots, lanes, hk.smem_limit(dev))
+    assert [launch.route for launch in launches] == routes
+    hk.reset_launch_counts()
+    # the L2 route's two records: key lanes and used flags apart, or packed
+    # together; the wrapper (None) takes the one packs_records chooses
+    if pack_used is None:
+        got = hk.multiway_probe(*args, max_rounds)
+    else:
+        got = hk.probe_cuda(*args, max_rounds, pack_used)
+    assert hk.LAUNCHES["multiway_probe"] == len(launches)
+    assert sum(hk.PROBE_SHAPES.values()) == len(launches)
+    ref = hk.multiway_probe_plain(*args, max_rounds)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    assert bool((got[0] >= 0).any())
+    assert bool(got[1].any()) == (over and keys.shape[0] > 0)
+    if keys.shape[0] and kwargs.get("active", 0.9) > 0:
+        assert bool((got[0] >= 0).any()) and bool((got[0] < 0).any())

@@ -333,6 +333,97 @@ def test_multiway_probe_matches_reference_k3(max_rounds):
         assert np_of(over).any()
 
 
+SMEM_H100 = 232_448 - 16  # a block's dynamic shared memory, less the barrier
+
+
+@pytest.mark.parametrize("slots,lanes,route", [
+    (1 << 15, 1, "smem"),  # supplier at SF 1: 160 KB of keys and flags
+    (64, 1, "smem"),  # nation
+    (16, 2, "smem"),  # region, key and validity lane
+    (1, 1, "smem"),
+    (1 << 15, 2, "l2"),  # 288 KB
+    (1 << 19, 1, "l2"),  # customer, part
+    (1 << 21, 1, "l2"),  # orders, partsupp
+])
+def test_probe_route_by_table_bytes(slots, lanes, route):
+    assert hk.probe_route(slots, lanes, SMEM_H100) == route
+    need = hk.smem_table_bytes(slots, lanes)
+    assert hk.probe_route(slots, lanes, need) == "smem"
+    assert hk.probe_route(slots, lanes, need - 1) == "l2"
+
+
+@pytest.mark.parametrize("nbytes", [1, 4, 15, 16, 17, 4 * 3 * 1000, 1 << 17])
+def test_smem_table_bytes_cover_the_bulk_copies(nbytes):
+    """The shared-memory route copies each span widened to 16-byte
+    boundaries (csrc/probe.cu); whatever the span's start, the widened
+    copy fits what smem_table_bytes reserves for it."""
+    def reserved(span):
+        return -(-span // 16) * 16 + 16
+
+    widest = max((start + nbytes + 15) // 16 * 16 - start // 16 * 16
+                 for start in range(64))
+    assert widest <= reserved(nbytes)
+    for slots, lanes in ((1000, 3), (nbytes, 1)):
+        assert hk.smem_table_bytes(slots, lanes) == (
+            reserved(4 * lanes * slots) + reserved(slots))
+
+
+def test_probe_launches_pack_descriptors_per_group():
+    """Table descriptors (first slot in the packed arrays, slot count) go
+    by value, at most ``cap`` tables a launch: more tables take one launch
+    per consecutive group, each group routed by its own bytes."""
+    table_slots = (1 << 13,) * 8 + (1 << 10,) * 2
+    launches = hk.probe_launches(table_slots, 1, SMEM_H100)
+    assert hk.MAX_TABLES_PER_LAUNCH == 8
+    assert [(la.k0, la.route) for la in launches] == [(0, "l2"), (8, "smem")]
+    assert launches[0].slots == (1 << 13,) * 8
+    assert launches[0].offsets == tuple(k << 13 for k in range(8))
+    assert launches[1].offsets == (8 << 13, (8 << 13) + 1024)
+    assert launches[1].slots == (1024, 1024)
+    # any cap: the groups cover the tables in order, offsets are prefix sums
+    slots = (4, 64, 1 << 20, 2, 8, 1 << 12, 16)
+    for cap in (1, 2, 3, 7, 8):
+        groups = hk.probe_launches(slots, 2, SMEM_H100, cap)
+        assert len(groups) == -(-len(slots) // cap)
+        assert [la.k0 for la in groups] == list(range(0, len(slots), cap))
+        assert sum((la.slots for la in groups), ()) == slots
+        assert sum((la.offsets for la in groups), ()) == tuple(
+            int(v) for v in np.cumsum((0,) + slots[:-1]))
+        for la in groups:
+            assert la.route == hk.probe_route(sum(la.slots), 2, SMEM_H100)
+    one = hk.probe_launches((1 << 21,), 1, SMEM_H100)
+    assert one == (hk.ProbeLaunch(0, (0,), (1 << 21,), "l2"),)
+
+
+@pytest.mark.parametrize("pairs,slots,lanes,packs", [
+    (8_388_608, 1 << 19, 1, True),  # lineitem against customer or part
+    (8_388_608, 1 << 19, 3, True),
+    (8_388_608, 1 << 19, 4, False),  # a record holds at most 3 lanes
+    (8_388_608, 1 << 21, 2, False),  # lineitem against orders: too few
+    (262_144, 1 << 19, 2, False),
+])
+def test_packs_records_for_probes_large_beside_their_tables(pairs, slots,
+                                                            lanes, packs):
+    assert hk.packs_records(pairs, slots, lanes) == packs
+    assert hk.packs_records(hk.PACK_PAIRS_PER_SLOT * slots, slots, 1)
+    assert not hk.packs_records(hk.PACK_PAIRS_PER_SLOT * slots - 1, slots, 1)
+
+
+def test_probe_on_the_cpu_runs_the_plain_version_only():
+    """A CPU tensor takes the plain version: no launch, no probe shape."""
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(_lane_keys(rng, 50, 1, 10))
+    table = torch.from_numpy(_lane_keys(rng, 16, 1, 16))
+    args = (keys[:, None, :], _slot0(keys.numpy(), 16)[:, None],
+            torch.ones((50, 1), dtype=torch.bool), table,
+            torch.ones(16, dtype=torch.bool), (16,))
+    hk.reset_launch_counts()
+    found, over = hk.multiway_probe(*args)
+    ref = hk.multiway_probe_plain(*args)
+    assert torch.equal(found, ref[0]) and torch.equal(over, ref[1])
+    assert hk.LAUNCHES["multiway_probe"] == 0 and hk.PROBE_SHAPES == {}
+
+
 @pytest.mark.parametrize("live_fraction", [0.0, 0.9])
 def test_build_reports_rounds_and_overflow_as_tensors(live_fraction):
     """rounds and overflow are 0-d tensors (on the card they stay there);
