@@ -19,7 +19,25 @@ Phases, each of which must pass:
    column's scale.
 5. profile — each query once more under torch.profiler: device busy time,
    idle share, sync calls and the port's kernels' device time per query.
+6. session — the session as a user drives it at SF 1: a second
+   ctx.sql(same text) of every query reuses the planned tree (no planner
+   call) with byte-identical results; planning ms of the first and the
+   cached submission; every plan verifies with no error diagnostic;
+   results with literal hoisting off equal those with it on, byte for byte;
+   a prepared TPC-H q6 template bound three times equals ctx.sql on the
+   bound text.
+7. window — the window queries W1-W3 at SF 1, twice, byte-identical, and
+   at SF 0.01 on "cuda" against "cpu".
+8. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
+   import): the `hits` table at its published 99,997,497 rows, seed 3, all
+   43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
+   kernels 1 and 2 at every shape that run gave them (group builds on
+   `hits`'s int64 keys through the (lo, hi) lane split, up to 2^28 slots),
+   bit-exact against their plain versions; and at 20,000 rows on "cuda"
+   against "cpu".
 
+The main phase, the window phase and the ClickBench run each set the
+kernels' launch counts to 0 just before they run and read them just after.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, the script fails and prints no result.
@@ -29,9 +47,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -41,6 +61,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 QUERY_DIR = Path(__file__).resolve().parent / "benchmarks" / "queries" / "tpch"
+CLICKBENCH_DIR = QUERY_DIR.parent / "clickbench"
 CSRC = "datafusion_distributed_tpu_torch/csrc"
 SOURCES = {
     "build_group_ids": f"{CSRC}/hash_table.cu",
@@ -104,6 +125,21 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn) -> tuple:
+    """(fn(), its device time in ms): CUDA events around one call, for a
+    plain version too slow to run twice."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def host_us(fn, reps: int) -> float:
@@ -485,19 +521,35 @@ def _queries(names):
     return [(q, (QUERY_DIR / f"{q}.sql").read_text()) for q in names]
 
 
+#: (device, sf, seed) -> the generated TPC-H tables: each is generated and
+#: uploaded once a run, and every phase's session registers the same ones
+_TABLES: dict = {}
+
+
 def _session(device: str, sf: float, seed: int):
+    """A fresh SessionContext (its own plan cache) over the TPC-H tables."""
     from datafusion_distributed_tpu_torch.data import tpchgen
     from datafusion_distributed_tpu_torch.sql.context import SessionContext
 
     ctx = SessionContext(device=device)
-    tpchgen.register_tpch(ctx, sf, seed)
+    tables = _TABLES.get((device, sf, seed))
+    if tables is None:
+        tpchgen.register_tpch(ctx, sf, seed)
+        _TABLES[(device, sf, seed)] = dict(ctx.catalog.tables)
+    else:
+        for name, table in tables.items():
+            ctx.register_table(name, table)
     return ctx
 
 
 def _run(ctx, sql: str) -> dict:
+    return _collect(ctx.sql(sql))
+
+
+def _collect(df) -> dict:
     import torch
 
-    out = ctx.sql(sql).collect_table().to_numpy()
+    out = df.collect_table().to_numpy()
     torch.cuda.synchronize()
     return out
 
@@ -519,6 +571,28 @@ def _identical(a: dict, b: dict) -> bool:
         elif x.tobytes() != y.tobytes():
             return False
     return True
+
+
+def kernel_shapes(hk, tag: str) -> tuple:
+    """The build and probe launches since the last reset, by shape, logged:
+    builds as [rows, int32 key lanes, slots, launches], probes as [rows,
+    tables, lanes, table slots, launches] (a parent tree may lack either
+    counter)."""
+    builds = sorted(
+        ([n, lanes, h, c] for (n, lanes, h), c
+         in getattr(hk, "BUILD_SHAPES", {}).items()),
+        key=lambda s: (-s[0], -s[2], s[1]))
+    probes = sorted(
+        ([n, k, lanes, list(slots), c] for (n, k, lanes, slots), c
+         in getattr(hk, "PROBE_SHAPES", {}).items()),
+        key=lambda s: (-s[0], s[3]))
+    for shape in builds:
+        log(f"[{tag}] build shape rows={shape[0]} lanes={shape[1]} "
+            f"slots={shape[2]} launches={shape[3]}")
+    for shape in probes:
+        log(f"[{tag}] probe shape rows={shape[0]} tables={shape[1]} "
+            f"lanes={shape[2]} slots={shape[3]} launches={shape[4]}")
+    return builds, probes
 
 
 def phase_main(sf: float, names, seed: int) -> dict:
@@ -565,17 +639,10 @@ def phase_main(sf: float, names, seed: int) -> dict:
     launches = dict(hk.LAUNCHES)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
-    # the probe launches by (rows, tables, lanes, table slots), both runs
-    probe_shapes = sorted(
-        ([n, k, lanes, list(slots), c] for (n, k, lanes, slots), c
-         in getattr(hk, "PROBE_SHAPES", {}).items()),
-        key=lambda s: (-s[0], s[3]))
-    for shape in probe_shapes:
-        log(f"[main] probe shape rows={shape[0]} tables={shape[1]} "
-            f"lanes={shape[2]} slots={shape[3]} launches={shape[4]}")
+    build_shapes, probe_shapes = kernel_shapes(hk, "main")
     return {
         "setup_s": setup_s, "queries": per_query, "launches": launches,
-        "probe_shapes": probe_shapes,
+        "build_shapes": build_shapes, "probe_shapes": probe_shapes,
         "rounds": {"builds": rounds["builds"], "max": rounds["max"],
                    "mean": (rounds["total"] / rounds["builds"]
                             if rounds["builds"] else 0.0)},
@@ -672,6 +739,405 @@ def phase_check(sf: float, names, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the session (plan cache, verification, hoisting, prepared q6)
+# ---------------------------------------------------------------------------
+
+Q6_TEMPLATE = """
+select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= date '1994-01-01'
+  and l_shipdate < date '1995-01-01'
+  and l_discount between $1 - 0.01 and $1 + 0.01
+  and l_quantity < $2
+"""
+Q6_BINDINGS = ((0.06, 24), (0.05, 25), (0.07, 20))
+
+
+def phase_session(sf: float, names, seed: int) -> dict:
+    import torch
+
+    from datafusion_distributed_tpu_torch.plan import fingerprint
+    from datafusion_distributed_tpu_torch.plan.verify import (
+        verify_physical_plan,
+    )
+    from datafusion_distributed_tpu_torch.sql import planner
+
+    ctx = _session("cuda", sf, seed)
+    calls = []  # one entry per PhysicalPlanner.plan call
+    real_plan = planner.PhysicalPlanner.plan
+
+    def counting_plan(self, logical):
+        calls.append(1)
+        return real_plan(self, logical)
+
+    def plan_ms(sql):
+        t0 = time.perf_counter()
+        df = ctx.sql(sql)
+        df.physical_plan()
+        torch.cuda.synchronize()
+        return df, (time.perf_counter() - t0) * 1e3
+
+    per_query, hoisted_on = {}, {}
+    planner.PhysicalPlanner.plan = counting_plan
+    try:
+        for q, sql in _queries(names):
+            n0 = len(calls)
+            first, first_ms = plan_ms(sql)
+            check(len(calls) > n0, f"{q}: the first submission did not plan")
+            r1 = _collect(first)  # an overflow retry plans (and caches) too
+            n1 = len(calls)
+            second, cached_ms = plan_ms(sql)
+            r2 = _collect(second)
+            check(len(calls) == n1 and
+                  second.physical_plan() is first.physical_plan(),
+                  f"{q}: the second submission planned again")
+            check(_identical(r1, r2), f"{q}: cached plan's result differs")
+            result = verify_physical_plan(first.physical_plan())
+            check(not result.errors(),
+                  f"{q}: verification errors\n{result.render()}")
+            prep = fingerprint.prepare_plan(first.physical_plan())
+            check(prep.fingerprint is not None, f"{q}: no fingerprint")
+            hoisted_on[q] = r1
+            per_query[q] = {
+                "plan_first_ms": first_ms, "plan_cached_ms": cached_ms,
+                "planner_calls": n1 - n0,
+                "retries": first.last_retry_count,
+                "hoisted": len(prep.int_params) + len(prep.float_params),
+                "diagnostics": sorted(d.code for d in result.diagnostics),
+            }
+            log(f"[session] {q}: {per_query[q]}")
+    finally:
+        planner.PhysicalPlanner.plan = real_plan
+    # the same queries with hoisting off, in a session of their own
+    off = _session("cuda", sf, seed)
+    fingerprint.set_literal_hoisting(False)
+    try:
+        for q, sql in _queries(names):
+            check(_identical(_run(off, sql), hoisted_on[q]),
+                  f"{q}: hoisting on and off differ")
+    finally:
+        fingerprint.set_literal_hoisting(True)
+    stmt = ctx.prepare(Q6_TEMPLATE)
+    fps = set()
+    for params in Q6_BINDINGS:
+        df = stmt.to_df(params)
+        check(_identical(_collect(df), _run(ctx, stmt.bind_sql(params))),
+              f"prepared q6 {params}: differs from ctx.sql")
+        fps.add(fingerprint.prepare_plan(df.physical_plan()).fingerprint)
+    check(len(fps) == 1, f"prepared q6: {len(fps)} fingerprints")
+    log(f"[session] {len(per_query)} queries reuse their plans; hoisting "
+        "on and off identical; prepared q6 bound "
+        f"{len(Q6_BINDINGS)} times")
+    return {"queries": per_query,
+            "plan_first_ms": sum(v["plan_first_ms"]
+                                 for v in per_query.values()),
+            "plan_cached_ms": sum(v["plan_cached_ms"]
+                                  for v in per_query.values())}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: window functions
+# ---------------------------------------------------------------------------
+
+#: top-N per group; a running sum with peers; a window over an aggregate
+#: (the TPC-DS q12/q98 shape)
+WINDOW_QUERIES = {
+    "W1": "select l_suppkey, l_orderkey, l_extendedprice, rn, rk, dr from "
+          "(select l_suppkey, l_orderkey, l_extendedprice, row_number() over "
+          "(partition by l_suppkey order by l_extendedprice desc, l_orderkey)"
+          " rn, rank() over (partition by l_suppkey order by l_extendedprice"
+          " desc) rk, dense_rank() over (partition by l_suppkey order by "
+          "l_extendedprice desc) dr from lineitem) t where rn <= 3 "
+          "order by l_suppkey, rn",
+    "W2": "select o_custkey, o_orderdate, sum(o_totalprice) over (partition "
+          "by o_custkey order by o_orderdate) rs, count(*) over (partition by"
+          " o_custkey) n from orders order by o_custkey, o_orderdate, rs",
+    "W3": "select p_brand, p_type, sum(l_extendedprice) rev, "
+          "sum(l_extendedprice) * 100 / sum(sum(l_extendedprice)) over "
+          "(partition by p_brand) ratio from lineitem, part where l_partkey ="
+          " p_partkey group by p_brand, p_type order by p_brand, p_type",
+}
+#: the kernels each path must launch
+WINDOW_KERNELS = ("build_group_ids", "multiway_probe")
+CLICKBENCH_KERNELS = ("build_group_ids",)
+
+
+def phase_window(sf: float, check_sf: float, seed: int) -> dict:
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+
+    ctx = _session("cuda", sf, seed)
+    per_query = {}
+    hk.reset_launch_counts()
+    for name, sql in WINDOW_QUERIES.items():
+        t0 = time.perf_counter()
+        first = _run(ctx, sql)
+        t1 = time.perf_counter()
+        second = _run(ctx, sql)
+        t2 = time.perf_counter()
+        check(_identical(first, second), f"{name}: two runs differ")
+        per_query[name] = {"rows": len(next(iter(second.values()))),
+                           "first_s": t1 - t0, "second_s": t2 - t1}
+        log(f"[window] {name}: {per_query[name]}")
+    launches = dict(hk.LAUNCHES)
+    for k in WINDOW_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the window "
+              "queries")
+    gpu = _session("cuda", check_sf, seed)
+    cpu = _session("cpu", check_sf, seed)
+    for name, sql in WINDOW_QUERIES.items():
+        diff = _close(_run(gpu, sql), cpu.sql(sql).collect_table().to_numpy(),
+                      precision.test_rtol())
+        check(diff == "", f"{name}: cuda and cpu differ in {diff}")
+    log(f"[window] SF {check_sf}: {len(WINDOW_QUERIES)} queries equal on "
+        "cuda and cpu")
+    return {"queries": per_query, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: ClickBench in x64 mode, in a subprocess
+# ---------------------------------------------------------------------------
+
+CLICKBENCH_ROWS = 99_997_497  # ClickBench's `hits` table
+CLICKBENCH_CHECK_ROWS = 20_000  # card against CPU, as the CPU tests size it
+CLICKBENCH_SEED = 3
+CLICKBENCH_QUERIES = [f"q{i}" for i in range(43)]
+CLICKBENCH_RETRIES = 8  # overflow retries (SessionConfig; default 3)
+
+
+def phase_clickbench(timeout_s: float) -> dict:
+    """Run the ClickBench worker (this script with --clickbench-worker) in
+    a DFTPU_PRECISION=x64 subprocess; its exit code decides the phase."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "clickbench.json"
+        env = dict(os.environ, DFTPU_PRECISION="x64")
+        # the overflow retry's default 16 GB plan budget is below `hits`
+        # itself at this size: let a widened plan use 3/4 of the card
+        env.setdefault("DFTPU_RETRY_BYTES_BUDGET", str(int(
+            0.75 * torch.cuda.get_device_properties(0).total_memory)))
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--clickbench-worker", "--out", str(out)],
+            env=env, timeout=timeout_s, stdout=subprocess.DEVNULL,
+        )
+        check(proc.returncode == 0,
+              f"the ClickBench subprocess exited {proc.returncode}")
+        return json.loads(out.read_text())
+
+
+def clickbench_worker(out_path: str) -> int:
+    import resource
+
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.data import clickbenchgen
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.sql.context import (
+        SessionConfig,
+        SessionContext,
+    )
+
+    check(precision.MODE == "x64", f"precision mode {precision.MODE}")
+    rows = CLICKBENCH_ROWS
+    queries = [(q, (CLICKBENCH_DIR / f"{q}.sql").read_text())
+               for q in CLICKBENCH_QUERIES]
+    t0 = time.perf_counter()
+    # q36's filter is estimated at a few rows at this size (28,822 groups
+    # at 5 M rows on a 32-slot table): from there, 4x a retry reaches its
+    # groups in 6 retries, not the default 3
+    ctx = SessionContext(SessionConfig(overflow_retries=CLICKBENCH_RETRIES),
+                         device="cuda")
+    clickbenchgen.register_clickbench(ctx, rows, CLICKBENCH_SEED)
+    # GROUP BYs over ~10^8 distinct keys (WatchID, ClientIP, ...) need
+    # tables above the default 2^21-slot cap: twice the padded row count
+    slots = 2 * ctx.catalog.tables["hits"].capacity
+    ctx.sql(f"SET planner.max_slots = {slots}")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"[clickbench] hits: {rows} rows generated and uploaded in "
+        f"{setup_s:.1f}s; max_slots {slots}")
+    per_query = {}
+    hk.reset_launch_counts()
+    for q, sql in queries:
+        t0 = time.perf_counter()
+        first = _run(ctx, sql)
+        t1 = time.perf_counter()
+        df = ctx.sql(sql)
+        second = _collect(df)
+        t2 = time.perf_counter()
+        check(_identical(first, second), f"{q}: two runs differ")
+        # a plan that overflows is cached with its widened retry, and a
+        # warm run executes both, as the reference's session does
+        per_query[q] = {"rows": len(next(iter(second.values()))),
+                        "first_s": t1 - t0, "second_s": t2 - t1,
+                        "retries": df.last_retry_count}
+        log(f"[clickbench] {q}: {per_query[q]}")
+    launches = dict(hk.LAUNCHES)
+    for k in CLICKBENCH_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by ClickBench")
+    build_shapes, probe_shapes = kernel_shapes(hk, "clickbench")
+    peak_dev = torch.cuda.max_memory_allocated()
+    peak_host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    hits = ctx.catalog.tables["hits"]
+    key_cols = {name: hits.column(name) for name in CLICKBENCH_KEY_COLUMNS}
+    live = hits.row_mask()
+    del ctx, hits
+    torch.cuda.empty_cache()
+    kernel_checks = clickbench_kernel_checks(key_cols, live, build_shapes,
+                                             probe_shapes)
+    del key_cols, live
+    torch.cuda.empty_cache()
+    gpu = SessionContext(device="cuda")
+    clickbenchgen.register_clickbench(gpu, CLICKBENCH_CHECK_ROWS,
+                                      CLICKBENCH_SEED)
+    cpu = SessionContext(device="cpu")
+    clickbenchgen.register_clickbench(cpu, CLICKBENCH_CHECK_ROWS,
+                                      CLICKBENCH_SEED)
+    for q, sql in queries:
+        diff = _close(_run(gpu, sql), cpu.sql(sql).collect_table().to_numpy(),
+                      precision.test_rtol())
+        check(diff == "", f"{q}: cuda and cpu differ in {diff}")
+    log(f"[clickbench] {CLICKBENCH_CHECK_ROWS} rows: {len(queries)} queries "
+        "equal on cuda and cpu")
+    Path(out_path).write_text(json.dumps({
+        "rows": rows, "setup_s": setup_s, "max_slots": slots,
+        "overflow_retries": CLICKBENCH_RETRIES,
+        "retry_bytes_budget": os.environ.get("DFTPU_RETRY_BYTES_BUDGET"),
+        "queries": per_query, "launches": launches,
+        "build_shapes": build_shapes, "probe_shapes": probe_shapes,
+        "kernel_checks": kernel_checks,
+        "warm_s": sum(v["second_s"] for v in per_query.values()),
+        "peak_device_gb": peak_dev / 1e9, "peak_host_gb": peak_host / 1e9,
+    }))
+    return 0
+
+
+#: the key columns of the group-build checks at ClickBench's shapes: WatchID
+#: (about one distinct value a row), then the other keys of q31 and q16
+CLICKBENCH_KEY_COLUMNS = ("WatchID", "ClientIP", "UserID")
+
+
+def _clickbench_keys(key_cols: dict, n: int, lanes: int, slots: int,
+                     max_slots: int):
+    """Int64 key lanes [n, lanes // 2] and slot0 for a build check of ``n``
+    rows, ``lanes`` int32 lanes and ``slots`` slots, as the x64 GROUP BY
+    forms them (payload lanes, then validity lanes): from `hits`'s own key
+    columns where the table is the widest the path builds, else from
+    WatchID cut to ~0.45 * slots distinct keys."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops.aggregate import _fold_key_lanes
+    from datafusion_distributed_tpu_torch.ops.hash import hash_columns
+
+    lanes64 = lanes // 2
+    nkeys = (lanes64 + 1) // 2  # each key a payload lane and a validity lane
+    check(nkeys <= len(CLICKBENCH_KEY_COLUMNS),
+          f"no check keys for {lanes} lanes")
+    cols = [key_cols[c] for c in CLICKBENCH_KEY_COLUMNS[:nkeys]]
+    data = [c.data[:n].to(torch.int64) for c in cols]
+    valids = [c.validity[:n] if c.validity is not None else None
+              for c in cols]
+    if slots < max_slots:
+        ndv = max(1, int(0.45 * slots))
+        data = [data[0] % ndv] + [(data[0] % ndv) * (7919 + j) % 1_000_003
+                                  for j in range(1, nkeys)]
+        valids = [None] * nkeys
+    lane_plan = [True] * (lanes64 - nkeys) + [False] * (2 * nkeys - lanes64)
+    keys64, _ = _fold_key_lanes(data, valids, lane_plan, n)
+    keys = torch.stack(keys64, dim=1)
+    slot0 = (hash_columns(data, valids) & (slots - 1)).to(torch.int32)
+    return keys, slot0
+
+
+def clickbench_kernel_checks(key_cols: dict, live, build_shapes,
+                             probe_shapes) -> dict:
+    """Kernels 1 and 2 at every shape the ClickBench run gave them, held bit
+    for bit against their plain versions on the same inputs: each group
+    build on int64 keys through the (lo, hi) lane split, each probe on
+    seeded tables of the recorded slots. The launches made here are not
+    the path's: they come after its counts were read."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.ops.hash import hash_columns
+
+    dev = live.device
+    max_slots = max(h for _n, _l, h, _c in build_shapes)
+    builds = {}
+    for n, lanes, slots, _count in build_shapes:
+        keys, s0 = _clickbench_keys(key_cols, n, lanes, slots, max_slots)
+        check(keys.shape[1] * 2 == lanes, f"build check lanes {keys.shape}")
+        lv = live[:n]
+        got = hk.build_group_ids(keys, s0, lv, slots)
+        ref, plain_ms = timed_once(
+            lambda: hk.build_group_ids_plain(keys, s0, lv, slots))
+        err = max_abs_err(zip(got[:4], ref[:4]))
+        rounds = int(got[4])
+        case = {"rounds": rounds, "max_abs_err": err,
+                "groups": int(got[2].sum()), "overflow": bool(got[3]),
+                "plain_ms": plain_ms}
+        check(err == 0 and rounds == int(ref[4]),
+              f"build_group_ids rows={n} lanes={lanes} slots={slots}: "
+              f"kernel != plain ({case}, plain rounds {int(ref[4])})")
+        del got, ref
+        case["ms"] = time_ms(lambda: hk.build_group_ids(keys, s0, lv, slots), 1)
+        builds[f"{n}x{lanes}/{slots}"] = case
+        log(f"[clickbench] build_group_ids rows={n} lanes={lanes} "
+            f"slots={slots}: {case}")
+        del keys, s0
+        torch.cuda.empty_cache()
+    probes = {}
+    for n, ntab, lanes, slots, _count in probe_shapes:
+        rng = _rng(f"clickbench probe {n} {lanes} {slots}")
+        tparts, uparts, kparts = [], [], []
+        for hslots in slots:
+            ndv = max(1, int(0.4 * hslots))
+            bkeys = torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, (ndv, lanes), dtype=np.int64
+            ).astype(np.int32)).to(dev)
+            cols = [bkeys[:, i] for i in range(lanes)]
+            bs0 = (hash_columns(cols, [None] * lanes) & (hslots - 1)).to(
+                torch.int32)
+            _g, tk, used, bover, _r = hk.build_group_ids(
+                bkeys, bs0, torch.ones(ndv, dtype=torch.bool, device=dev),
+                hslots)
+            check(not bool(bover), "a ClickBench probe table overflowed")
+            tparts.append(tk)
+            uparts.append(used)
+            present = bkeys[torch.from_numpy(rng.integers(0, ndv, n)).to(dev)]
+            absent = torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, (n, lanes), dtype=np.int64
+            ).astype(np.int32)).to(dev)
+            half = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+            kparts.append(torch.where(half[:, None], present, absent))
+        keys = torch.stack(kparts, dim=1).contiguous()
+        s0 = torch.stack([
+            (hash_columns([keys[:, k, i] for i in range(lanes)],
+                          [None] * lanes) & (slots[k] - 1)).to(torch.int32)
+            for k in range(ntab)], dim=1)
+        active = torch.ones((n, ntab), dtype=torch.bool, device=dev)
+        args = (keys, s0, active, torch.cat(tparts), torch.cat(uparts),
+                tuple(slots))
+        got = hk.multiway_probe(*args)
+        ref = hk.multiway_probe_plain(*args)
+        err = max_abs_err(zip(got, ref))
+        case = {"max_abs_err": err,
+                "found_fraction": float((got[0] >= 0).float().mean()),
+                "ms": time_ms(lambda: hk.multiway_probe(*args), 1),
+                "plain_ms": time_ms(lambda: hk.multiway_probe_plain(*args), 1)}
+        check(err == 0, f"multiway_probe rows={n} tables={ntab} "
+              f"lanes={lanes} slots={slots}: kernel != plain")
+        probes[f"{n}x{ntab}x{lanes}/{slots}"] = case
+        log(f"[clickbench] multiway_probe rows={n} tables={ntab} "
+            f"lanes={lanes} slots={slots}: {case}")
+    torch.cuda.synchronize()
+    return {"build_group_ids": builds, "multiway_probe": probes}
+
+
+# ---------------------------------------------------------------------------
 
 
 #: the main-path shapes; fixed, so that every printed number is at them
@@ -681,17 +1147,22 @@ SLOTS = 1 << 21  # PlannerConfig.max_slots
 REPS = 5  # timed calls per kernel, after one warm-up
 SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
+PHASES = ("build", "kernels", "main", "check", "profile", "session",
+          "window", "clickbench")
+CLICKBENCH_TIMEOUT_S = 600
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,main,check,profile")
+    ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--out", default=None,
                     help="also write the results as JSON to this file")
     ap.add_argument("--profile-dir", default=None,
                     help="profile phase: write each query's op tables here")
+    ap.add_argument("--clickbench-worker", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -704,6 +1175,15 @@ def main(argv=None) -> int:
     except ImportError as e:
         log(f"chip_smoke: the port package is missing: {e}")
         return 2
+    if args.clickbench_worker:
+        try:
+            return clickbench_worker(args.out)
+        except Exception as e:  # noqa: BLE001 - the exit code reports it
+            import traceback
+
+            traceback.print_exc()
+            log(f"[clickbench] FAILED: {e}")
+            return 1
 
     phases = args.phases.split(",")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -711,9 +1191,13 @@ def main(argv=None) -> int:
     results: dict = {"card": None}
     ok = True
     t_all = time.perf_counter()
-    for phase in ("build", "kernels", "main", "check", "profile"):
+    for phase in PHASES:
         if phase not in phases:
             continue
+        if phase == "clickbench":
+            # the x64 subprocess needs the card's memory to itself
+            _TABLES.clear()
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         try:
             if phase == "build":
@@ -724,9 +1208,15 @@ def main(argv=None) -> int:
                 results["main"] = phase_main(SF, QUERIES, SEED)
             elif phase == "check":
                 results["check"] = phase_check(CHECK_SF, QUERIES, SEED)
-            else:
+            elif phase == "profile":
                 results["profile"] = phase_profile(SF, QUERIES, SEED,
                                                    args.profile_dir)
+            elif phase == "session":
+                results["session"] = phase_session(SF, QUERIES, SEED)
+            elif phase == "window":
+                results["window"] = phase_window(SF, CHECK_SF, SEED)
+            else:
+                results["clickbench"] = phase_clickbench(CLICKBENCH_TIMEOUT_S)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
             import traceback
 
@@ -744,13 +1234,23 @@ def main(argv=None) -> int:
         return 1
 
     kernels = []
-    # launches are counted only by the main phase: null when it did not run
-    launches = results.get("main", {}).get("launches", {})
+    # launches: the main path's (TPC-H, tpu mode), and by path (TPC-H,
+    # window, ClickBench in x64 mode); null where the phase did not run
+    paths = {"tpch_tpu": "main", "window": "window",
+             "clickbench_x64": "clickbench"}
+    cb_checks = results.get("clickbench", {}).get("kernel_checks", {})
     for name, k in results.get("kernels", {}).items():
+        # the kernel phase's cases and the checks at ClickBench's shapes
+        err = max([k["max_abs_err"]] + [
+            c["max_abs_err"] for c in cb_checks.get(name, {}).values()])
+        by_path = {path: results[phase]["launches"].get(name)
+                   if phase in results else None
+                   for path, phase in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches.get(name),
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "replaces": REPLACES[name], "launches": by_path["tpch_tpu"],
+            "launches_by_path": by_path,
+            "max_abs_err": err, "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": "bytes", "library_ms": k["library_ms"],
         })
@@ -758,6 +1258,19 @@ def main(argv=None) -> int:
         print(json.dumps({"main": {q: v["second_s"] for q, v in
                                    results["main"]["queries"].items()},
                           "rounds": results["main"]["rounds"]}))
+    if "session" in results:
+        print(json.dumps({"session": {
+            k: results["session"][k]
+            for k in ("plan_first_ms", "plan_cached_ms")}}))
+    if "window" in results:
+        print(json.dumps({"window": {
+            q: v["second_s"]
+            for q, v in results["window"]["queries"].items()}}))
+    if "clickbench" in results:
+        cb = results["clickbench"]
+        print(json.dumps({"clickbench": {
+            k: cb[k] for k in ("rows", "setup_s", "warm_s",
+                               "peak_device_gb", "peak_host_gb")}}))
     print(json.dumps({"kernels": kernels}))
     print(results["card"])
     print(json.dumps({"ok": True, "device": {

@@ -117,7 +117,8 @@ class _TableBuilder:
         """Strings drawn as ``choices[idx]``, encoded without building the
         string column."""
         choices = np.asarray(choices, dtype=object)
-        present = np.unique(np.asarray(idx))
+        present = np.flatnonzero(np.bincount(np.asarray(idx),
+                                             minlength=len(choices)))
         uniq = np.unique(choices[present].astype(str))
         lut = np.searchsorted(uniq, choices.astype(str)).astype(np.int32)
         self.fields.append(Field(name, DataType.STRING, True))

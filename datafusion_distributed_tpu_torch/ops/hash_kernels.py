@@ -31,7 +31,7 @@ Builds. A build's round count and overflow flag are 0-d tensors on the
 build's device, and each build adds to that device's ``ROUND_STATS``
 counter (the CUDA kernel on the card, the plain path on the CPU), so a
 build on the card makes no host sync; `round_stats()` reads the counters
-when asked.
+when asked. ``BUILD_SHAPES`` counts the launches of kernel 1 by shape.
 
 Probe. Kernel 2 walks (row, table) pairs in chunks of two a thread, read
 coalesced, and each thread walks its two chains in lock step, issuing a
@@ -75,6 +75,9 @@ MAX_ACCS = 32
 
 #: kernel launches per wrapper (the plain CPU versions do not count)
 LAUNCHES = {"build_group_ids": 0, "multiway_probe": 0, "group_aggregate": 0}
+#: group-build launches since the last reset, by shape: (rows, int32 key
+#: lanes, slots) -> launches
+BUILD_SHAPES: dict = {}
 #: probe launches since the last reset, by shape: (rows, tables, lanes,
 #: table slots) -> launches
 PROBE_SHAPES: dict = {}
@@ -121,6 +124,7 @@ def reset_round_stats() -> None:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    BUILD_SHAPES.clear()
     PROBE_SHAPES.clear()
     reset_round_stats()
 
@@ -290,6 +294,8 @@ def build_group_ids(keys_mat, slot0, live, num_slots: int,
         )
     _check(lib, err, "dftpu_group_build")
     LAUNCHES["build_group_ids"] += 1
+    shape = (n, lanes, num_slots)
+    BUILD_SHAPES[shape] = BUILD_SHAPES.get(shape, 0) + 1
     gid, slot_keys, slot_used, rounds, overflow = outs
     return (gid, _lanes_back(slot_keys, lane_dtype), slot_used, overflow,
             rounds)

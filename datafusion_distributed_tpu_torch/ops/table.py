@@ -48,6 +48,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def parse_bool_knob(value) -> bool:
+    """The reference's parser for boolean `SET distributed.*` knobs
+    ("off"/"false"/"0"/"" are false, everything else truthy), applied at
+    SET time (sql/context.py)."""
+    if isinstance(value, str):
+        return value.strip().lower() not in ("0", "false", "off", "")
+    return bool(value)
+
+
 def nonzero_static(mask: torch.Tensor, size: int) -> torch.Tensor:
     """Static-size ``nonzero``: the indices of the True entries of a 1-D
     bool mask, packed to the front of an int32 tensor of length ``size`` and

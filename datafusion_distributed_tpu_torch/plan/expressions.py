@@ -173,6 +173,7 @@ class Literal(PhysicalExpr):
         return repr(self.value)
 
 
+_ARITH_OPS = {"+", "-", "*", "/", "%"}
 _CMP_OPS = {"==", "!=", "<", "<=", ">", ">="}
 
 

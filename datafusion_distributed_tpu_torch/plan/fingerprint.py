@@ -1,0 +1,488 @@
+"""Structural plan fingerprints + literal hoisting (port of the reference
+`plan/fingerprint.py`).
+
+1. **Structural fingerprint** (`plan_fingerprint`, `logical_fingerprint`): a
+   canonical traversal hash over node kind, leaf schemas, expressions,
+   aggregate specs, capacities and the task lattice — explicitly
+   *excluding* ``node_id``, ``stage_id``, table-store ids, worker URLs,
+   dictionaries and leaf data. The tokens are host values only (Python
+   scalars, strings, tuples; a 0-d torch tensor takes the token of the
+   numpy scalar of its value), so the digest of a plan equals the
+   reference package's digest of the same plan. Anything the fingerprint
+   cannot prove structural about — a user extension node without
+   `structural_tokens()` — returns ``None`` and callers fall back to
+   object-identity keying. The session keys its physical-plan cache on the
+   logical fingerprint (sql/context.py).
+
+2. **Literal hoisting** (`prepare_plan`): numeric comparison literals in
+   filter predicates and projection expressions are lifted into a
+   parameter vector per dtype class (one int64 vector, one float64
+   vector), so templates that differ only in constants share one
+   structural fingerprint — the prepared-statement path. The vectors stay
+   on the host: a `HoistedLiteral` evaluates to exactly the tensor its
+   baked `Literal` would have made (same Python scalar, same dtype, same
+   promotion against the column), with no host-to-device copy.
+   String/LIKE/IN literals stay baked: their evaluation does host-side
+   dictionary work, so they stay part of the structure (and correctly
+   produce distinct fingerprints).
+
+Knob: ``DFTPU_LITERAL_HOIST=0`` disables hoisting; session scope via
+``SET distributed.literal_hoisting``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from datafusion_distributed_tpu_torch.plan import expressions as pe
+from datafusion_distributed_tpu_torch.schema import DataType, Field, Schema
+
+
+class Unfingerprintable(Exception):
+    """A node/value the canonicalizer cannot prove structural."""
+
+
+# ---------------------------------------------------------------------------
+# Hoisting configuration
+# ---------------------------------------------------------------------------
+
+_HOIST_OVERRIDE: Optional[bool] = None
+
+
+def set_literal_hoisting(enabled) -> None:
+    """Session-scoped override (SET distributed.literal_hoisting)."""
+    global _HOIST_OVERRIDE
+    if isinstance(enabled, str):
+        enabled = enabled.strip().lower() not in ("0", "false", "off", "")
+    _HOIST_OVERRIDE = bool(enabled)
+
+
+def hoist_enabled() -> bool:
+    if _HOIST_OVERRIDE is not None:
+        return _HOIST_OVERRIDE
+    return os.environ.get("DFTPU_LITERAL_HOIST", "1") != "0"
+
+
+# dtype classes for the parameter vectors: every hoistable dtype maps to one
+# of two carrier vectors. The carrier round-trips exactly: int64 holds every
+# int32/date32 value; float64 holds every python float.
+_INT_CLASS = "i"
+_FLOAT_CLASS = "f"
+_HOISTABLE = {
+    DataType.INT32: _INT_CLASS,
+    DataType.INT64: _INT_CLASS,
+    DataType.DATE32: _INT_CLASS,
+    DataType.FLOAT32: _FLOAT_CLASS,
+    DataType.FLOAT64: _FLOAT_CLASS,
+}
+
+# Parameter context: `execute_plan` binds the host parameter vectors here
+# while the plan runs, and HoistedLiteral reads them from inside expression
+# evaluation (expressions only receive the table, so the vectors travel
+# out-of-band). Thread-local: sessions may run plans on several threads.
+_PARAM_TLS = threading.local()
+
+
+def _param_stack() -> list:
+    stack = getattr(_PARAM_TLS, "stack", None)
+    if stack is None:
+        stack = _PARAM_TLS.stack = []
+    return stack
+
+
+class bound_params:
+    """Context manager binding (int_vec, float_vec) for the current run."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def __enter__(self):
+        _param_stack().append(self.params)
+        return self
+
+    def __exit__(self, *exc):
+        _param_stack().pop()
+        return False
+
+
+@dataclass
+class HoistedLiteral(pe.PhysicalExpr):
+    """A literal lifted into the parameter vector.
+
+    ``klass``/``index`` address the slot; ``value`` is the *current* plan's
+    constant (used to build the parameter vector, and excluded from the
+    fingerprint)."""
+
+    klass: str
+    index: int
+    dtype: DataType
+    value: Any
+
+    def evaluate(self, table) -> pe.ExprValue:
+        stack = _param_stack()
+        if not stack:
+            # executed outside a parameter binding: bake the constant,
+            # semantics identical
+            return pe.Literal(self.value, self.dtype).evaluate(table)
+        ints, floats = stack[-1]
+        vec = ints if self.klass == _INT_CLASS else floats
+        # the bound value as the Python scalar the baked literal holds, so
+        # the tensor (dtype, promotion, bits) is the baked literal's
+        return pe.Literal(vec[self.index].item(), self.dtype).evaluate(table)
+
+    def output_field(self, schema):
+        # mirrors Literal.output_field so hoisted/unhoisted plans derive
+        # identical schemas (None values are never hoisted)
+        return Field(str(self.value), self.dtype, nullable=False)
+
+    def display(self) -> str:
+        return f"${self.klass}{self.index}={self.value!r}"
+
+
+class _HoistCollector:
+    def __init__(self) -> None:
+        self.ints: list = []
+        self.floats: list = []
+
+    def slot(self, dtype: DataType, value) -> HoistedLiteral:
+        klass = _HOISTABLE[dtype]
+        vec = self.ints if klass == _INT_CLASS else self.floats
+        idx = len(vec)
+        vec.append(value)
+        return HoistedLiteral(klass, idx, dtype, value)
+
+    @property
+    def count(self) -> int:
+        return len(self.ints) + len(self.floats)
+
+
+def _hoist_expr(e: pe.PhysicalExpr, col: _HoistCollector,
+                under_cmp: bool = False) -> pe.PhysicalExpr:
+    """Rebuild ``e`` with hoistable literals replaced by HoistedLiteral.
+
+    Hoistable = a numeric/date Literal (value not None) inside a comparison
+    operand: a direct child of a comparison BinaryOp, or nested under
+    arithmetic that feeds one (``l_shipdate < date '1994-01-01' + 90``).
+    String literals never hoist — BinaryOp._compare resolves them against
+    the column dictionary on the host (and the DATE32-vs-string coercion
+    path dispatches on ``isinstance(..., Literal)``)."""
+    if isinstance(e, pe.Literal):
+        if (under_cmp and e.value is not None and e.dtype in _HOISTABLE):
+            return col.slot(e.dtype, e.value)
+        return e
+    if isinstance(e, pe.BinaryOp):
+        child_cmp = e.op in pe._CMP_OPS or (under_cmp and e.op in pe._ARITH_OPS)
+        l = _hoist_expr(e.left, col, child_cmp)
+        r = _hoist_expr(e.right, col, child_cmp)
+        if l is e.left and r is e.right:
+            return e
+        return pe.BinaryOp(e.op, l, r)
+    if isinstance(e, pe.BooleanOp):
+        l = _hoist_expr(e.left, col, False)
+        r = _hoist_expr(e.right, col, False)
+        if l is e.left and r is e.right:
+            return e
+        return pe.BooleanOp(e.op, l, r)
+    if isinstance(e, pe.Not):
+        c = _hoist_expr(e.child, col, False)
+        return e if c is e.child else pe.Not(c)
+    if isinstance(e, pe.Alias):
+        c = _hoist_expr(e.child, col, False)
+        return e if c is e.child else pe.Alias(c, e.name)
+    if isinstance(e, pe.Case):
+        branches = tuple(
+            (_hoist_expr(c, col, False), _hoist_expr(v, col, False))
+            for c, v in e.branches
+        )
+        otherwise = (
+            _hoist_expr(e.otherwise, col, False) if e.otherwise else None
+        )
+        if (
+            all(b[0] is o[0] and b[1] is o[1]
+                for b, o in zip(branches, e.branches))
+            and otherwise is e.otherwise
+        ):
+            return e
+        return pe.Case(branches, otherwise)
+    # every other expression kind (Cast, Coalesce, Like, InList, string
+    # functions, subqueries...) keeps its literals baked: their evaluation
+    # either does host work on the value or is not a comparison
+    return e
+
+
+def _hoist_plan(plan, col: _HoistCollector):
+    """Rebuild the plan with hoisted filter/projection expressions; nodes
+    without hoistable literals are reused as-is (leaves always are, so
+    leaf traversal order is preserved). Rebuilt nodes KEEP the original's
+    node_id."""
+    from datafusion_distributed_tpu_torch.plan.physical import (
+        FilterExec,
+        ProjectionExec,
+    )
+
+    kids = [_hoist_plan(c, col) for c in plan.children()]
+    changed = any(k is not c for k, c in zip(kids, plan.children()))
+    n = None
+    if isinstance(plan, FilterExec):
+        pred = _hoist_expr(plan.predicate, col, False)
+        if pred is not plan.predicate or changed:
+            n = FilterExec(pred, kids[0])
+            n.est_rows, n.est_selectivity = plan.est_rows, plan.est_selectivity
+    elif isinstance(plan, ProjectionExec):
+        exprs = [(_hoist_expr(e, col, False), name) for e, name in plan.exprs]
+        if changed or any(h is not e for (h, _), (e, _) in
+                          zip(exprs, plan.exprs)):
+            n = ProjectionExec(exprs, kids[0])
+            n.est_rows, n.est_selectivity = plan.est_rows, plan.est_selectivity
+    elif changed:
+        n = plan.with_new_children(kids)
+    if n is None:
+        return plan
+    if n is not plan:
+        n.node_id = plan.node_id
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Canonicalization
+# ---------------------------------------------------------------------------
+
+
+def _canon_schema(s: Schema) -> tuple:
+    return ("schema",) + tuple(
+        (f.name, f.dtype.value, bool(f.nullable)) for f in s.fields
+    )
+
+
+def _canon_value(v) -> Any:
+    """Canonical token tree for expression/plan attribute values."""
+    if v is None or isinstance(v, (bool, int, str)):
+        return v
+    if isinstance(v, float):
+        return ("float", repr(v))
+    if isinstance(v, DataType):
+        return ("dtype", v.value)
+    if isinstance(v, Schema):
+        return _canon_schema(v)
+    if isinstance(v, HoistedLiteral):
+        # the VALUE is excluded — only the slot shape is structural, so
+        # literal-only variants share a fingerprint
+        return ("hlit", v.klass, v.index, v.dtype.value)
+    if type(v).__name__ == "ScalarSubqueryExpr":
+        resolved = getattr(v, "resolved", None)
+        if resolved is not None:
+            value, dtype = resolved
+            return ("subqlit", _canon_value(value), dtype.value)
+        logical = getattr(v, "logical", None)
+        if logical is not None:
+            return ("subq", _canon_logical(logical))
+        raise Unfingerprintable("unresolved scalar subquery")
+    if isinstance(v, pe.PhysicalExpr):
+        if dataclasses.is_dataclass(v):
+            return (type(v).__name__,) + tuple(
+                _canon_value(getattr(v, f.name))
+                for f in dataclasses.fields(v)
+            )
+        raise Unfingerprintable(f"expression {type(v).__name__}")
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        # AggSpec, SortKey, WindowFunc, logical helper dataclasses...
+        return (type(v).__name__,) + tuple(
+            _canon_value(getattr(v, f.name)) for f in dataclasses.fields(v)
+        )
+    if isinstance(v, (list, tuple)):
+        return ("seq",) + tuple(_canon_value(x) for x in v)
+    if isinstance(v, dict):
+        return ("map",) + tuple(
+            (k, _canon_value(v[k])) for k in sorted(v)
+        )
+    if isinstance(v, (np.integer,)):
+        return int(v)
+    if isinstance(v, (np.floating,)):
+        return ("float", repr(float(v)))
+    if isinstance(v, torch.Tensor) and v.dim() == 0:
+        # a scalar kept as a tensor: the token of the numpy scalar of the
+        # same value and dtype
+        return _canon_value(v.detach().cpu().numpy()[()])
+    raise Unfingerprintable(f"value of type {type(v).__name__}")
+
+
+# Per-class structural attribute extractors, dispatched by class NAME (no
+# imports from the plan modules, so no import cycles). Everything
+# identity-like is deliberately absent: node_id, stage_id, est_* stats,
+# table-store ids, worker URLs, file paths, dictionaries, and leaf table
+# DATA. Only the port's own node classes are listed: a later slice adds
+# the entry of each node class it ports (exchanges, the multiway join, the
+# runtime's scans) with the class, from the reference's extractors.
+_PLAN_ATTRS: dict = {
+    "MemoryScanExec": lambda n: (
+        len(n.tasks), tuple(int(t.capacity) for t in n.tasks),
+        _canon_schema(n._schema), bool(n.pinned), bool(n.replicated),
+    ),
+    "ParquetScanExec": lambda n: (
+        len(n.file_groups), _canon_schema(n._schema), int(n.capacity),
+        tuple(n.projection) if n.projection else None,
+    ),
+    "FilterExec": lambda n: (_canon_value(n.predicate),),
+    "ProjectionExec": lambda n: (
+        tuple((_canon_value(e), name) for e, name in n.exprs),
+    ),
+    "HashAggregateExec": lambda n: (
+        n.mode, tuple(n.group_names), _canon_value(n.aggs),
+        int(n.num_slots), int(n.out_capacity),
+    ),
+    "PartialPassthroughExec": lambda n: (
+        tuple(n.group_names), _canon_value(n.aggs),
+    ),
+    "SortExec": lambda n: (
+        _canon_value(n.keys), n.fetch,
+    ),
+    "LimitExec": lambda n: (int(n.fetch), int(n.skip)),
+    "CoalescePartitionsExec": lambda n: (),
+    "HashJoinExec": lambda n: (
+        n.join_type, tuple(n.probe_keys), tuple(n.build_keys),
+        _canon_value(n.residual), int(n.out_capacity), int(n.num_slots),
+        n.mark_name, bool(n.null_aware),
+    ),
+    "CrossJoinExec": lambda n: (int(n.out_capacity),),
+    "UnionExec": lambda n: (),
+    "WindowExec": lambda n: (
+        _canon_value(n.funcs), tuple(n.partition_names),
+        _canon_value(n.order_keys), _canon_schema(Schema(n.out_fields)),
+    ),
+}
+
+
+def _canon_plan(plan) -> tuple:
+    name = type(plan).__name__
+    attrs = _PLAN_ATTRS.get(name)
+    if attrs is None:
+        # extension hook: a custom node may declare its own structural
+        # identity; without one we cannot prove what its run depends on
+        tokens = getattr(plan, "structural_tokens", None)
+        if callable(tokens):
+            return (name, _canon_value(tokens()),
+                    tuple(_canon_plan(c) for c in plan.children()))
+        raise Unfingerprintable(f"plan node {name}")
+    return (name, attrs(plan), tuple(_canon_plan(c) for c in plan.children()))
+
+
+def _canon_logical(plan) -> tuple:
+    """Generic canonical form for LogicalPlan trees (all dataclasses whose
+    fields are exprs / nested plans / schemas / scalars)."""
+    from datafusion_distributed_tpu_torch.sql.lplan import LogicalPlan
+
+    if not isinstance(plan, LogicalPlan):
+        raise Unfingerprintable(f"logical node {type(plan).__name__}")
+    if not dataclasses.is_dataclass(plan):
+        raise Unfingerprintable(f"logical node {type(plan).__name__}")
+    parts = []
+    for f in dataclasses.fields(plan):
+        v = getattr(plan, f.name)
+        if isinstance(v, LogicalPlan):
+            parts.append(_canon_logical(v))
+        elif isinstance(v, (list, tuple)):
+            parts.append(tuple(
+                _canon_logical(x) if isinstance(x, LogicalPlan)
+                else _canon_value(x)
+                for x in v
+            ))
+        else:
+            parts.append(_canon_value(v))
+    return (type(plan).__name__,) + tuple(parts)
+
+
+def _digest(tokens) -> str:
+    return hashlib.blake2b(
+        repr(tokens).encode("utf-8"), digest_size=16
+    ).hexdigest()
+
+
+def plan_fingerprint(plan) -> Optional[str]:
+    """Structural fingerprint of a physical plan, or None when a node
+    cannot be canonicalized (callers fall back to identity keying).
+    Deliberately failure-proof: a canonicalization bug must degrade to
+    identity keying, never fail the query."""
+    try:
+        return _digest(_canon_plan(plan))
+    except Exception:
+        return None
+
+
+def logical_fingerprint(plan) -> Optional[str]:
+    """Structural fingerprint of a LOGICAL plan — keys SessionContext's
+    physical-plan cache so ``ctx.sql(same_text)`` from distinct submissions
+    reuses the planned physical tree. None -> per-DataFrame fallback."""
+    try:
+        return _digest(_canon_logical(plan))
+    except Exception:
+        return None
+
+
+# ---------------------------------------------------------------------------
+# Prepared plans
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PreparedPlan:
+    """Execution-ready form of a plan: possibly literal-hoisted, with its
+    structural fingerprint and the parameter values the hoist extracted."""
+
+    plan: Any
+    fingerprint: Optional[str]
+    int_params: tuple
+    float_params: tuple
+
+    def param_arrays(self):
+        """(int64 vec, float64 vec) host arrays; `HoistedLiteral` narrows
+        an entry exactly as the baked literal would have been."""
+        return (
+            np.asarray(self.int_params, dtype=np.int64),
+            np.asarray(self.float_params, dtype=np.float64),
+        )
+
+
+_PREP_ATTR = "_dftpu_prepared"
+
+
+def prepare_plan(plan) -> PreparedPlan:
+    """Hoist + fingerprint ``plan``, memoized on the plan object (plans are
+    treated as immutable after planning; rebuilt trees are new objects and
+    re-prepare)."""
+    prep = getattr(plan, _PREP_ATTR, None)
+    if prep is not None:
+        return prep
+    hoisted_plan, ints, floats = plan, (), ()
+    if hoist_enabled():
+        col = _HoistCollector()
+        try:
+            hoisted_plan = _hoist_plan(plan, col)
+        except Exception:
+            # e.g. a custom node above a hoistable filter without
+            # with_new_children — hoisting is an optimization, never a
+            # reason to fail the query
+            hoisted_plan = plan
+        else:
+            if col.count:
+                ints, floats = tuple(col.ints), tuple(col.floats)
+            else:
+                hoisted_plan = plan
+    fp = plan_fingerprint(hoisted_plan)
+    if fp is None:
+        # no content address: execute the ORIGINAL plan, parameter-free
+        prep = PreparedPlan(plan, None, (), ())
+    else:
+        prep = PreparedPlan(hoisted_plan, fp, ints, floats)
+    try:
+        setattr(plan, _PREP_ATTR, prep)
+    except AttributeError:
+        pass
+    return prep

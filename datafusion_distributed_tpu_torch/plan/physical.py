@@ -593,14 +593,27 @@ def execute_plan(
     operators, then fetch every capacity and precision flag in ONE transfer
     and raise on them. The two error messages are the reference's, word for
     word: the session's retry loop keys on the word "overflow" in the
-    first and must never see it in the second."""
+    first and must never see it in the second.
+
+    The plan runs in its prepared form (plan/fingerprint.py, memoized on
+    the plan object): numeric comparison literals hoisted into host
+    parameter vectors, bound for the run. The hoisted plan reuses the
+    original's leaves and node ids."""
+    from datafusion_distributed_tpu_torch.plan.fingerprint import (
+        bound_params,
+        prepare_plan,
+    )
+
     task = task or DistributedTaskContext()
+    prep = prepare_plan(plan)
+    exec_target = prep.plan
     inputs = {
         leaf.node_id: leaf.load(task)
-        for leaf in collect_leaves(plan) if hasattr(leaf, "load")
+        for leaf in collect_leaves(exec_target) if hasattr(leaf, "load")
     }
     ctx = ExecContext(task=task, inputs=inputs, config=config or {})
-    out = plan.execute(ctx)
+    with bound_params(prep.param_arrays()):
+        out = exec_target.execute(ctx)
     cap_flags = [f for name, f in ctx.overflow_flags
                  if not name.startswith(_PRECISION_TAG)]
     prec_flags = [f for name, f in ctx.overflow_flags

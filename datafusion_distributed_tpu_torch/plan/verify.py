@@ -1,0 +1,959 @@
+"""Static plan verifier (port of the reference `plan/verify.py`): reject
+malformed plans before they run.
+
+The engine leans on invariants that are documented but (until now) never
+checked: stage-shared programs assume leaf traversal order is stable across
+codec round-trips, fingerprint-keyed caches assume `structural_tokens()`
+coverage, and mesh exchanges assume partition counts match the device axis.
+Each of those failure modes is "wrong results, no error" — the worst class.
+The reference Rust engine gets most of this for free from its type system
+(DataFusion's `Schema`/`Partitioning` contracts are checked at plan-build
+time); this module is the Python analogue: a multi-pass analyzer over the
+physical plan tree emitting structured `Diagnostic` records with stable
+``DFTPU0xx`` codes.
+
+In the port the exchange pass is duck-typed on ``is_exchange``: no node of
+the single-node slice is an exchange, so it finds nothing to check until
+the distributed planner lands.
+
+Passes (see ``verify_physical_plan``):
+
+  structure   cycle detection — everything else assumes a finite tree
+  schema      dtype/column propagation: every node's expectations against
+              its children's derived output schemas
+  capacity    static overflow analysis: int32 index range, hash-table
+              capacity vs NDV estimates, dictionary sizes
+  exchange    stage/lattice consistency: partition counts across stage
+              boundaries, stage-id stamping, co-shuffled join agreement,
+              task-lattice satisfiability, mesh-axis divisibility
+  cache       cache-integrity audit: custom nodes without
+              `structural_tokens()`, unhoistable literals that defeat
+              fingerprint sharing
+
+Severity: ``error`` = the plan would crash or silently produce wrong
+results; ``warning`` = the plan runs correctly but degrades (overflow
+retries, no compiled-program sharing). ``strict`` mode raises
+`PlanVerificationError` on errors; ``warn`` mode converts them to Python
+warnings; warnings-severity diagnostics never raise — they surface through
+``EXPLAIN VERIFY`` and ``explain_analyze``.
+
+Diagnostic code registry (keep in sync with README "Static plan
+verification & lint"):
+
+  DFTPU011  unknown column reference            (schema, error)
+  DFTPU012  join key type-class mismatch        (schema, error)
+  DFTPU013  union input schema mismatch         (schema, error)
+  DFTPU014  schema derivation failed            (schema, error)
+  DFTPU015  filter predicate not boolean        (schema, error)
+  DFTPU021  hash capacity below NDV estimate    (capacity, warning)
+  DFTPU022  capacity exceeds int32 index range  (capacity, error)
+  DFTPU023  join slots below build-side bound   (capacity, warning)
+  DFTPU024  dictionary exceeds int32 code range (capacity, error)
+  DFTPU025  table exceeds pallas partition cap  (capacity, warning)
+  DFTPU031  partition count mismatch at boundary(exchange, error)
+  DFTPU032  stage id unstamped / duplicated     (exchange, error)
+  DFTPU033  plan graph contains a cycle         (structure, error)
+  DFTPU034  co-shuffled join sides disagree     (exchange, error)
+  DFTPU035  stage width incompatible with mesh  (exchange, error)
+  DFTPU036  task lattice unsatisfiable          (exchange, error)
+  DFTPU037  non-contiguous stage ids            (exchange, warning)
+  DFTPU041  custom node lacks structural_tokens (cache, warning)
+  DFTPU042  literal not hoistable               (cache, warning)
+  DFTPU043  decoded plan fingerprint mismatch   (cache, error; raised by
+            runtime/worker.py as PlanIntegrityError, not emitted here)
+  DFTPU044  codec round-trip fingerprint drift  (cache, error; raised by
+            runtime/codec.py under DFTPU_VERIFY_CODEC=1)
+"""
+
+from __future__ import annotations
+
+import os
+import warnings as _warnings
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+from datafusion_distributed_tpu_torch.schema import DataType, Field, Schema
+
+_INT32_MAX = (1 << 31) - 1
+
+# largest hash table the pallas partition-pass kernels accept
+# (ops/pallas_hash._MAX_TABLE_SLOTS); mirrored here so the plan layer
+# never imports the ops layer at module load
+_PALLAS_MAX_TABLE_SLOTS = 1 << 20
+
+#: verification modes, in decreasing strictness
+MODES = ("strict", "warn", "off")
+
+
+@dataclass(frozen=True)
+class Diagnostic:
+    """One verifier finding, addressed to a plan node."""
+
+    code: str  # "DFTPU0xx"
+    severity: str  # "error" | "warning"
+    node_id: Optional[int]
+    message: str
+    #: node display label at emission time (node ids are per-process)
+    node: str = ""
+
+    def render(self) -> str:
+        loc = f" node={self.node_id}" if self.node_id is not None else ""
+        label = f" [{self.node}]" if self.node else ""
+        return f"{self.code} {self.severity}{loc}{label}: {self.message}"
+
+
+@dataclass
+class VerifyResult:
+    diagnostics: list = field(default_factory=list)
+
+    def errors(self) -> list:
+        return [d for d in self.diagnostics if d.severity == "error"]
+
+    def warnings(self) -> list:
+        return [d for d in self.diagnostics if d.severity == "warning"]
+
+    @property
+    def ok(self) -> bool:
+        return not self.errors()
+
+    def codes(self) -> set:
+        return {d.code for d in self.diagnostics}
+
+    def by_node(self) -> dict:
+        out: dict = {}
+        for d in self.diagnostics:
+            if d.node_id is not None:
+                out.setdefault(d.node_id, []).append(d)
+        return out
+
+    def render(self) -> str:
+        if not self.diagnostics:
+            return "plan verified: no diagnostics"
+        lines = [d.render() for d in self.diagnostics]
+        lines.append(
+            f"{len(self.errors())} error(s), {len(self.warnings())} "
+            "warning(s)"
+        )
+        return "\n".join(lines)
+
+
+class PlanVerificationError(RuntimeError):
+    """A plan failed static verification under ``strict`` mode. Deliberately
+    NOT matched by the overflow-retry loops (`"overflow" not in message`):
+    re-planning cannot repair a structurally malformed plan."""
+
+    def __init__(self, result: VerifyResult, context: str = ""):
+        self.result = result
+        where = f" ({context})" if context else ""
+        super().__init__(
+            f"plan verification failed{where}:\n{result.render()}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# mode resolution
+# ---------------------------------------------------------------------------
+
+
+def resolve_verify_mode(options: Optional[dict] = None) -> str:
+    """Session option > DFTPU_VERIFY_PLANS env > default ``warn``."""
+    mode = None
+    if options:
+        mode = options.get("verify_plans")
+    if mode is None:
+        mode = os.environ.get("DFTPU_VERIFY_PLANS")
+    if mode is None:
+        return "warn"
+    mode = str(mode).strip().lower()
+    if mode not in MODES:
+        raise ValueError(
+            f"invalid verify_plans mode {mode!r} (expected one of {MODES})"
+        )
+    return mode
+
+
+# ---------------------------------------------------------------------------
+# traversal helpers
+# ---------------------------------------------------------------------------
+
+
+def _iter_nodes(plan) -> tuple[list, Optional[Diagnostic]]:
+    """Pre-order node list with cycle detection. On a cycle, traversal stops
+    at the back-edge and the DFTPU033 diagnostic is returned — the caller
+    must not run further passes (they assume a finite tree)."""
+    out: list = []
+    on_path: set = set()
+    visited: set = set()
+    cycle: list = []
+
+    def walk(node) -> None:
+        if cycle:
+            return
+        if id(node) in on_path:
+            cycle.append(
+                Diagnostic(
+                    "DFTPU033", "error", getattr(node, "node_id", None),
+                    "plan graph contains a cycle (node is its own "
+                    "ancestor); traversal/trace would not terminate",
+                    node=_label(node),
+                )
+            )
+            return
+        if id(node) in visited:  # shared subtree (diamond): audit once
+            return
+        visited.add(id(node))
+        out.append(node)
+        on_path.add(id(node))
+        try:
+            children = node.children()
+        except Exception:
+            children = []
+        for c in children:
+            walk(c)
+        on_path.discard(id(node))
+
+    walk(plan)
+    return out, (cycle[0] if cycle else None)
+
+
+def _label(node) -> str:
+    try:
+        return node.display()
+    except Exception:
+        return type(node).__name__
+
+
+def _dtype_class(dt: DataType) -> str:
+    """Comparability class: values of one class hash/compare consistently
+    after the engine's width canonicalization; cross-class keys do not."""
+    if dt in (DataType.INT32, DataType.INT64, DataType.DATE32):
+        return "int"
+    if dt in (DataType.FLOAT32, DataType.FLOAT64):
+        return "float"
+    if dt is DataType.STRING:
+        return "string"
+    if dt is DataType.BOOL:
+        return "bool"
+    return "null"
+
+
+class _Pass:
+    """Shared emit/poison plumbing for one verification pass."""
+
+    def __init__(self, result: VerifyResult):
+        self.result = result
+        self.poisoned: set = set()  # node ids whose derivation already failed
+
+    def emit(self, code: str, severity: str, node, message: str) -> None:
+        self.result.diagnostics.append(
+            Diagnostic(code, severity, getattr(node, "node_id", None),
+                       message, node=_label(node))
+        )
+
+
+# ---------------------------------------------------------------------------
+# schema / dtype propagation pass
+# ---------------------------------------------------------------------------
+
+
+def _schema_pass(nodes: list, p: _Pass) -> dict:
+    """Bottom-up schema derivation + per-node consumer expectations.
+    Returns node_id -> Schema for downstream passes. A node whose schema
+    failed poisons its ancestors (one diagnostic at the failure site, not
+    a cascade up the tree)."""
+    schemas: dict = {}
+    for node in reversed(nodes):  # children precede parents in reversed()
+        try:
+            children = node.children()
+        except Exception:
+            children = []
+        if any(id(c) in p.poisoned for c in children):
+            p.poisoned.add(id(node))
+            continue
+        try:
+            schemas[node.node_id] = node.schema()
+        except KeyError as e:
+            p.poisoned.add(id(node))
+            p.emit("DFTPU011", "error", node,
+                   f"unknown column reference while deriving schema: {e}")
+            continue
+        except Exception as e:
+            p.poisoned.add(id(node))
+            p.emit("DFTPU014", "error", node,
+                   f"schema derivation failed: {type(e).__name__}: {e}")
+            continue
+        _node_schema_checks(node, children, p)
+    return schemas
+
+
+def _check_names(node, names, child_schema: Schema, what: str,
+                 p: _Pass) -> bool:
+    ok = True
+    for n in names:
+        if n not in child_schema:
+            p.emit(
+                "DFTPU011", "error", node,
+                f"{what} {n!r} not in input schema "
+                f"{child_schema.names}",
+            )
+            ok = False
+    return ok
+
+
+def _node_schema_checks(node, children, p: _Pass) -> None:
+    kind = type(node).__name__
+    if kind == "FilterExec":
+        child_schema = children[0].schema()
+        try:
+            f = node.predicate.output_field(child_schema)
+        except KeyError as e:
+            p.emit("DFTPU011", "error", node,
+                   f"filter predicate references unknown column: {e}")
+            return
+        except Exception:
+            return  # derivation quirks are not this check's business
+        if f.dtype not in (DataType.BOOL, DataType.NULL):
+            p.emit(
+                "DFTPU015", "error", node,
+                f"filter predicate evaluates to {f.dtype.value}, not "
+                "boolean — rows would be kept by bit-pattern accident",
+            )
+    elif kind == "ProjectionExec":
+        child_schema = children[0].schema()
+        for expr, name in node.exprs:
+            try:
+                expr.output_field(child_schema)
+            except KeyError as e:
+                p.emit(
+                    "DFTPU011", "error", node,
+                    f"projection {name!r} references unknown column: {e}",
+                )
+            except Exception:
+                pass
+    elif kind == "HashAggregateExec":
+        child_schema = children[0].schema()
+        _check_names(node, node.group_names, child_schema,
+                     "GROUP BY column", p)
+        for a in node.aggs:
+            if node.mode in ("final", "partial_reduce"):
+                continue  # consumes accumulator columns; schema() covered it
+            if a.input_name is not None:
+                _check_names(node, [a.input_name], child_schema,
+                             f"aggregate {a.func} input", p)
+    elif kind == "SortExec":
+        child_schema = children[0].schema()
+        _check_names(node, [k.name for k in node.keys], child_schema,
+                     "sort key", p)
+    elif kind == "WindowExec":
+        child_schema = children[0].schema()
+        _check_names(node, node.partition_names, child_schema,
+                     "window partition column", p)
+        _check_names(node, [k.name for k in node.order_keys], child_schema,
+                     "window order key", p)
+        for f in node.funcs:
+            if f.input_name is not None:
+                _check_names(node, [f.input_name], child_schema,
+                             f"window {f.func} input", p)
+    elif kind == "HashJoinExec":
+        probe_schema = node.probe.schema()
+        build_schema = node.build.schema()
+        ok = _check_names(node, node.probe_keys, probe_schema,
+                          "probe join key", p)
+        ok = _check_names(node, node.build_keys, build_schema,
+                          "build join key", p) and ok
+        if ok:
+            for pk, bk in zip(node.probe_keys, node.build_keys):
+                pc = _dtype_class(probe_schema.field(pk).dtype)
+                bc = _dtype_class(build_schema.field(bk).dtype)
+                if "null" in (pc, bc) or pc == bc:
+                    continue
+                p.emit(
+                    "DFTPU012", "error", node,
+                    f"join key {pk}={bk} compares {pc} to {bc}: hashed "
+                    "bit patterns differ per class, rows would silently "
+                    "never match",
+                )
+        if node.residual is not None:
+            try:
+                node.residual.output_field(probe_schema.join(build_schema))
+            except KeyError as e:
+                p.emit("DFTPU011", "error", node,
+                       f"join residual references unknown column: {e}")
+            except Exception:
+                pass
+    elif kind == "MultiwayHashJoinExec":
+        # fold the probe-stream schema step by step, mirroring the binary
+        # chain the node lowers to, so every step's keys are checked
+        # against the columns actually visible at that step
+        running = node.probe.schema()
+        for idx, (s, b) in enumerate(zip(node.steps, node.builds)):
+            build_schema = b.schema()
+            ok = _check_names(node, list(s.probe_keys), running,
+                              f"multiway step {idx} probe key", p)
+            ok = _check_names(node, list(s.build_keys), build_schema,
+                              f"multiway step {idx} build key", p) and ok
+            if ok:
+                for pk, bk in zip(s.probe_keys, s.build_keys):
+                    pc = _dtype_class(running.field(pk).dtype)
+                    bc = _dtype_class(build_schema.field(bk).dtype)
+                    if "null" in (pc, bc) or pc == bc:
+                        continue
+                    p.emit(
+                        "DFTPU012", "error", node,
+                        f"multiway step {idx} key {pk}={bk} compares "
+                        f"{pc} to {bc}: hashed bit patterns differ per "
+                        "class, rows would silently never match",
+                    )
+            if s.residual is not None:
+                try:
+                    s.residual.output_field(running.join(build_schema))
+                except KeyError as e:
+                    p.emit(
+                        "DFTPU011", "error", node,
+                        f"multiway step {idx} residual references "
+                        f"unknown column: {e}",
+                    )
+                except Exception:
+                    pass
+            if not ok:
+                break
+            if s.join_type in ("semi", "anti"):
+                continue
+            if s.join_type == "mark":
+                running = Schema(
+                    list(running.fields)
+                    + [Field(s.mark_name, DataType.BOOL, False)]
+                )
+                continue
+            running = Schema(
+                list(running.fields)
+                + [Field(f.name, f.dtype,
+                         True if s.join_type == "left" else f.nullable)
+                   for f in build_schema.fields]
+            )
+    elif kind == "UnionExec":
+        first = children[0].schema()
+        for i, c in enumerate(children[1:], start=1):
+            s = c.schema()
+            if len(s) != len(first):
+                p.emit(
+                    "DFTPU013", "error", node,
+                    f"union input {i} has {len(s)} columns, input 0 has "
+                    f"{len(first)}",
+                )
+                continue
+            for fa, fb in zip(first.fields, s.fields):
+                ca, cb = _dtype_class(fa.dtype), _dtype_class(fb.dtype)
+                if "null" in (ca, cb) or ca == cb:
+                    continue
+                p.emit(
+                    "DFTPU013", "error", node,
+                    f"union input {i} column {fb.name!r} is {cb}, input 0 "
+                    f"column {fa.name!r} is {ca}",
+                )
+    elif kind in ("ShuffleExchangeExec",):
+        _check_names(node, node.key_names, children[0].schema(),
+                     "shuffle key", p)
+    elif kind in ("RangeShuffleExchangeExec",):
+        _check_names(node, [k.name for k in node.sort_keys],
+                     children[0].schema(), "range-shuffle sort key", p)
+    elif kind == "MemoryScanExec":
+        for t in node.tasks:
+            if tuple(t.names) != tuple(node.schema().names):
+                p.emit(
+                    "DFTPU011", "error", node,
+                    f"scan table columns {list(t.names)} do not match "
+                    f"declared schema {node.schema().names}",
+                )
+                break
+
+
+# ---------------------------------------------------------------------------
+# capacity / overflow pass
+# ---------------------------------------------------------------------------
+
+
+def _capacity_pass(nodes: list, p: _Pass) -> None:
+    for node in reversed(nodes):
+        try:
+            children = node.children()
+        except Exception:
+            children = []
+        if any(id(c) in p.poisoned for c in children):
+            p.poisoned.add(id(node))
+            continue
+        try:
+            cap = int(node.output_capacity())
+        except Exception:
+            # schema pass already attributed derivation failures
+            p.poisoned.add(id(node))
+            continue
+        if cap > _INT32_MAX:
+            p.emit(
+                "DFTPU022", "error", node,
+                f"padded output capacity {cap} exceeds the int32 index "
+                "range; row indices/gather offsets would wrap",
+            )
+        kind = type(node).__name__
+        if kind == "HashAggregateExec" and node.group_names and (
+            node.mode in ("single", "partial")
+        ):
+            est = getattr(node, "est_rows", None)
+            if est is not None and node.num_slots < est:
+                p.emit(
+                    "DFTPU021", "warning", node,
+                    f"hash table capacity {node.num_slots} below the "
+                    f"estimated {int(est)} distinct groups: the claim "
+                    "loop will overflow and force a re-plan retry",
+                )
+            if (getattr(node, "global_agg_selected", False)
+                    and node.num_slots > _PALLAS_MAX_TABLE_SLOTS):
+                p.emit(
+                    "DFTPU025", "warning", node,
+                    f"global-hash aggregate table of {node.num_slots} "
+                    f"slots exceeds the pallas partition budget "
+                    f"({_PALLAS_MAX_TABLE_SLOTS}): the kernel degrades "
+                    "to the XLA scatter path (correct but unaccelerated)",
+                )
+        elif kind == "MultiwayHashJoinExec":
+            for idx, (s, b) in enumerate(zip(node.steps, node.builds)):
+                try:
+                    build_bound = int(b.output_capacity())
+                except Exception:
+                    build_bound = 0
+                est = getattr(b, "est_rows", None)
+                bound = int(est) if est is not None else build_bound
+                if s.num_slots < bound:
+                    p.emit(
+                        "DFTPU023", "warning", node,
+                        f"multiway step {idx} hash table has "
+                        f"{s.num_slots} slots for a build side bounded "
+                        f"by {bound} rows (load factor > 1): guaranteed "
+                        "overflow retry at full occupancy",
+                    )
+                if s.num_slots > _PALLAS_MAX_TABLE_SLOTS:
+                    p.emit(
+                        "DFTPU025", "warning", node,
+                        f"multiway step {idx} table of {s.num_slots} "
+                        f"slots exceeds the pallas partition budget "
+                        f"({_PALLAS_MAX_TABLE_SLOTS}): the cascaded "
+                        "probe kernel is ineligible and the stage takes "
+                        "the binary reference chain",
+                    )
+        elif kind == "HashJoinExec":
+            try:
+                build_bound = int(node.build.output_capacity())
+            except Exception:
+                build_bound = 0
+            est = getattr(node.build, "est_rows", None)
+            bound = int(est) if est is not None else build_bound
+            if node.num_slots < bound:
+                p.emit(
+                    "DFTPU023", "warning", node,
+                    f"join hash table has {node.num_slots} slots for a "
+                    f"build side bounded by {bound} rows (load factor "
+                    "> 1): guaranteed overflow retry at full occupancy",
+                )
+        _dictionary_checks(node, p)
+
+
+def _dictionary_checks(node, p: _Pass) -> None:
+    dicts: dict = {}
+    kind = type(node).__name__
+    if kind == "MemoryScanExec":
+        for t in node.tasks:
+            for name, col in zip(t.names, t.columns):
+                if col.dictionary is not None:
+                    dicts[name] = len(col.dictionary.values)
+    elif kind == "ParquetScanExec" and getattr(node, "dictionaries", None):
+        dicts = {
+            name: len(d.values) for name, d in node.dictionaries.items()
+        }
+    for name, size in dicts.items():
+        if size > _INT32_MAX:
+            p.emit(
+                "DFTPU024", "error", node,
+                f"dictionary for column {name!r} has {size} entries — "
+                "int32 codes cannot address it",
+            )
+
+
+# ---------------------------------------------------------------------------
+# exchange / lattice consistency pass
+# ---------------------------------------------------------------------------
+
+
+def _is_exchange(node) -> bool:
+    return bool(getattr(node, "is_exchange", False))
+
+
+def _producer_count(ex) -> int:
+    """How many producer tasks feed exchange ``ex`` (the width of the stage
+    directly below it). Coalesce's num_tasks IS the producer count; for the
+    other exchanges num_tasks is the consumer count and `producer_tasks`
+    (stamped by the lattice) overrides when the sides differ."""
+    pt = getattr(ex, "producer_tasks", None)
+    if pt is not None:
+        return int(pt)
+    return int(ex.num_tasks)
+
+
+def _consumer_width(ex) -> Optional[int]:
+    """Task count of the stage CONSUMING ``ex``'s output, when the output
+    is partitioned (None = replicated output; any consumer width is fine)."""
+    kind = type(ex).__name__
+    if kind in ("ShuffleExchangeExec", "RangeShuffleExchangeExec",
+                "PartitionReplicatedExec"):
+        return int(ex.num_tasks)
+    if kind == "CoalesceExchangeExec":
+        m = int(getattr(ex, "num_consumers", 1))
+        return m if m > 1 else None  # N:1 output is replicated
+    if kind == "BroadcastExchangeExec":
+        return None  # replicated on every consumer task
+    return None
+
+
+def _inner_boundaries(node) -> list:
+    """Nearest exchange descendants of ``node``'s stage (descent stops at
+    each boundary: deeper exchanges belong to deeper stages)."""
+    out: list = []
+    try:
+        children = node.children()
+    except Exception:
+        children = []
+    for c in children:
+        if _is_exchange(c):
+            out.append(c)
+        else:
+            out.extend(_inner_boundaries(c))
+    return out
+
+
+def _stage_members(ex) -> list:
+    """Non-exchange nodes of the stage produced below boundary ``ex``."""
+    out: list = []
+
+    def walk(n) -> None:
+        out.append(n)
+        try:
+            children = n.children()
+        except Exception:
+            children = []
+        for c in children:
+            if not _is_exchange(c):
+                walk(c)
+
+    for c in ex.children():
+        if not _is_exchange(c):
+            walk(c)
+    return out
+
+
+def _exchange_pass(nodes: list, p: _Pass,
+                   mesh_axis_size: Optional[int]) -> None:
+    exchanges = [n for n in nodes if _is_exchange(n)]
+    if not exchanges:
+        return
+    # stage-id stamping: every multi-task boundary carries a unique id
+    seen_ids: dict = {}
+    for ex in exchanges:
+        sid = getattr(ex, "stage_id", None)
+        if sid is None:
+            p.emit(
+                "DFTPU032", "error", ex,
+                "exchange has no stage id (plan was not run through "
+                "prepare/distribute_plan); the runtime addresses tasks "
+                "by (query, stage, task) and would collide on stage 0",
+            )
+        elif sid in seen_ids:
+            p.emit(
+                "DFTPU032", "error", ex,
+                f"stage id {sid} is also used by "
+                f"[{_label(seen_ids[sid])}]: task keys of the two stages "
+                "would collide",
+            )
+        else:
+            seen_ids[sid] = ex
+    # non-contiguous ids: evidence of a detached/hand-edited stage
+    ids = sorted(seen_ids)
+    if ids and ids != list(range(ids[0], ids[0] + len(ids))):
+        p.emit(
+            "DFTPU037", "warning", exchanges[0],
+            f"stage ids {ids} are not contiguous — a stage may have been "
+            "dropped or spliced in by hand",
+        )
+    for ex in exchanges:
+        if id(ex) in p.poisoned:
+            continue
+        t_prod = _producer_count(ex)
+        # partition counts must agree across the boundary: each nearest
+        # inner boundary's consumer width IS this boundary's producer width
+        child = ex.children()[0]
+        inners = [child] if _is_exchange(child) else _inner_boundaries(child)
+        for inner in inners:
+            w = _consumer_width(inner)
+            if w is not None and w != t_prod:
+                p.emit(
+                    "DFTPU031", "error", ex,
+                    f"boundary expects {t_prod} producer task(s) but the "
+                    f"feeding boundary [{_label(inner)}] partitions its "
+                    f"output {w}-way; partitions beyond the smaller count "
+                    "would be silently dropped",
+                )
+        # task-lattice satisfiability within the producer stage
+        for m in _stage_members(ex):
+            kind = type(m).__name__
+            if kind == "MemoryScanExec":
+                if not m.replicated and not m.pinned and (
+                    len(m.tasks) > max(t_prod, 1)
+                ):
+                    p.emit(
+                        "DFTPU036", "error", ex,
+                        f"scan [{_label(m)}] holds {len(m.tasks)} task "
+                        f"slices but the stage runs {t_prod} task(s): "
+                        "trailing slices would never be read",
+                    )
+            elif kind == "ParquetScanExec":
+                if len(m.file_groups) > max(t_prod, 1):
+                    p.emit(
+                        "DFTPU036", "error", ex,
+                        f"scan [{_label(m)}] holds {len(m.file_groups)} "
+                        f"file groups but the stage runs {t_prod} "
+                        "task(s): trailing groups would never be read",
+                    )
+            elif kind == "IsolatedArmExec":
+                if m.assigned_task >= max(t_prod, 1):
+                    p.emit(
+                        "DFTPU036", "error", ex,
+                        f"isolated arm assigned to task "
+                        f"{m.assigned_task} of a {t_prod}-task stage: "
+                        "the arm would never execute (rows silently "
+                        "missing)",
+                    )
+        if mesh_axis_size is not None and ex.num_tasks != mesh_axis_size:
+            p.emit(
+                "DFTPU035", "error", ex,
+                f"stage width {ex.num_tasks} != mesh axis width "
+                f"{mesh_axis_size}: in-mesh collectives (all_to_all/"
+                "all_gather) address tasks by device index and would "
+                "mis-route or abort",
+            )
+    # co-shuffled join sides must agree on one consumer count
+    for node in nodes:
+        kind = type(node).__name__
+        if kind == "HashJoinExec":
+            sides = [c for c in node.children()
+                     if type(c).__name__ == "ShuffleExchangeExec"]
+            if len(sides) == 2 and sides[0].num_tasks != sides[1].num_tasks:
+                p.emit(
+                    "DFTPU034", "error", node,
+                    f"co-shuffled join sides disagree on task count "
+                    f"({sides[0].num_tasks} vs {sides[1].num_tasks}): "
+                    "hash%t co-partitioning breaks and matching rows land "
+                    "on different tasks",
+                )
+        elif kind == "MultiwayHashJoinExec":
+            sides = [c for c in node.children()
+                     if type(c).__name__ == "ShuffleExchangeExec"]
+            widths = sorted({s.num_tasks for s in sides})
+            if len(widths) > 1:
+                p.emit(
+                    "DFTPU034", "error", node,
+                    f"co-shuffled multiway join sides disagree on task "
+                    f"count ({widths}): every deleted intermediate "
+                    "exchange assumed one hash%t co-partitioning, so "
+                    "matching rows land on different tasks",
+                )
+
+
+# ---------------------------------------------------------------------------
+# cache-integrity audit pass
+# ---------------------------------------------------------------------------
+
+
+def _cache_pass(nodes: list, p: _Pass) -> None:
+    from datafusion_distributed_tpu_torch.plan.fingerprint import _PLAN_ATTRS
+
+    for node in nodes:
+        name = type(node).__name__
+        if name not in _PLAN_ATTRS and not callable(
+            getattr(node, "structural_tokens", None)
+        ):
+            p.emit(
+                "DFTPU041", "warning", node,
+                f"custom node {name} lacks structural_tokens(): the plan "
+                "has no structural fingerprint, so every compiled-program "
+                "cache falls back to identity keying (no cross-query "
+                "sharing, no stage-share across workers)",
+            )
+        _unhoistable_literal_check(node, p)
+
+
+def _unhoistable_literal_check(node, p: _Pass) -> None:
+    """Warn on literals that defeat fingerprint sharing: numeric comparison
+    literals hoist into runtime parameters (template variants share one
+    executable), but string comparisons, LIKE patterns and IN lists stay
+    baked — each distinct value traces and compiles its own program."""
+    from datafusion_distributed_tpu_torch.plan import expressions as pe
+
+    kind = type(node).__name__
+    if kind == "FilterExec":
+        exprs = [node.predicate]
+    elif kind == "ProjectionExec":
+        exprs = [e for e, _ in node.exprs]
+    else:
+        return
+    baked: list = []
+
+    def walk(e, under_cmp: bool) -> None:
+        if isinstance(e, pe.Literal):
+            if under_cmp and e.value is not None and (
+                e.dtype is DataType.STRING
+            ):
+                baked.append(f"string literal {e.value!r}")
+            return
+        if isinstance(e, pe.Like):
+            baked.append(f"LIKE pattern {e.pattern!r}")
+            walk(e.child, False)
+            return
+        if isinstance(e, pe.InList):
+            baked.append(f"IN list of {len(e.values)} value(s)")
+            walk(e.child, False)
+            return
+        if isinstance(e, pe.BinaryOp):
+            child_cmp = e.op in pe._CMP_OPS or (
+                under_cmp and e.op in pe._ARITH_OPS
+            )
+            walk(e.left, child_cmp)
+            walk(e.right, child_cmp)
+            return
+        for attr in ("left", "right", "child", "otherwise"):
+            sub = getattr(e, attr, None)
+            if isinstance(sub, pe.PhysicalExpr):
+                walk(sub, False)
+        for attr in ("args", "branches"):
+            subs = getattr(e, attr, None) or ()
+            for sub in subs:
+                if isinstance(sub, tuple):
+                    for s in sub:
+                        if isinstance(s, pe.PhysicalExpr):
+                            walk(s, False)
+                elif isinstance(sub, pe.PhysicalExpr):
+                    walk(sub, False)
+
+    for e in exprs:
+        walk(e, False)
+    if baked:
+        shown = "; ".join(baked[:3])
+        more = f" (+{len(baked) - 3} more)" if len(baked) > 3 else ""
+        p.emit(
+            "DFTPU042", "warning", node,
+            f"literal not hoistable: {shown}{more} — query variants "
+            "differing only in these values will not share compiled "
+            "programs",
+        )
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+
+def verify_physical_plan(
+    plan,
+    mesh_axis_size: Optional[int] = None,
+    include_cache_audit: bool = True,
+) -> VerifyResult:
+    """Run every static pass over a physical plan (single-node or staged).
+
+    ``mesh_axis_size``: when the plan will run as one SPMD program over a
+    device mesh, the axis width — enables the stage-width/mesh checks.
+    ``include_cache_audit=False`` skips the warning-severity cache pass
+    (the worker's post-decode verification uses this: the coordinator
+    already audited the full plan)."""
+    result = VerifyResult()
+    nodes, cycle = _iter_nodes(plan)
+    if cycle is not None:
+        result.diagnostics.append(cycle)
+        return result  # every later pass assumes a finite tree
+    p = _Pass(result)
+    _schema_pass(nodes, p)
+    _capacity_pass(nodes, p)
+    _exchange_pass(nodes, p, mesh_axis_size)
+    if include_cache_audit:
+        _cache_pass(nodes, p)
+    return result
+
+
+_VERIFIED_ATTR = "_dftpu_verified"
+
+
+def enforce_verification(
+    plan,
+    options: Optional[dict] = None,
+    mode: Optional[str] = None,
+    mesh_axis_size: Optional[int] = None,
+    context: str = "",
+) -> Optional[VerifyResult]:
+    """Verify ``plan`` under the resolved mode and act on the outcome:
+    ``strict`` raises PlanVerificationError on error-severity diagnostics,
+    ``warn`` emits a Python warning instead, ``off`` skips entirely.
+    Results are memoized on the plan object (plans are immutable after
+    planning/decoding; rebuilt trees re-verify), so the retry loops'
+    repeated submissions of one plan verify once."""
+    mode = mode or resolve_verify_mode(options)
+    if mode == "off":
+        return None
+    memo = getattr(plan, _VERIFIED_ATTR, None)
+    if memo is not None and memo[0] == mesh_axis_size:
+        result = memo[1]
+    else:
+        result = verify_physical_plan(plan, mesh_axis_size=mesh_axis_size)
+        try:
+            setattr(plan, _VERIFIED_ATTR, (mesh_axis_size, result))
+        except AttributeError:
+            pass
+    if result.errors():
+        if mode == "strict":
+            raise PlanVerificationError(result, context=context)
+        _warnings.warn(
+            f"plan verification found errors{f' ({context})' if context else ''}"
+            f" (verify_plans=warn):\n{result.render()}",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+    return result
+
+
+def diag_suffix(diags) -> str:
+    """Per-node-line diagnostic rendering ('  !CODE severity: message'
+    per diagnostic) shared by EXPLAIN VERIFY and explain_analyze."""
+    return "".join(
+        f"  !{d.code} {d.severity}: {d.message}" for d in diags
+    )
+
+
+def render_verified_tree(plan, result: VerifyResult) -> str:
+    """Plan tree with per-node diagnostics stitched into each line — the
+    EXPLAIN VERIFY display (and the shape explain_analyze reuses)."""
+    by_node = result.by_node()
+    lines: list = []
+
+    def walk(node, indent: int) -> None:
+        suffix = diag_suffix(by_node.get(node.node_id, ()))
+        lines.append("  " * indent + _label(node) + suffix)
+        try:
+            children = node.children()
+        except Exception:
+            children = []
+        for c in children:
+            walk(c, indent + 1)
+
+    walk(plan, 0)
+    tail = (
+        "verification: clean" if not result.diagnostics else
+        f"verification: {len(result.errors())} error(s), "
+        f"{len(result.warnings())} warning(s)"
+    )
+    lines.append(tail)
+    return "\n".join(lines)

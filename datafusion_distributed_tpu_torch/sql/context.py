@@ -10,8 +10,13 @@ reference `sql/context.py`).
 
 Tables are uploaded to the session's device at registration; every query
 then runs there. ``SessionContext(device="cpu")`` runs on the host with the
-plain PyTorch versions of the kernels. The distributed, coordinated, serving,
-prepared-statement, tracing and result-cache entry points of the reference
+plain PyTorch versions of the kernels. Every plan is verified before it
+runs (plan/verify.py, `SET distributed.verify_plans`), and physical plans
+are cached per session, keyed on the logical plan's structural fingerprint
+(plan/fingerprint.py), so a fresh ``ctx.sql(same_text)`` reuses the planned
+tree. ``ctx.prepare("... where x < $1")`` binds parameters into a template.
+The distributed, coordinated, serving, tracing and result-cache entry
+points of the reference (and EXPLAIN VERIFY, which renders the staged plan)
 are not ported yet.
 """
 
@@ -136,6 +141,35 @@ class SessionConfig:
     def set_option(self, name: str, value) -> None:
         scope, _, key = name.partition(".")
         if scope == "distributed":
+            if key == "plan_cache_size":
+                # sizes the reference's compiled-program cache, which the
+                # eager port does not have; validated as the reference does
+                int(value)
+            elif key == "literal_hoisting":
+                from datafusion_distributed_tpu_torch.plan.fingerprint import (
+                    set_literal_hoisting,
+                )
+
+                set_literal_hoisting(value)
+            elif key == "verify_plans":
+                from datafusion_distributed_tpu_torch.plan.verify import MODES
+
+                value = str(value).strip().lower()
+                if value not in MODES:
+                    raise ValueError(
+                        f"invalid verify_plans mode {value!r} (expected "
+                        f"one of {MODES})"
+                    )
+            elif key in ("fair_share", "zero_copy", "hedging",
+                         "checkpointing", "pipelined_shuffle",
+                         "partial_agg_pushdown", "multiway_join",
+                         "global_hash_agg", "result_cache"):
+                # the reference's boolean knobs, coerced at SET time
+                from datafusion_distributed_tpu_torch.ops.table import (
+                    parse_bool_knob,
+                )
+
+                value = parse_bool_knob(value)
             self.distributed_options[key] = value
         elif scope == "planner":
             if not hasattr(self.planner, key):
@@ -208,21 +242,65 @@ class DataFrame:
     def __init__(self, ctx: "SessionContext", logical: LogicalPlan):
         self.ctx = ctx
         self.logical = logical
-        # plans memoized per planner config (and catalog generation)
+        # plan memoization goes through the SESSION-level cache keyed by the
+        # logical plan's structural fingerprint, so a fresh
+        # ctx.sql(same_text) reuses the planned physical tree (with its
+        # plan-time scalar subqueries already executed); this dict is the
+        # fallback for logical plans without a fingerprint
         self._plan_cache: dict = {}
+        self._logical_fp = -1  # lazily computed; None = unfingerprintable
         self.last_retry_count = 0
+
+    def _logical_fingerprint(self):
+        if self._logical_fp == -1:
+            from datafusion_distributed_tpu_torch.plan.fingerprint import (
+                logical_fingerprint,
+            )
+
+            self._logical_fp = logical_fingerprint(self.logical)
+        return self._logical_fp
+
+    def _plan_cache_get(self, key):
+        lfp = self._logical_fingerprint()
+        if lfp is None:
+            return self._plan_cache.get(key)
+        return self.ctx._plan_cache_get(
+            (lfp, self.ctx.catalog.generation, key)
+        )
+
+    def _plan_cache_put(self, key, plan) -> None:
+        lfp = self._logical_fingerprint()
+        if lfp is None:
+            self._plan_cache[key] = plan
+        else:
+            self.ctx._plan_cache_put(
+                (lfp, self.ctx.catalog.generation, key), plan
+            )
 
     @staticmethod
     def _pcfg_key(cfg: PlannerConfig) -> tuple:
+        """EVERY PlannerConfig field keys the plan cache: at session scope
+        a fresh ctx.sql() no longer re-plans, so a SET of any planner knob
+        must miss."""
         return tuple(getattr(cfg, k) for k in type(cfg).__dataclass_fields__)
 
     def physical_plan(self, config: Optional[PlannerConfig] = None) -> ExecutionPlan:
+        from datafusion_distributed_tpu_torch.plan.verify import (
+            enforce_verification,
+        )
+
         cfg = config or self.ctx.config.planner
-        key = (self.ctx.catalog.generation, self._pcfg_key(cfg))
-        plan = self._plan_cache.get(key)
+        key = self._pcfg_key(cfg)
+        plan = self._plan_cache_get(key)
         if plan is None:
             plan = PhysicalPlanner(self.ctx.catalog, cfg).plan(self.logical)
-            self._plan_cache[key] = plan
+            self._plan_cache_put(key, plan)
+        # static verification before the plan runs (memoized on the plan
+        # object, so cache hits and retry-loop re-submissions verify once)
+        enforce_verification(
+            plan, options=self.ctx.config.distributed_options,
+            context="physical plan",
+        )
         return plan
 
     def collect_table(self) -> Table:
@@ -280,6 +358,30 @@ class SessionContext:
         self.device = resolve_device(device)
         self.catalog = Catalog()
         self.config = config or SessionConfig()
+        # session-level physical-plan cache, keyed by (logical-plan
+        # fingerprint, catalog generation, planner knobs): distinct
+        # ctx.sql(text) submissions of the same query reuse the planned
+        # tree instead of re-planning. Bounded LRU (entries pin scan
+        # Tables that may since have been re-registered); locked, since
+        # several threads may plan against one session.
+        self._plans: dict = {}
+        self._plans_lock = threading.Lock()
+
+    _PLAN_CACHE_ENTRIES = 128
+
+    def _plan_cache_get(self, key):
+        with self._plans_lock:
+            plan = self._plans.get(key)
+            if plan is not None:
+                self._plans.pop(key)
+                self._plans[key] = plan  # move-to-end: LRU
+            return plan
+
+    def _plan_cache_put(self, key, plan) -> None:
+        with self._plans_lock:
+            while len(self._plans) >= self._PLAN_CACHE_ENTRIES:
+                self._plans.pop(next(iter(self._plans)))
+            self._plans[key] = plan
 
     # -- registration ---------------------------------------------------------
     def register_parquet(self, name: str, paths, capacity: Optional[int] = None):
@@ -341,7 +443,8 @@ class SessionContext:
                 self.config.set_option(stmt.name, stmt.value)
             elif isinstance(stmt, ExplainVerify):
                 raise NotImplementedError(
-                    "EXPLAIN VERIFY needs the plan verifier, which is not "
+                    "EXPLAIN VERIFY renders the staged (distributed) plan; "
+                    "it waits for the distributed planner, which is not "
                     "ported yet"
                 )
             else:
@@ -352,6 +455,176 @@ class SessionContext:
                 return None  # DDL/SET-only script
             raise ValueError("no SQL statements in input")
         return result
+
+    def prepare(self, template: str) -> "PreparedStatement":
+        """Prepared-statement API: ``ctx.prepare("... where x < $1")`` -> a
+        PreparedStatement whose ``execute(params)`` bindings share one
+        structural fingerprint through literal hoisting
+        (plan/fingerprint.py)."""
+        return PreparedStatement(self, template)
+
+
+def _parse_placeholders(template: str) -> list:
+    """-> [(literal_text | None, param_name | None)] segments of a
+    prepared-statement template. Placeholders are ``$name`` or ``$1``-style
+    (1-based positional); ``$`` inside single-quoted SQL string literals,
+    double-quoted identifiers, and ``--`` / ``/* */`` comments is text,
+    not a placeholder (standard '' / "" escaping respected)."""
+    out: list = []
+    buf: list = []
+    i, n = 0, len(template)
+    ph = re.compile(r"\$([A-Za-z_][A-Za-z0-9_]*|[0-9]+)")
+    while i < n:
+        c = template[i]
+        if c in ("'", '"'):
+            q = c
+            j = i + 1
+            while j < n:
+                if template[j] == q:
+                    if j + 1 < n and template[j + 1] == q:
+                        j += 2
+                        continue
+                    break
+                j += 1
+            buf.append(template[i:j + 1])
+            i = j + 1
+        elif c == "-" and template[i:i + 2] == "--":
+            j = template.find("\n", i)
+            j = n if j < 0 else j
+            buf.append(template[i:j])
+            i = j
+        elif c == "/" and template[i:i + 2] == "/*":
+            j = template.find("*/", i + 2)
+            j = n if j < 0 else j + 2
+            buf.append(template[i:j])
+            i = j
+        elif c == "$":
+            m = ph.match(template, i)
+            if m:
+                if buf:
+                    out.append(("".join(buf), None))
+                    buf = []
+                out.append((None, m.group(1)))
+                i = m.end()
+            else:
+                buf.append(c)
+                i += 1
+        else:
+            buf.append(c)
+            i += 1
+    if buf:
+        out.append(("".join(buf), None))
+    return out
+
+
+def _format_param(value) -> str:
+    """SQL literal text for a bound parameter value. Numeric and date
+    parameters become exactly the literals the template author would have
+    written, so literal hoisting lifts them into the parameter vectors and
+    every binding shares one structural fingerprint."""
+    import datetime as _dt
+
+    if value is None:
+        return "NULL"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        return repr(value)
+    if isinstance(value, _dt.datetime):
+        # DATE32 is the engine's only temporal type: a datetime binds as
+        # its date ONLY when that loses nothing
+        if (value.hour or value.minute or value.second
+                or value.microsecond or value.tzinfo is not None):
+            raise TypeError(
+                "datetime parameters with a time-of-day (or tzinfo) are "
+                "not supported — the engine's temporal type is DATE32; "
+                "pass a datetime.date"
+            )
+        return f"date '{value.date().isoformat()}'"
+    if isinstance(value, _dt.date):
+        return f"date '{value.isoformat()}'"
+    if isinstance(value, str):
+        return "'" + value.replace("'", "''") + "'"
+    raise TypeError(
+        f"unsupported prepared-statement parameter type "
+        f"{type(value).__name__}"
+    )
+
+
+class PreparedStatement:
+    """A parameterized query template (``ctx.prepare(sql)``): every
+    ``execute(params)`` binds the parameter values as literals; numeric and
+    date literals hoist into the parameter vectors, so all bindings of one
+    template share one structural fingerprint. String parameters bind too,
+    but distinct string values fingerprint distinctly (their evaluation is
+    host-side dictionary work).
+
+    Placeholders: ``$name`` (bind with a dict / kwargs) or ``$1..$n``
+    (bind with a sequence). `warm()` runs the first execution eagerly.
+    The coordinated and serving bindings of the reference wait for the
+    runtime tiers.
+    """
+
+    def __init__(self, ctx: "SessionContext", template: str):
+        self.ctx = ctx
+        self.template = template
+        self._segments = _parse_placeholders(template)
+        names: list[str] = []
+        for _text, name in self._segments:
+            if name is not None and name not in names:
+                names.append(name)
+        if not names:
+            raise ValueError(
+                "prepared statement has no $placeholders — use ctx.sql()"
+                " for parameter-free queries"
+            )
+        self.param_names = names
+        self.positional = all(n.isdigit() for n in names)
+
+    def _mapping(self, params, kw) -> dict:
+        if params is None:
+            mapping = dict(kw)
+        elif isinstance(params, dict):
+            mapping = {**params, **kw}
+        elif isinstance(params, (list, tuple)):
+            if not self.positional:
+                raise ValueError(
+                    "sequence parameters require $1..$n placeholders; "
+                    f"this template names {self.param_names}"
+                )
+            mapping = {str(i + 1): v for i, v in enumerate(params)}
+            mapping.update(kw)
+        else:
+            raise TypeError(
+                "params must be a dict, a sequence, or keyword arguments"
+            )
+        missing = [n for n in self.param_names if n not in mapping]
+        if missing:
+            raise ValueError(f"missing parameters: {missing}")
+        return mapping
+
+    def bind_sql(self, params=None, **kw) -> str:
+        """The template with every placeholder bound as a SQL literal."""
+        mapping = self._mapping(params, kw)
+        return "".join(
+            text if name is None else _format_param(mapping[name])
+            for text, name in self._segments
+        )
+
+    def to_df(self, params=None, **kw) -> "DataFrame":
+        """Plan the bound statement (session plan cache applies)."""
+        return self.ctx.sql(self.bind_sql(params, **kw))
+
+    def execute(self, params=None, **kw):
+        """Single-process execution -> pyarrow Table."""
+        return self.to_df(params, **kw).collect()
+
+    def warm(self, params=None, **kw) -> "PreparedStatement":
+        """Run the first execution now. -> self, for chaining."""
+        self.execute(params, **kw)
+        return self
 
 
 class _ViewCatalog:

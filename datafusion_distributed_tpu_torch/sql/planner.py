@@ -1,5 +1,5 @@
 """Logical -> physical planning (port of the reference package's
-`sql/planner.py`; window functions are not ported yet).
+`sql/planner.py`).
 
 The logical tree lowers to the ExecutionPlan IR of plan/. Responsibilities:
 
@@ -102,9 +102,56 @@ class PhysicalPlanner:
         raise NotImplementedError(f"cannot lower {type(node).__name__}")
 
     def _plan_window(self, node: "lg.LWindow", used: set) -> ExecutionPlan:
-        raise NotImplementedError(
-            "window functions are not ported to datafusion_distributed_tpu_torch yet"
+        from datafusion_distributed_tpu_torch.ops.sort import SortKey
+        from datafusion_distributed_tpu_torch.ops.window import WindowFunc
+        from datafusion_distributed_tpu_torch.plan.window_exec import WindowExec
+        from datafusion_distributed_tpu_torch.schema import Field
+
+        child = self._plan(node.child, used)
+        schema = child.schema()
+        passthrough = [(pe.Col(f.name), f.name) for f in schema.fields]
+        extra: list = []
+
+        def materialize(e, prefix):
+            self._resolve_subqueries(e)
+            if isinstance(e, pe.Col):
+                return e.name
+            nm = f"__{prefix}{next(_TMP)}"
+            extra.append((e, nm))
+            return nm
+
+        # group window exprs by identical (partition, order) spec: one
+        # WindowExec per spec
+        groups: dict = {}
+        for w in node.exprs:
+            part_names = tuple(materialize(p, "wp") for p in w.partition_by)
+            order_keys = tuple(
+                SortKey(materialize(oe, "wo"), asc,
+                        (not asc) if nf is None else nf)
+                for oe, asc, nf in w.order_by
+            )
+            arg_name = None
+            if w.arg is not None:
+                arg_name = materialize(w.arg, "wa")
+            spec = (part_names, order_keys)
+            groups.setdefault(spec, []).append((w, arg_name))
+
+        plan: ExecutionPlan = (
+            ProjectionExec(passthrough + extra, child) if extra else child
         )
+        cs = node.child.schema()
+        for (part_names, order_keys), ws in groups.items():
+            funcs = [
+                WindowFunc(w.func, arg_name, w.name, w.frame)
+                for w, arg_name in ws
+            ]
+            fields = [
+                Field(w.name, lg._window_dtype(w, cs), True)
+                for w, _ in ws
+            ]
+            plan = WindowExec(plan, funcs, list(part_names),
+                              list(order_keys), fields)
+        return plan
 
     # -- scans ------------------------------------------------------------------
     def _plan_scan(self, node: lg.LScan, used: set) -> ExecutionPlan:

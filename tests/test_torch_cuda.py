@@ -68,6 +68,8 @@ def test_group_build_matches_plain(dev, case):
     hk.reset_launch_counts()
     got = hk.build_group_ids(keys, slot0, live, h, max_rounds)
     assert hk.LAUNCHES["build_group_ids"] == 1
+    lanes = keys.shape[1] * keys.element_size() // 4  # int64 -> (lo, hi)
+    assert hk.BUILD_SHAPES == {(keys.shape[0], lanes, h): 1}
     ref = hk.build_group_ids_plain(keys, slot0, live, h, max_rounds)
     for a, b in zip(got[:4], ref[:4]):
         assert torch.equal(a, b)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor the reference package,
-runs a TPC-H query on the CPU when asked to, and refuses to start without a
+runs a TPC-H query, a window query, a prepared-statement binding and a
+ClickBench query on the CPU when asked to, and refuses to start without a
 CUDA device otherwise."""
 
 import os
@@ -32,6 +33,17 @@ _SCRIPT = textwrap.dedent("""
     sql = open("benchmarks/queries/tpch/q6.sql").read()
     out = ctx.sql(sql).collect_table().to_numpy()
     assert len(out["revenue"]) == 1 and out["revenue"][0] > 0, out
+    w = ctx.sql("select o_custkey, row_number() over (partition by "
+                "o_custkey order by o_orderdate) rn from orders "
+                "order by o_custkey, rn").collect_table().to_numpy()
+    assert w["rn"].min() == 1 and len(w["rn"]) > 0, w
+    stmt = ctx.prepare(sql.replace("< 24", "< $1"))
+    bound = stmt.to_df([24]).collect_table().to_numpy()
+    assert bound["revenue"].tobytes() == out["revenue"].tobytes()
+    from datafusion_distributed_tpu_torch.data import clickbenchgen
+    clickbenchgen.register_clickbench(ctx, 1000, 3)
+    cb = ctx.sql(open("benchmarks/queries/clickbench/q9.sql").read())
+    assert len(cb.collect_table().to_numpy()["RegionID"]) == 10
     loaded = sorted(m for m in sys.modules
                     if m == "datafusion_distributed_tpu"
                     or m.startswith("datafusion_distributed_tpu."))

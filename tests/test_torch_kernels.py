@@ -424,6 +424,20 @@ def test_probe_on_the_cpu_runs_the_plain_version_only():
     assert hk.LAUNCHES["multiway_probe"] == 0 and hk.PROBE_SHAPES == {}
 
 
+def test_build_on_the_cpu_runs_the_plain_version_only():
+    """A CPU tensor takes the plain version: no launch, no build shape."""
+    rng = np.random.default_rng(6)
+    keys = torch.from_numpy(_lane_keys(rng, 50, 2, 10))
+    args = (keys, _slot0(keys.numpy(), 16), torch.ones(50, dtype=torch.bool),
+            16)
+    hk.reset_launch_counts()
+    got = hk.build_group_ids(*args)
+    ref = hk.build_group_ids_plain(*args)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert hk.LAUNCHES["build_group_ids"] == 0 and hk.BUILD_SHAPES == {}
+
+
 @pytest.mark.parametrize("live_fraction", [0.0, 0.9])
 def test_build_reports_rounds_and_overflow_as_tensors(live_fraction):
     """rounds and overflow are 0-d tensors (on the card they stay there);

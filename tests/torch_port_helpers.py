@@ -67,6 +67,28 @@ def assert_results_equal(a: dict, b: dict, what: str = "") -> None:
     )
 
 
+def identical(a: dict, b: dict) -> bool:
+    """Table.to_numpy() results equal byte for byte: names, dtypes, shapes,
+    null masks, values (strings as lists)."""
+    if list(a) != list(b):
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if isinstance(x, np.ma.MaskedArray) or isinstance(y, np.ma.MaskedArray):
+            if not (np.array_equal(np.ma.getmaskarray(x), np.ma.getmaskarray(y))
+                    and identical({k: np.ma.getdata(x)},
+                                  {k: np.ma.getdata(y)})):
+                return False
+        elif x.dtype == object:
+            if list(x) != list(y):
+                return False
+        elif x.tobytes() != y.tobytes():
+            return False
+    return True
+
+
 def first_difference(a: dict, b: dict) -> str:
     if list(a) != list(b):
         return f"column names {list(a)} vs {list(b)}"
