@@ -28,16 +28,28 @@ Phases, each of which must pass:
    bound text.
 7. window — the window queries W1-W3 at SF 1, twice, byte-identical, and
    at SF 0.01 on "cuda" against "cpu".
-8. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
+8. distributed — the staged planner at SF 1: distributed_plan(T) of the
+   22 queries and the star query S1 for T in 1, 2, 4, 8, with multiway_join
+   off and on (no error diagnostic; first and cached planning ms; the
+   device bytes of the scans split for 8 tasks); the one-task staged path
+   (collect_distributed_table(1), fused multiway joins on) twice,
+   byte-identical and equal to collect_table, with kernel 2 launched at
+   K = 3 by S1's fused join; S1's fused node through its cascade and its
+   binary chain, byte-identical; and at SF 0.01 the staged results and
+   staged plans on "cuda" against "cpu".
+9. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
    import): the `hits` table at its published 99,997,497 rows, seed 3, all
    43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
    kernels 1 and 2 at every shape that run gave them (group builds on
    `hits`'s int64 keys through the (lo, hi) lane split, up to 2^28 slots),
    bit-exact against their plain versions; and at 20,000 rows on "cuda"
-   against "cpu".
+   against "cpu", results and the staged plans for 8 tasks.
 
-The main phase, the window phase and the ClickBench run each set the
-kernels' launch counts to 0 just before they run and read them just after.
+The check phase also runs q22 and q13 over `orders` without the customers
+whose key is divisible by 3, card against CPU (7 and 22 rows at SF 0.01).
+The main phase, the window phase, the one-task staged path and the
+ClickBench run each set the kernels' launch counts to 0 just before they
+run and read them just after.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, the script fails and prints no result.
@@ -184,6 +196,35 @@ def kernel_ms(fn, reps: int, kernels) -> dict:
         if k:
             out[k] = out.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     return out
+
+
+def device_ops(fn, top: int = 12) -> dict:
+    """One warm call of ``fn`` under torch.profiler: its device busy ms, its
+    wall ms, and the ``top`` device activities by summed ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1])
+    ka = prof.key_averages()
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in ka),
+                  key=lambda r: -r[1])
+    return {"wall_ms": wall_ms, "busy_ms": sum(by_name.values()),
+            "top": [[name[:80], ms] for name, ms in ops[:top]],
+            "host_top": [[k[:60], ms, c] for k, ms, c in host[:top]]}
 
 
 def bound_ms(nbytes: int) -> float:
@@ -554,6 +595,15 @@ def _collect(df) -> dict:
     return out
 
 
+def _collect_staged(df) -> dict:
+    """The one-task staged plan's result, as _collect gives a query's."""
+    import torch
+
+    out = df.collect_distributed_table(1).to_numpy()
+    torch.cuda.synchronize()
+    return out
+
+
 def _identical(a: dict, b: dict) -> bool:
     if list(a) != list(b):
         return False
@@ -637,11 +687,13 @@ def phase_main(sf: float, names, seed: int) -> dict:
             f"second={t2 - t1:.3f}s launches={per_query[q]['launches']} "
             f"rounds={stats}")
     launches = dict(hk.LAUNCHES)
+    launches_by_k = _launches_by_k(hk)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
     build_shapes, probe_shapes = kernel_shapes(hk, "main")
     return {
         "setup_s": setup_s, "queries": per_query, "launches": launches,
+        "launches_by_k": launches_by_k,
         "build_shapes": build_shapes, "probe_shapes": probe_shapes,
         "rounds": {"builds": rounds["builds"], "max": rounds["max"],
                    "mean": (rounds["total"] / rounds["builds"]
@@ -722,6 +774,22 @@ def _close(a: dict, b: dict, rtol: float) -> str:
     return ""
 
 
+def _without_a_third_of_customers(device: str, sf: float, seed: int):
+    """A session over the TPC-H tables with `orders` cut to the rows whose
+    o_custkey % 3 != 0, as TPC-H's own generator leaves a third of the
+    customers without orders (the port's generator gives every customer
+    one, so q22 finds none)."""
+    ctx = _session(device, sf, seed)
+    orders = ctx.catalog.tables["orders"]
+    keep = orders.column("o_custkey").data % 3 != 0
+    ctx.register_table("orders", orders.compact(keep))
+    return ctx
+
+
+#: rows of q22 and q13 over those orders at SF 0.01, seed 7 (both packages)
+THIRD_ROWS = {"q22": 7, "q13": 22}
+
+
 def phase_check(sf: float, names, seed: int) -> dict:
     from datafusion_distributed_tpu_torch import precision
 
@@ -735,6 +803,22 @@ def phase_check(sf: float, names, seed: int) -> dict:
         check(diff == "", f"{q}: cuda and cpu differ in {diff}")
         result[q] = len(next(iter(a.values()))) if a else 0
     log(f"[check] SF {sf}: {len(result)} queries equal on cuda and cpu")
+    gpu = _without_a_third_of_customers("cuda", sf, seed)
+    cpu = _without_a_third_of_customers("cpu", sf, seed)
+    orders = int(gpu.catalog.tables["orders"].num_rows)
+    for q, sql in _queries(THIRD_ROWS):
+        a = _run(gpu, sql)
+        b = cpu.sql(sql).collect_table().to_numpy()
+        diff = _close(a, b, precision.test_rtol())
+        check(diff == "", f"{q} (a third of customers without orders): "
+              f"cuda and cpu differ in {diff}")
+        rows = len(next(iter(a.values())))
+        if sf == 0.01 and seed == 7:
+            check(rows == THIRD_ROWS[q], f"{q}: {rows} rows, expected "
+                  f"{THIRD_ROWS[q]} over {orders} orders")
+        result[f"{q}_third"] = rows
+    log(f"[check] SF {sf}, {orders} orders: q22 {result['q22_third']} rows, "
+        f"q13 {result['q13_third']} rows, equal on cuda and cpu")
     return result
 
 
@@ -895,7 +979,243 @@ def phase_window(sf: float, check_sf: float, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: ClickBench in x64 mode, in a subprocess
+# phase 8: the staged (distributed) planner and the one-task staged path
+# ---------------------------------------------------------------------------
+
+#: the star query: lineitem probes orders, part and supplier on its own keys,
+#: so its three joins fuse into one node that resolves all three probes with
+#: one launch of kernel 2 (K = 3)
+S1 = """select s_nationkey, p_brand, o_orderpriority, count(*) as n,
+       sum(l_quantity) as q
+from lineitem join orders on l_orderkey = o_orderkey
+join part on l_partkey = p_partkey join supplier on l_suppkey = s_suppkey
+group by s_nationkey, p_brand, o_orderpriority
+order by s_nationkey, p_brand, o_orderpriority"""
+STAGED_TASKS = (1, 2, 4, 8)
+#: the kernels the one-task staged path must launch (kernel 3 where a
+#: single-mode GROUP BY stays fused, as in q4, q12, q13, q16, q21)
+DISTRIBUTED_KERNELS = ("build_group_ids", "multiway_probe", "group_aggregate")
+
+
+def _staged_queries(names):
+    return _queries(names) + [("S1", S1)]
+
+
+def _launches_by_k(hk) -> dict:
+    """Kernel 2's launches since the last reset, by its K (tables a launch)."""
+    out: dict = {}
+    for (_n, k, _lanes, _slots), c in hk.PROBE_SHAPES.items():
+        out[k] = out.get(k, 0) + c
+    return dict(sorted(out.items()))
+
+
+def _scan_split_bytes(plan) -> int:
+    """Device bytes of the per-task slices the planner cut the plan's scans
+    into (each slice's columns and validity masks)."""
+    from datafusion_distributed_tpu_torch.plan.physical import MemoryScanExec
+
+    total = 0
+    for leaf in plan.collect(lambda n: isinstance(n, MemoryScanExec)):
+        if len(leaf.tasks) > 1:
+            for t in leaf.tasks:
+                for c in t.columns:
+                    total += nbytes(c.data)
+                    if c.validity is not None:
+                        total += nbytes(c.validity)
+    return total
+
+
+def _fused_nodes(plan):
+    from datafusion_distributed_tpu_torch.plan.joins import (
+        MultiwayHashJoinExec,
+    )
+
+    return plan.collect(lambda n: isinstance(n, MultiwayHashJoinExec))
+
+
+def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
+    """1. distributed_plan(T) of every query and S1 for T in 1, 2, 4, 8, with
+    multiway_join off and on: no error diagnostic; first and cached planning
+    ms; the device bytes of the split scans at T = 8.
+    2. collect_distributed_table(1) with multiway_join on, twice: the runs
+    byte-identical and equal to collect_table; kernel 2 launched at K = 3.
+    3. S1's fused node at SF 1 through its cascade and its binary chain:
+    byte-identical; the cascade's K = 3 probe, on the query's own inputs,
+    bit for bit against the plain probe, and so every probe shape the
+    staged run logged, on seeded tables.
+    4. At SF ``check_sf``: the one-task results on the card equal the CPU's,
+    and explain_distributed(T) gives the same string on both devices."""
+    import dataclasses
+
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.plan.joins import (
+        cascade_probe_inputs,
+    )
+    from datafusion_distributed_tpu_torch.plan.physical import execute_plan
+    from datafusion_distributed_tpu_torch.plan.verify import (
+        verify_physical_plan,
+    )
+
+    queries = _staged_queries(names)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+
+    # --- 1. planning, each T in a session of its own ---------------------
+    planning: dict = {}
+    split_bytes = 0
+    fused_at: dict = {}
+    for t in STAGED_TASKS:
+        ctx = _session("cuda", sf, seed)
+        row = {"first_ms": 0.0, "cached_ms": 0.0, "plans": 0}
+        for mw in (False, True):
+            ctx.config.distributed_options["multiway_join"] = mw
+            for q, sql in queries:
+                t0 = time.perf_counter()
+                df = ctx.sql(sql)
+                plan = df.distributed_plan(t)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                again = ctx.sql(sql).distributed_plan(t)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                check(again is plan, f"{q} T={t}: the plan was not cached")
+                result = verify_physical_plan(plan)
+                check(not result.errors(), f"{q} T={t} multiway={mw}: "
+                      f"verification errors\n{result.render()}")
+                row["first_ms"] += (t1 - t0) * 1e3
+                row["cached_ms"] += (t2 - t1) * 1e3
+                row["plans"] += 1
+                if mw:
+                    fused_at.setdefault(t, {})[q] = [
+                        len(n.steps) for n in _fused_nodes(plan)]
+                if t == 8:
+                    split_bytes += _scan_split_bytes(plan)
+        planning[t] = row
+        log(f"[distributed] T={t}: {row}")
+        del ctx
+    planning_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    check(fused_at[1]["S1"] == [3], f"S1 at T=1 fused as {fused_at[1]['S1']}")
+
+    # --- 2. the one-task staged path --------------------------------------
+    ctx = _session("cuda", sf, seed)
+    ctx.config.distributed_options["multiway_join"] = True
+    per_query: dict = {}
+    staged: dict = {}
+    hk.reset_launch_counts()
+    for q, sql in queries:
+        t0 = time.perf_counter()
+        df = ctx.sql(sql)
+        first = _collect_staged(df)
+        t1 = time.perf_counter()
+        second = _collect_staged(ctx.sql(sql))
+        t2 = time.perf_counter()
+        check(_identical(first, second), f"{q}: two staged runs differ")
+        staged[q] = second
+        per_query[q] = {"rows": len(next(iter(second.values()))),
+                        "first_s": t1 - t0, "staged_s": t2 - t1,
+                        "retries": df.last_retry_count}
+    launches = dict(hk.LAUNCHES)
+    by_k = _launches_by_k(hk)
+    _builds, probe_shapes = kernel_shapes(hk, "distributed")
+    for k in DISTRIBUTED_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the one-task "
+              "staged path")
+    check(by_k.get(3, 0) > 0, f"kernel 2 never ran at K = 3: {by_k}")
+    rtol = precision.test_rtol()
+    for q, sql in queries:
+        _run(ctx, sql)  # warm
+        t0 = time.perf_counter()
+        single = _run(ctx, sql)
+        per_query[q]["single_s"] = time.perf_counter() - t0
+        diff = _close(staged[q], single, rtol)
+        check(diff == "", f"{q}: staged and single-node results differ in "
+              f"{diff}")
+        log(f"[distributed] {q}: {per_query[q]}")
+
+    # --- 3. S1's fused node: cascade against chain at SF 1 ----------------
+    df = ctx.sql(S1)
+    dcfg = dataclasses.replace(df._seeded_distributed_config(1),
+                               uniform_stage_tasks=True)
+    (mw,) = _fused_nodes(df.distributed_plan(1, dcfg, executing=True))
+    check(mw.cascade_eligible(), "S1's fused node does not take the cascade")
+    chain = mw.to_binary_chain()
+    cascade_out = execute_plan(mw).to_numpy()
+    chain_out = execute_plan(chain).to_numpy()
+    check(_identical(cascade_out, chain_out),
+          "S1: cascade and chain differ at SF 1")
+    cascade_ms = time_ms(lambda: execute_plan(mw), REPS)
+    chain_ms = time_ms(lambda: execute_plan(chain), REPS)
+    fused_rows = len(next(iter(cascade_out.values())))
+    log(f"[distributed] S1 fused node: {fused_rows} rows, cascade "
+        f"{cascade_ms:.3f} ms, chain {chain_ms:.3f} ms")
+    # the cascade's own probe inputs, rebuilt from the node's inputs as
+    # _execute_cascade builds them: kernel 2 at K = 3 against its plain
+    # version at the shape the staged run launched it
+    probe_t = execute_plan(mw.probe)
+    _sides, args = cascade_probe_inputs(
+        mw.steps, probe_t, [execute_plan(b) for b in mw.builds])
+    keys = args[0]
+    shape = [keys.shape[0], keys.shape[1], keys.shape[2], list(args[5])]
+    check(any(p[:4] == shape for p in probe_shapes),
+          f"S1's cascade probe {shape} is not a shape the staged run logged")
+    s1_probe = _probe_against_plain(args)
+    log(f"[distributed] S1 cascade probe rows={shape[0]} tables={shape[1]} "
+        f"lanes={shape[2]} slots={shape[3]}: {s1_probe}")
+    check(s1_probe["max_abs_err"] == 0,
+          "S1's cascade probe: kernel != plain on the query's own inputs")
+    del probe_t, _sides, args, keys
+    cascade_ops = device_ops(lambda: execute_plan(mw))
+    chain_ops = device_ops(lambda: execute_plan(chain))
+    log(f"[distributed] S1 cascade device ops: {cascade_ops}")
+    log(f"[distributed] S1 chain device ops: {chain_ops}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del ctx, df, mw, chain, staged
+    torch.cuda.empty_cache()
+    # kernel 2 at every probe shape the staged run logged, on seeded tables
+    probe_checks = probe_shape_checks(probe_shapes, torch.device("cuda"),
+                                      "distributed")
+
+    # --- 4. card against CPU ----------------------------------------------
+    gpu = _session("cuda", check_sf, seed)
+    cpu = _session("cpu", check_sf, seed)
+    for c in (gpu, cpu):
+        c.config.distributed_options["multiway_join"] = True
+    for q, sql in queries:
+        a = _collect_staged(gpu.sql(sql))
+        b = cpu.sql(sql).collect_distributed_table(1).to_numpy()
+        diff = _close(a, b, rtol)
+        check(diff == "", f"{q}: staged results on cuda and cpu differ in "
+              f"{diff}")
+        for t in STAGED_TASKS:
+            check(gpu.sql(sql).explain_distributed(t)
+                  == cpu.sql(sql).explain_distributed(t),
+                  f"{q} T={t}: the staged plan differs on cuda and cpu")
+    log(f"[distributed] SF {check_sf}: {len(queries)} queries, equal results "
+        "and staged plans on cuda and cpu")
+    return {
+        "planning": planning, "split_scan_bytes_t8": split_bytes,
+        "planning_peak_gb": planning_peak_gb, "base_gb": base_gb,
+        "fused_steps": fused_at, "queries": per_query,
+        "launches": launches, "multiway_probe_launches_by_k": by_k,
+        "probe_shapes": probe_shapes,
+        "kernel_checks": {"multiway_probe": {
+            "S1 cascade": s1_probe, **probe_checks}},
+        "s1_fused": {"rows": fused_rows, "cascade_ms": cascade_ms,
+                     "chain_ms": chain_ms, "cascade_ops": cascade_ops,
+                     "chain_ops": chain_ops},
+        "peak_gb": peak_gb,
+        "staged_s": sum(v["staged_s"] for v in per_query.values()),
+        "single_s": sum(v["single_s"] for v in per_query.values()),
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 9: ClickBench in x64 mode, in a subprocess
 # ---------------------------------------------------------------------------
 
 CLICKBENCH_ROWS = 99_997_497  # ClickBench's `hits` table
@@ -903,6 +1223,7 @@ CLICKBENCH_CHECK_ROWS = 20_000  # card against CPU, as the CPU tests size it
 CLICKBENCH_SEED = 3
 CLICKBENCH_QUERIES = [f"q{i}" for i in range(43)]
 CLICKBENCH_RETRIES = 8  # overflow retries (SessionConfig; default 3)
+STAGED_CLICKBENCH_TASKS = 8  # staged plans, card against CPU at 20,000 rows
 
 
 def phase_clickbench(timeout_s: float) -> dict:
@@ -996,12 +1317,28 @@ def clickbench_worker(out_path: str) -> int:
     cpu = SessionContext(device="cpu")
     clickbenchgen.register_clickbench(cpu, CLICKBENCH_CHECK_ROWS,
                                       CLICKBENCH_SEED)
+    from datafusion_distributed_tpu_torch.plan.verify import (
+        verify_physical_plan,
+    )
+
     for q, sql in queries:
         diff = _close(_run(gpu, sql), cpu.sql(sql).collect_table().to_numpy(),
                       precision.test_rtol())
         check(diff == "", f"{q}: cuda and cpu differ in {diff}")
+        # the staged plan for 8 tasks (at this size only: splitting `hits`
+        # at 99,997,497 rows would copy it at plan time)
+        gdf = gpu.sql(sql)
+        text = gdf.explain_distributed(STAGED_CLICKBENCH_TASKS)
+        result = verify_physical_plan(
+            gdf.distributed_plan(STAGED_CLICKBENCH_TASKS))
+        check(not result.errors(), f"{q}: staged plan verification errors"
+              f"\n{result.render()}")
+        check(text == cpu.sql(sql).explain_distributed(
+            STAGED_CLICKBENCH_TASKS),
+              f"{q}: the staged plan differs on cuda and cpu")
     log(f"[clickbench] {CLICKBENCH_CHECK_ROWS} rows: {len(queries)} queries "
-        "equal on cuda and cpu")
+        "equal on cuda and cpu, and so are their staged plans for "
+        f"{STAGED_CLICKBENCH_TASKS} tasks")
     Path(out_path).write_text(json.dumps({
         "rows": rows, "setup_s": setup_s, "max_slots": slots,
         "overflow_retries": CLICKBENCH_RETRIES,
@@ -1052,6 +1389,74 @@ def _clickbench_keys(key_cols: dict, n: int, lanes: int, slots: int,
     return keys, slot0
 
 
+def probe_shape_checks(probe_shapes, dev, tag: str) -> dict:
+    """Kernel 2 at every probe shape a run logged ([rows, tables, lanes,
+    table slots, launches]), on seeded tables of the recorded slots and
+    keys half present, held bit for bit against its plain version. The
+    launches made here are not the path's: they come after its counts were
+    read."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.ops.hash import hash_columns
+
+    probes = {}
+    for n, ntab, lanes, slots, _count in probe_shapes:
+        rng = _rng(f"{tag} probe {n} {lanes} {slots}")
+        tparts, uparts, kparts = [], [], []
+        for hslots in slots:
+            ndv = max(1, int(0.4 * hslots))
+            bkeys = torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, (ndv, lanes), dtype=np.int64
+            ).astype(np.int32)).to(dev)
+            cols = [bkeys[:, i] for i in range(lanes)]
+            bs0 = (hash_columns(cols, [None] * lanes) & (hslots - 1)).to(
+                torch.int32)
+            _g, tk, used, bover, _r = hk.build_group_ids(
+                bkeys, bs0, torch.ones(ndv, dtype=torch.bool, device=dev),
+                hslots)
+            check(not bool(bover), f"a {tag} probe table overflowed")
+            tparts.append(tk)
+            uparts.append(used)
+            present = bkeys[torch.from_numpy(rng.integers(0, ndv, n)).to(dev)]
+            absent = torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, (n, lanes), dtype=np.int64
+            ).astype(np.int32)).to(dev)
+            half = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+            kparts.append(torch.where(half[:, None], present, absent))
+        keys = torch.stack(kparts, dim=1).contiguous()
+        s0 = torch.stack([
+            (hash_columns([keys[:, k, i] for i in range(lanes)],
+                          [None] * lanes) & (slots[k] - 1)).to(torch.int32)
+            for k in range(ntab)], dim=1)
+        active = torch.ones((n, ntab), dtype=torch.bool, device=dev)
+        args = (keys, s0, active, torch.cat(tparts), torch.cat(uparts),
+                tuple(slots))
+        case = _probe_against_plain(args)
+        check(case["max_abs_err"] == 0, f"multiway_probe rows={n} "
+              f"tables={ntab} lanes={lanes} slots={slots}: kernel != plain")
+        probes[f"{n}x{ntab}x{lanes}/{slots}"] = case
+        log(f"[{tag}] multiway_probe rows={n} tables={ntab} "
+            f"lanes={lanes} slots={slots}: {case}")
+        del keys, s0, active, args, tparts, uparts, kparts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return probes
+
+
+def _probe_against_plain(args) -> dict:
+    """One multiway_probe call on ``args`` against multiway_probe_plain on
+    the same inputs: the largest difference, and both times."""
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+
+    got = hk.multiway_probe(*args)
+    ref = hk.multiway_probe_plain(*args)
+    return {"max_abs_err": max_abs_err(zip(got, ref)),
+            "found_fraction": float((got[0] >= 0).float().mean()),
+            "ms": time_ms(lambda: hk.multiway_probe(*args), 1),
+            "plain_ms": time_ms(lambda: hk.multiway_probe_plain(*args), 1)}
+
+
 def clickbench_kernel_checks(key_cols: dict, live, build_shapes,
                              probe_shapes) -> dict:
     """Kernels 1 and 2 at every shape the ClickBench run gave them, held bit
@@ -1062,7 +1467,6 @@ def clickbench_kernel_checks(key_cols: dict, live, build_shapes,
     import torch
 
     from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
-    from datafusion_distributed_tpu_torch.ops.hash import hash_columns
 
     dev = live.device
     max_slots = max(h for _n, _l, h, _c in build_shapes)
@@ -1089,50 +1493,7 @@ def clickbench_kernel_checks(key_cols: dict, live, build_shapes,
             f"slots={slots}: {case}")
         del keys, s0
         torch.cuda.empty_cache()
-    probes = {}
-    for n, ntab, lanes, slots, _count in probe_shapes:
-        rng = _rng(f"clickbench probe {n} {lanes} {slots}")
-        tparts, uparts, kparts = [], [], []
-        for hslots in slots:
-            ndv = max(1, int(0.4 * hslots))
-            bkeys = torch.from_numpy(rng.integers(
-                -2**31, 2**31 - 1, (ndv, lanes), dtype=np.int64
-            ).astype(np.int32)).to(dev)
-            cols = [bkeys[:, i] for i in range(lanes)]
-            bs0 = (hash_columns(cols, [None] * lanes) & (hslots - 1)).to(
-                torch.int32)
-            _g, tk, used, bover, _r = hk.build_group_ids(
-                bkeys, bs0, torch.ones(ndv, dtype=torch.bool, device=dev),
-                hslots)
-            check(not bool(bover), "a ClickBench probe table overflowed")
-            tparts.append(tk)
-            uparts.append(used)
-            present = bkeys[torch.from_numpy(rng.integers(0, ndv, n)).to(dev)]
-            absent = torch.from_numpy(rng.integers(
-                -2**31, 2**31 - 1, (n, lanes), dtype=np.int64
-            ).astype(np.int32)).to(dev)
-            half = torch.from_numpy(rng.random(n) < 0.5).to(dev)
-            kparts.append(torch.where(half[:, None], present, absent))
-        keys = torch.stack(kparts, dim=1).contiguous()
-        s0 = torch.stack([
-            (hash_columns([keys[:, k, i] for i in range(lanes)],
-                          [None] * lanes) & (slots[k] - 1)).to(torch.int32)
-            for k in range(ntab)], dim=1)
-        active = torch.ones((n, ntab), dtype=torch.bool, device=dev)
-        args = (keys, s0, active, torch.cat(tparts), torch.cat(uparts),
-                tuple(slots))
-        got = hk.multiway_probe(*args)
-        ref = hk.multiway_probe_plain(*args)
-        err = max_abs_err(zip(got, ref))
-        case = {"max_abs_err": err,
-                "found_fraction": float((got[0] >= 0).float().mean()),
-                "ms": time_ms(lambda: hk.multiway_probe(*args), 1),
-                "plain_ms": time_ms(lambda: hk.multiway_probe_plain(*args), 1)}
-        check(err == 0, f"multiway_probe rows={n} tables={ntab} "
-              f"lanes={lanes} slots={slots}: kernel != plain")
-        probes[f"{n}x{ntab}x{lanes}/{slots}"] = case
-        log(f"[clickbench] multiway_probe rows={n} tables={ntab} "
-            f"lanes={lanes} slots={slots}: {case}")
+    probes = probe_shape_checks(probe_shapes, dev, "clickbench")
     torch.cuda.synchronize()
     return {"build_group_ids": builds, "multiway_probe": probes}
 
@@ -1148,7 +1509,7 @@ REPS = 5  # timed calls per kernel, after one warm-up
 SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
-          "window", "clickbench")
+          "window", "distributed", "clickbench")
 CLICKBENCH_TIMEOUT_S = 600
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -1215,6 +1576,9 @@ def main(argv=None) -> int:
                 results["session"] = phase_session(SF, QUERIES, SEED)
             elif phase == "window":
                 results["window"] = phase_window(SF, CHECK_SF, SEED)
+            elif phase == "distributed":
+                results["distributed"] = phase_distributed(
+                    SF, CHECK_SF, QUERIES, SEED)
             else:
                 results["clickbench"] = phase_clickbench(CLICKBENCH_TIMEOUT_S)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
@@ -1237,23 +1601,36 @@ def main(argv=None) -> int:
     # launches: the main path's (TPC-H, tpu mode), and by path (TPC-H,
     # window, ClickBench in x64 mode); null where the phase did not run
     paths = {"tpch_tpu": "main", "window": "window",
-             "clickbench_x64": "clickbench"}
-    cb_checks = results.get("clickbench", {}).get("kernel_checks", {})
+             "staged_t1": "distributed", "clickbench_x64": "clickbench"}
+    shape_checks = [results.get(phase, {}).get("kernel_checks", {})
+                    for phase in ("distributed", "clickbench")]
     for name, k in results.get("kernels", {}).items():
-        # the kernel phase's cases and the checks at ClickBench's shapes
+        # the kernel phase's cases and the checks at the staged run's and
+        # ClickBench's shapes
         err = max([k["max_abs_err"]] + [
-            c["max_abs_err"] for c in cb_checks.get(name, {}).values()])
+            c["max_abs_err"] for checks in shape_checks
+            for c in checks.get(name, {}).values()])
         by_path = {path: results[phase]["launches"].get(name)
                    if phase in results else None
                    for path, phase in paths.items()}
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": by_path["tpch_tpu"],
             "launches_by_path": by_path,
             "max_abs_err": err, "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": "bytes", "library_ms": k["library_ms"],
-        })
+        }
+        if name == "multiway_probe":
+            # kernel 2's launches by K (tables a launch), by path
+            entry["launches_by_k"] = {
+                path: results[phase].get(key)
+                for path, phase, key in (
+                    ("tpch_tpu", "main", "launches_by_k"),
+                    ("staged_t1", "distributed",
+                     "multiway_probe_launches_by_k"))
+                if phase in results}
+        kernels.append(entry)
     if "main" in results:
         print(json.dumps({"main": {q: v["second_s"] for q, v in
                                    results["main"]["queries"].items()},
@@ -1266,6 +1643,18 @@ def main(argv=None) -> int:
         print(json.dumps({"window": {
             q: v["second_s"]
             for q, v in results["window"]["queries"].items()}}))
+    if "distributed" in results:
+        d = results["distributed"]
+        print(json.dumps({"distributed": {
+            "planning_ms": {t: [v["first_ms"], v["cached_ms"]]
+                            for t, v in d["planning"].items()},
+            "split_scan_bytes_t8": d["split_scan_bytes_t8"],
+            "staged_s": d["staged_s"], "single_s": d["single_s"],
+            "s1_fused": d["s1_fused"],
+            "s1_cascade_probe":
+                d["kernel_checks"]["multiway_probe"]["S1 cascade"],
+            "multiway_probe_launches_by_k":
+                d["multiway_probe_launches_by_k"]}}))
     if "clickbench" in results:
         cb = results["clickbench"]
         print(json.dumps({"clickbench": {

@@ -5,8 +5,11 @@ on an NVIDIA H100. It keeps the reference package's module layout and names:
 
 - ops/       padded columnar Table + operators; the hash-table kernels are
              hand-written CUDA (csrc/hash_table.cu, ops/hash_kernels.py)
-- plan/      physical plan IR + expression IR, executed eagerly
-- planner/   the statistics the single-node planner sizes tables with
+- plan/      physical plan IR + expression IR, executed eagerly; the
+             exchange nodes and the fused multiway join of staged plans
+- planner/   statistics and cost model; the distributed (staged) planner
+- parallel/  the plan-time split of a table into per-task slices
+- runtime/   the planner's adaptivity counters
 - sql/       SQL front end (parser -> logical plan -> physical plan)
 - io/        host-side Arrow/Parquet <-> device Table
 - data/      TPC-H generator (numpy only)

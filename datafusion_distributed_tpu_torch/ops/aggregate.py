@@ -36,6 +36,14 @@ from datafusion_distributed_tpu_torch.schema import DataType
 _LANE = precision.LANE_TORCH
 _ACC_INT = precision.ACC_INT_TORCH
 
+#: aggregate functions whose partial states merge exactly (avg through its
+#: sum and count), so the distributed planner may push them below a
+#: shuffle (planner/distributed.py `_partial_agg_pushdown_pass`). The
+#: variance family decomposes too, but its three states widen the exchange.
+PUSHDOWN_DECOMPOSABLE_FUNCS = frozenset(
+    {"sum", "count", "count_star", "min", "max", "avg"}
+)
+
 
 @dataclass(frozen=True)
 class AggSpec:

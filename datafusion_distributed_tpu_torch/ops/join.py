@@ -52,6 +52,27 @@ def _fold_keys(cols, valids, lane_plan):
     return torch.stack(lanes, dim=1)  # [N, lanes]
 
 
+def probe_inputs(
+    probe_cols: Sequence[torch.Tensor],
+    probe_valids: Sequence[Optional[torch.Tensor]],
+    live: torch.Tensor,
+    lane_plan: Sequence[bool],
+    num_slots: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One table's probe inputs: the folded key lanes [N, lanes], each
+    row's first slot [N] int32 and the rows that probe at all [N] (live,
+    no NULL key)."""
+    n = probe_cols[0].shape[0]
+    keys_mat = _fold_keys(probe_cols, probe_valids, lane_plan)
+    h0 = hash_columns(list(probe_cols), list(probe_valids))
+    slot = (h0 & (num_slots - 1)).to(torch.int32)
+    has_null = torch.zeros(n, dtype=torch.bool, device=live.device)
+    for v in probe_valids:
+        if v is not None:
+            has_null = has_null | ~v
+    return keys_mat, slot, live & ~has_null
+
+
 def probe_group_table(
     gt_slot_keys_raw: torch.Tensor,  # [H, lanes] LANE_INT (raw matrix)
     slot_used: torch.Tensor,  # [H] bool
@@ -65,15 +86,8 @@ def probe_group_table(
     Returns (found, overflow): overflow=True when a probe chain exhausted
     max_rounds. A NULL key never matches (SQL join semantics)."""
     num_slots = slot_used.shape[0]
-    n = probe_cols[0].shape[0]
-    keys_mat = _fold_keys(probe_cols, probe_valids, lane_plan)
-    h0 = hash_columns(list(probe_cols), list(probe_valids))
-    slot = (h0 & (num_slots - 1)).to(torch.int32)
-    has_null = torch.zeros(n, dtype=torch.bool, device=live.device)
-    for v in probe_valids:
-        if v is not None:
-            has_null = has_null | ~v
-    active = live & ~has_null
+    keys_mat, slot, active = probe_inputs(
+        probe_cols, probe_valids, live, lane_plan, num_slots)
     found, over = hash_kernels.multiway_probe(
         keys_mat[:, None, :], slot[:, None], active[:, None],
         gt_slot_keys_raw, slot_used, (num_slots,), max_rounds,

@@ -319,8 +319,8 @@ def _canon_value(v) -> Any:
 # identity-like is deliberately absent: node_id, stage_id, est_* stats,
 # table-store ids, worker URLs, file paths, dictionaries, and leaf table
 # DATA. Only the port's own node classes are listed: a later slice adds
-# the entry of each node class it ports (exchanges, the multiway join, the
-# runtime's scans) with the class, from the reference's extractors.
+# the entry of each node class it ports (the runtime's scans) with the
+# class, from the reference's extractors.
 _PLAN_ATTRS: dict = {
     "MemoryScanExec": lambda n: (
         len(n.tasks), tuple(int(t.capacity) for t in n.tasks),
@@ -351,12 +351,39 @@ _PLAN_ATTRS: dict = {
         _canon_value(n.residual), int(n.out_capacity), int(n.num_slots),
         n.mark_name, bool(n.null_aware),
     ),
+    "MultiwayHashJoinExec": lambda n: (
+        tuple(
+            (s.join_type, tuple(s.probe_keys), tuple(s.build_keys),
+             _canon_value(s.residual), int(s.out_capacity),
+             int(s.num_slots), s.mark_name, bool(s.null_aware))
+            for s in n.steps
+        ),
+    ),
     "CrossJoinExec": lambda n: (int(n.out_capacity),),
     "UnionExec": lambda n: (),
     "WindowExec": lambda n: (
         _canon_value(n.funcs), tuple(n.partition_names),
         _canon_value(n.order_keys), _canon_schema(Schema(n.out_fields)),
     ),
+    "ShuffleExchangeExec": lambda n: (
+        tuple(n.key_names), int(n.num_tasks), int(n.per_dest_capacity),
+        n.producer_tasks, n.consumer_fetch,
+    ),
+    "RangeShuffleExchangeExec": lambda n: (
+        _canon_value(n.sort_keys), int(n.num_tasks),
+        int(n.per_dest_capacity), n.producer_tasks, n.consumer_fetch,
+    ),
+    "CoalesceExchangeExec": lambda n: (
+        int(n.num_tasks), int(getattr(n, "num_consumers", 1)),
+        n.producer_tasks, n.consumer_fetch,
+    ),
+    "BroadcastExchangeExec": lambda n: (
+        int(n.num_tasks), n.producer_tasks, n.consumer_fetch,
+    ),
+    "PartitionReplicatedExec": lambda n: (
+        int(n.num_tasks), n.producer_tasks, n.consumer_fetch,
+    ),
+    "IsolatedArmExec": lambda n: (int(n.assigned_task),),
 }
 
 

@@ -1,5 +1,5 @@
 """Physical plan IR: the ExecutionPlan tree (port of the reference
-`plan/physical.py`, single-node node set).
+`plan/physical.py`; the exchange nodes are in plan/exchanges.py).
 
 The reference traces the whole plan into one XLA program; here operators run
 eagerly, one PyTorch call after another, on the device of the leaf tables.
@@ -59,6 +59,9 @@ class ExecContext:
     inputs: dict  # leaf node_id -> loaded device Table
     overflow_flags: list = dc_field(default_factory=list)
     config: dict = dc_field(default_factory=dict)
+    # exchange-node memoization (node_id -> Table): an exchange's output is
+    # computed once per run, however often the tree reaches it
+    exchange_cache: dict = dc_field(default_factory=dict)
 
     def record_overflow(self, node: "ExecutionPlan", flag) -> None:
         self.overflow_flags.append((node.label(), flag))
@@ -88,8 +91,29 @@ class ExecutionPlan:
     #: planner/statistics.estimate_rows.
     est_rows: "float | None" = None
     est_selectivity: "float | None" = None
+    #: the distributed planner's annotations (planner/distributed.py), read
+    #: by the runtime tiers: a pushed-down partial aggregate the runtime may
+    #: bail out of, and its predicted rows; a fused multiway join the
+    #: runtime may swap back to its binary chain, the probe order the
+    #: statistics chose (a hint only), and the shuffles its fusion deleted;
+    #: a single-mode aggregate chosen as one global hash table. Never
+    #: fingerprinted; kept across with_new_children rebuilds.
+    bailout_candidate: "bool | None" = None
+    predicted_partial_rows: "int | None" = None
+    multiway_bailout_candidate: "bool | None" = None
+    probe_order_hint: "tuple | None" = None
+    multiway_deleted_exchanges: "int | None" = None
+    global_agg_selected: "bool | None" = None
+    #: exchange nodes (plan/exchanges.py) set this; the planner and the
+    #: verifier find stage boundaries by it
+    is_exchange = False
 
-    _PRESERVED_ANNOTATIONS = ("est_rows", "est_selectivity")
+    _PRESERVED_ANNOTATIONS = (
+        "est_rows", "est_selectivity",
+        "bailout_candidate", "predicted_partial_rows",
+        "multiway_bailout_candidate", "probe_order_hint",
+        "multiway_deleted_exchanges", "global_agg_selected",
+    )
 
     def __init__(self) -> None:
         self.node_id = next(_NODE_COUNTER)

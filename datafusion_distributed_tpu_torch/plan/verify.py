@@ -12,9 +12,8 @@ time); this module is the Python analogue: a multi-pass analyzer over the
 physical plan tree emitting structured `Diagnostic` records with stable
 ``DFTPU0xx`` codes.
 
-In the port the exchange pass is duck-typed on ``is_exchange``: no node of
-the single-node slice is an exchange, so it finds nothing to check until
-the distributed planner lands.
+The exchange pass is duck-typed on ``is_exchange``: it checks the stage
+boundaries of the distributed planner's staged plans (planner/distributed.py).
 
 Passes (see ``verify_physical_plan``):
 

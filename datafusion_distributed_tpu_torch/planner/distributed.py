@@ -1,0 +1,1413 @@
+"""Distributed planner: single-node physical plan -> staged plan (port of
+the reference package's `planner/distributed.py`, pass for pass).
+
+The passes follow datafusion-distributed's `DistributedQueryPlanner`
+(shape -> insert broadcasts -> inject network boundaries with a task-count
+lattice -> prepare: elide 1:1 boundaries, stamp stage ids):
+
+- `_inject` walks bottom-up tracking each subtree's *distribution*
+  (PARTITIONED across tasks vs REPLICATED on all), rewriting:
+    aggregate  -> partial agg | shuffle(keys) | final agg
+                  (global agg -> partial | coalesce | final)
+    hash join  -> shuffle both sides on the join keys, or broadcast the
+                  build side when it is small (`broadcast_threshold_rows`)
+    sort/limit -> local sort/top-k | coalesce | final sort/limit
+- leaf scale-up splits scans into per-task slices (`_split_leaves`, with
+  parallel/exchange.partition_table: a copy on the table's device)
+- the partial-reduce, partial-aggregate push-down and multiway-join fusion
+  passes rewrite around the exchanges
+- `_prepare` elides boundaries whose producer and consumer run one task and
+  stamps stage ids. A plan staged for ONE task therefore has no exchange.
+
+Task counts: each leaf contributes a Desired/Maximum annotation (user
+TaskEstimator > bytes-based sizing > Desired(num_tasks)), annotations merge
+up the open stage, `_seal_stage` resolves the stage's count (honoring
+max_tasks_per_stage) and splits its scans, and boundary consumer counts come
+from the cardinality scale-factor walk. `uniform_stage_tasks` pins every
+stage to num_tasks (one program over T tasks: its exchanges span all T).
+
+Every capacity, display string and stage id equals the reference's. The
+plans run in the port only at one task (sql/context.py
+`collect_distributed_table`); running T > 1 tasks is ROADMAP A.2.
+"""
+
+from __future__ import annotations
+
+import enum
+import math
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+from datafusion_distributed_tpu_torch.ops.aggregate import (
+    PUSHDOWN_DECOMPOSABLE_FUNCS,
+)
+from datafusion_distributed_tpu_torch.ops.table import round_up_pow2
+from datafusion_distributed_tpu_torch.parallel.exchange import partition_table
+from datafusion_distributed_tpu_torch.plan.exchanges import (
+    BroadcastExchangeExec,
+    CoalesceExchangeExec,
+    IsolatedArmExec,
+    RangeShuffleExchangeExec,
+    ShuffleExchangeExec,
+    assign_arms_to_tasks,
+)
+from datafusion_distributed_tpu_torch.plan.joins import (
+    CrossJoinExec,
+    HashJoinExec,
+    MultiwayHashJoinExec,
+    MultiwayJoinStep,
+    UnionExec,
+)
+from datafusion_distributed_tpu_torch.plan.physical import (
+    CoalescePartitionsExec,
+    ExecutionPlan,
+    FilterExec,
+    HashAggregateExec,
+    LimitExec,
+    MemoryScanExec,
+    ParquetScanExec,
+    ProjectionExec,
+    SortExec,
+)
+from datafusion_distributed_tpu_torch.plan.window_exec import WindowExec
+from datafusion_distributed_tpu_torch.planner.statistics import (
+    _padded_bytes,
+    choose_probe_order,
+    estimate_rows,
+    multiway_fusion_allowed,
+    predict_partial_agg_reduction,
+    row_width,
+)
+from datafusion_distributed_tpu_torch.runtime.adaptivity import (
+    note_global_agg_selected,
+    note_multiway_fusion,
+)
+
+
+class Distribution(enum.Enum):
+    PARTITIONED = "partitioned"  # each task owns a disjoint row slice
+    REPLICATED = "replicated"  # every task holds the full data
+
+
+@dataclass(frozen=True)
+class TaskCountAnnotation:
+    """Desired/Maximum lattice (reference `task_estimator.rs:20-59`):
+    merge(Desired a, Desired b) = Desired max(a,b); Maximum dominates
+    Desired; merge(Maximum a, Maximum b) = Maximum min(a,b)."""
+
+    count: int
+    maximum: bool = False
+
+    def merge(self, other: "TaskCountAnnotation") -> "TaskCountAnnotation":
+        if self.maximum and other.maximum:
+            return TaskCountAnnotation(min(self.count, other.count), True)
+        if self.maximum:
+            return self  # Maximum dominates: the desired count is discarded
+        if other.maximum:
+            return other
+        return TaskCountAnnotation(max(self.count, other.count), False)
+
+
+class TaskEstimator:
+    """User extension point for per-leaf task-count estimation (the
+    reference's `TaskEstimator` trait, `task_estimator.rs:110-148`).
+    Register via ``DistributedConfig.task_estimator``. Estimators are
+    consulted leaf-by-leaf; a ``None`` return falls through to the built-in
+    bytes-based estimation."""
+
+    def task_estimation(self, leaf: ExecutionPlan,
+                        cfg: "DistributedConfig") -> Optional[TaskCountAnnotation]:
+        """Desired/Maximum task-count hint for the stage containing
+        ``leaf``, or None to defer to other estimators / the default."""
+        return None
+
+    def scale_up_leaf_node(self, leaf: ExecutionPlan, task_count: int,
+                           cfg: "DistributedConfig") -> Optional[ExecutionPlan]:
+        """Replace ``leaf`` once the stage's final ``task_count`` is known
+        (reference `scale_up_leaf_node`); None keeps the default split."""
+        return None
+
+
+@dataclass
+class DistributedConfig:
+    """Knobs (subset-parity with `distributed_config.rs`)."""
+
+    num_tasks: int = 8
+    broadcast_joins: bool = True
+    broadcast_threshold_rows: int = 1 << 17  # build sides smaller: broadcast
+    shuffle_skew_factor: int = 4
+    # hard per-stage task-count cap (Maximum semantics applied to every
+    # stage's lattice resolution); 0 = uncapped (num_tasks)
+    max_tasks_per_stage: int = 0
+    # wire-format knobs (reference: distributed_config.rs compression=lz4,
+    # worker_connection_buffer_budget_bytes=64MiB; zstd here — lz4 is not in
+    # this image)
+    compression: str = "zstd"  # "zstd" | "none"
+    worker_connection_buffer_budget_bytes: int = 64 << 20
+    shuffle_chunk_bytes: int = 1 << 20
+    # task-count estimation (reference: file_scan_config_bytes_per_partition
+    # 16MiB + dynamic_task_count): leaves sized by bytes, not mesh size
+    bytes_per_task: int = 16 << 20
+    dynamic_task_count: bool = False
+    # scale factor applied per cardinality-affecting node when sizing a
+    # boundary's consumer task count (CardinalityBasedNetworkBoundaryBuilder,
+    # `inject_network_boundaries.rs:595-623`): shrinking nodes divide,
+    # growing nodes multiply; 1.0 = consumers inherit the producer count
+    cardinality_task_count_factor: float = 1.0
+    # size leaf-stage task counts from leaf bytes (FileScanConfigTaskEstimator
+    # semantics, task_estimator.rs:235-258): tasks = ceil(bytes /
+    # bytes_per_task), capped at num_tasks. Host/coordinator tier only —
+    # a mesh SPMD program's task count is the physical device count.
+    size_tasks_to_data: bool = False
+    # user TaskEstimator consulted before the built-in leaf estimation
+    task_estimator: Optional[TaskEstimator] = None
+    # insert partial_reduce aggregates below hash shuffles (the reference's
+    # `partial_reduce` knob, default off; see _partial_reduce_pass)
+    partial_reduce: bool = False
+    # statistics-driven partial-aggregate push-down (`SET
+    # distributed.partial_agg_pushdown`): push decomposable aggregates
+    # (sum/count/min/max, avg via sum+count) BELOW hash shuffles when the
+    # sampled key-distribution statistics (catalog NDV -> est_rows)
+    # predict the partial states shrink the exchange payload, and stamp
+    # `predicted_exchange_bytes` on the rewritten shuffles so the
+    # coordinator can record predicted-vs-measured bytes (see
+    # _partial_agg_pushdown_pass; grounding: *Chasing Similarity* /
+    # *Partial Partial Aggregates*, PAPERS.md). Default ON: the runtime
+    # bail-out (runtime/adaptivity.py partial_agg_bailout_ratio) caps
+    # the cost of a wrong NDV prediction at one probed task, so the
+    # push-down no longer needs opt-in caution.
+    partial_agg_pushdown: bool = True
+    # minimum predicted BYTES reduction (0..1) for the push-down to fire:
+    # below it the pre-exchange aggregate is pure compute overhead (the
+    # high-NDV regime where distribution-aware placement says "aggregate
+    # after the exchange")
+    partial_agg_pushdown_min_reduction: float = 0.2
+    # multiway join-chain fusion (`SET distributed.multiway_join`): rewrite
+    # chains of >= 2 key-compatible binary hash joins into ONE
+    # MultiwayHashJoinExec stage, deleting the intermediate probe-side
+    # shuffles where re-hashing the same keys to the same task count is an
+    # identity re-partition (see _multiway_fusion_pass; grounding:
+    # *Efficient Multiway Hash Join on Reconfigurable Hardware*,
+    # PAPERS.md). Default off until parity is pinned per deployment.
+    multiway_join: bool = False
+    # combined resident build-side byte budget for one fused stage: every
+    # build table of the chain is live in the same program at once, so the
+    # statistics gate (planner/statistics.multiway_fusion_allowed) bounds
+    # their padded sum
+    multiway_build_bytes_max: int = 1 << 26
+    # stamp the statistics-chosen probe order (smallest estimated build
+    # first) as the `probe_order_hint` annotation. Hint only: steps always
+    # EXECUTE in plan order — reordering would permute output columns
+    multiway_probe_reorder: bool = False
+    # global-hash-table aggregation (`SET distributed.global_hash_agg`):
+    # when sampled NDV predicts partial states will NOT shrink the
+    # exchange (the high-NDV regime of *Global Hash Tables Strike
+    # Back!*), plan shuffle-raw-rows + one single-mode aggregate per task
+    # — one shared table, no per-partition tables + merge. Default off.
+    global_hash_agg: bool = False
+    # unlimited ORDER BY over data larger than this (global row capacity)
+    # plans as a distributed sample sort (range shuffle + local sorts);
+    # smaller sorts keep the cheaper coalesce-then-sort shape (two fewer
+    # stages, and one device trivially sorts a post-aggregate result)
+    range_sort_threshold_rows: int = 8192
+    # force every stage to exactly num_tasks (the mesh tier sets this: one
+    # SPMD program's exchanges are axis-wide collectives, so stage width is
+    # the physical mesh width regardless of scheduling-tier knobs)
+    uniform_stage_tasks: bool = False
+
+    def _lattice_active(self) -> bool:
+        """Whether any knob makes per-stage task counts diverge from
+        num_tasks. When inactive, resolution short-circuits to num_tasks so
+        default plans (and the mesh tier's axis-wide collectives) keep
+        uniform stage widths."""
+        return not self.uniform_stage_tasks and (
+            self.size_tasks_to_data
+            or self.max_tasks_per_stage > 0
+            or self.cardinality_task_count_factor != 1.0
+            or self.task_estimator is not None
+        )
+
+
+def estimate_leaf_bytes(plan: ExecutionPlan) -> int:
+    """Total estimated input bytes across the plan's leaves."""
+    total = 0
+    for leaf in plan.collect(lambda n: not n.children()):
+        if isinstance(leaf, MemoryScanExec):
+            rows = sum(int(t.num_rows) for t in leaf.tasks)
+            total += rows * row_width(leaf.schema())
+        elif isinstance(leaf, ParquetScanExec):
+            for group in leaf.file_groups:
+                for f in group:
+                    try:
+                        total += os.path.getsize(f)
+                    except OSError:
+                        pass
+    return total
+
+
+def effective_num_tasks(plan: ExecutionPlan, config: DistributedConfig) -> int:
+    """Bytes-based task count (the reference's ceil(total_bytes /
+    bytes_per_partition) leaf estimation), clamped to [1, num_tasks]."""
+    if not config.size_tasks_to_data or config.bytes_per_task <= 0:
+        return config.num_tasks
+    bytes_total = estimate_leaf_bytes(plan)
+    want = -(-bytes_total // config.bytes_per_task) if bytes_total else 1
+    return max(1, min(int(want), config.num_tasks))
+
+
+def distribute_plan(
+    plan: ExecutionPlan, config: DistributedConfig
+) -> ExecutionPlan:
+    """Rewrite a single-node plan into a staged distributed plan whose root
+    output is replicated (safe to read from any task).
+
+    If the plan ALREADY contains exchange nodes, the user has hand-placed
+    the network boundaries (e.g. a custom partial-reduction tree): the
+    planner does not distribute further — it only finalizes what was placed
+    (stage stamping + 1:1 elision), mirroring the reference's pre-injected
+    boundary handling (`distributed_query_planner.rs:78-99`). The
+    replicated-root contract still holds: a hand-built tree whose root is
+    partitioned gets the same trailing coalesce the automatic path adds."""
+    if plan.collect(lambda n: n.is_exchange):
+        if _root_distribution(plan) == Distribution.PARTITIONED:
+            plan = CoalesceExchangeExec(plan, config.num_tasks)
+        plan = _partial_agg_pushdown_pass(plan, config)
+        plan = _multiway_fusion_pass(plan, config)
+        return _prepare(plan)
+    out, dist, ann = _inject(plan, config)
+    if dist == Distribution.PARTITIONED:
+        out, t_root = _seal_stage(out, ann, config)
+        out = CoalesceExchangeExec(out, t_root)
+    out = _partial_reduce_pass(out, config)
+    out = _partial_agg_pushdown_pass(out, config)
+    out = _multiway_fusion_pass(out, config)
+    out = _prepare(out)
+    return out
+
+
+def _root_distribution(plan: ExecutionPlan) -> Distribution:
+    """Distribution of a pre-injected plan's root output. Exchanges pin it
+    (shuffle / N:M coalesce / replicated->partitioned split = partitioned;
+    N:1 coalesce / broadcast = replicated); compute nodes are deterministic
+    SPMD, so they preserve replication iff every child is replicated."""
+    if isinstance(plan, ShuffleExchangeExec):
+        return Distribution.PARTITIONED
+    if isinstance(plan, CoalesceExchangeExec):
+        return (
+            Distribution.REPLICATED if plan.num_consumers == 1
+            else Distribution.PARTITIONED
+        )
+    if isinstance(plan, BroadcastExchangeExec):
+        return Distribution.REPLICATED
+    if plan.is_exchange:  # PartitionReplicated etc.
+        return Distribution.PARTITIONED
+    if isinstance(plan, IsolatedArmExec):  # runs on one assigned task only
+        return Distribution.PARTITIONED
+    children = plan.children()
+    if not children:
+        if isinstance(plan, MemoryScanExec):
+            return (
+                Distribution.REPLICATED
+                if plan.replicated or len(plan.tasks) == 1
+                else Distribution.PARTITIONED
+            )
+        return Distribution.PARTITIONED
+    dists = [_root_distribution(c) for c in children]
+    return (
+        Distribution.REPLICATED
+        if all(d == Distribution.REPLICATED for d in dists)
+        else Distribution.PARTITIONED
+    )
+
+
+# ---------------------------------------------------------------------------
+# task-count lattice
+# ---------------------------------------------------------------------------
+
+
+def _resolve_count(ann: TaskCountAnnotation, cfg: DistributedConfig) -> int:
+    """Annotation -> concrete stage task count. Inactive lattice (all knobs
+    at defaults, or the mesh tier's uniform flag) resolves to num_tasks so
+    stage widths stay uniform."""
+    if not cfg._lattice_active():
+        return cfg.num_tasks
+    cap = cfg.num_tasks
+    if cfg.max_tasks_per_stage > 0:
+        cap = min(cap, cfg.max_tasks_per_stage)
+    return max(1, min(ann.count, cap))
+
+
+def _stage_cap(cfg: DistributedConfig) -> int:
+    """Upper bound any stage may run at (for arm assignment spread)."""
+    if cfg._lattice_active() and cfg.max_tasks_per_stage > 0:
+        return max(1, min(cfg.num_tasks, cfg.max_tasks_per_stage))
+    return cfg.num_tasks
+
+
+def _leaf_annotation(leaf: ExecutionPlan, cfg: DistributedConfig,
+                     replicated: bool = False) -> TaskCountAnnotation:
+    """Task-count hint contributed by one leaf to its stage's lattice.
+    Order mirrors the reference's estimator chain (`task_estimator.rs`):
+    user estimator first, then the built-in bytes-based estimation, then
+    Desired(num_tasks). Replicated leaves are neutral (Desired(1))."""
+    if cfg.task_estimator is not None:
+        est = cfg.task_estimator.task_estimation(leaf, cfg)
+        if est is not None:
+            return est
+    if replicated:
+        return TaskCountAnnotation(1)
+    if cfg.size_tasks_to_data and cfg.bytes_per_task > 0:
+        b = estimate_leaf_bytes(leaf)
+        want = -(-b // cfg.bytes_per_task) if b else 1
+        return TaskCountAnnotation(max(1, int(want)))
+    return TaskCountAnnotation(cfg.num_tasks)
+
+
+def _cardinality_scale(plan: ExecutionPlan, cfg: DistributedConfig) -> float:
+    """Consumer-stage scale factor over one producer stage (the reference's
+    CardinalityBasedNetworkBoundaryBuilder walk,
+    `inject_network_boundaries.rs:595-623`): max over children, divided by
+    the factor at cardinality-shrinking nodes, multiplied at growing ones."""
+    if plan.is_exchange:
+        return 1.0
+    sf = max(
+        (_cardinality_scale(c, cfg) for c in plan.children()), default=1.0
+    )
+    f = cfg.cardinality_task_count_factor
+    if not f or f == 1.0:
+        return sf
+    shrinks = isinstance(plan, (FilterExec, LimitExec, HashAggregateExec)) or (
+        isinstance(plan, HashJoinExec)
+        and plan.join_type in ("semi", "anti")
+    )
+    grows = isinstance(plan, (CrossJoinExec, UnionExec))
+    if shrinks:
+        return sf / f
+    if grows:
+        return sf * f
+    return sf
+
+
+def _consumer_count(stage: ExecutionPlan, t_producer: int,
+                    cfg: DistributedConfig,
+                    *siblings) -> int:
+    """Task count for the stage consuming ``stage``'s boundary: Desired(
+    ceil(scale_factor * producer_tasks)), merged across sibling producer
+    stages feeding the same consumer (co-shuffled join sides must agree)."""
+    ann = TaskCountAnnotation(
+        max(1, math.ceil(_cardinality_scale(stage, cfg) * t_producer))
+    )
+    for sib_stage, sib_t in siblings:
+        ann = ann.merge(TaskCountAnnotation(max(1, math.ceil(
+            _cardinality_scale(sib_stage, cfg) * sib_t
+        ))))
+    return _resolve_count(ann, cfg)
+
+
+def _seal_stage(sub: ExecutionPlan, ann: TaskCountAnnotation,
+                cfg: DistributedConfig) -> tuple[ExecutionPlan, int]:
+    """Finalize a producer stage: resolve its task count from the lattice
+    and split its still-unsplit scans into that many slices (the deferred
+    scale_up_leaf_node step). Hard floors: a stage can never run fewer
+    tasks than an existing partitioned scan's slice count (slices beyond
+    the task count would be dropped) or an isolated arm's pinned index."""
+    t = _resolve_count(ann, cfg)
+    for n in _stage_nodes(sub):
+        if isinstance(n, MemoryScanExec) and not n.replicated:
+            if len(n.tasks) > 1:
+                t = max(t, len(n.tasks))
+        elif isinstance(n, ParquetScanExec) and len(n.file_groups) > 1:
+            t = max(t, len(n.file_groups))
+        elif isinstance(n, IsolatedArmExec):
+            t = max(t, n.assigned_task + 1)
+    return _split_leaves(sub, t, cfg), t
+
+
+def _stage_nodes(plan: ExecutionPlan) -> list:
+    """Nodes of the stage rooted at ``plan`` (stops at boundaries: deeper
+    stages are already sealed)."""
+    out = [plan]
+    if not plan.is_exchange:
+        for c in plan.children():
+            out.extend(_stage_nodes(c))
+    return out
+
+
+def _split_leaves(plan: ExecutionPlan, t: int,
+                  cfg: DistributedConfig) -> ExecutionPlan:
+    """Split this stage's unsplit scans into ``t`` per-task slices (the
+    reference's scale_up_leaf_node applied with the stage's final count)."""
+    if plan.is_exchange:
+        return plan
+    if isinstance(plan, (MemoryScanExec, ParquetScanExec)):
+        if cfg.task_estimator is not None:
+            repl = cfg.task_estimator.scale_up_leaf_node(plan, t, cfg)
+            if repl is not None:
+                return repl
+    if isinstance(plan, MemoryScanExec):
+        if not plan.replicated and len(plan.tasks) == 1 and t > 1:
+            return MemoryScanExec(
+                partition_table(plan.tasks[0], t), plan.schema()
+            )
+        return plan
+    if isinstance(plan, ParquetScanExec):
+        if len(plan.file_groups) == 1 and t > 1:
+            files = list(plan.file_groups[0])
+            groups = [files[i::t] for i in range(t)]
+            # per-task capacity: whole-file granularity keeps it conservative
+            per_task_cap = round_up_pow2(
+                max(plan.capacity * (len(files) // t + 1)
+                    // max(len(files), 1), 8)
+            )
+            return ParquetScanExec(
+                groups, plan._schema, per_task_cap, plan.projection,
+                plan.dictionaries,
+            )
+        return plan
+    children = [_split_leaves(c, t, cfg) for c in plan.children()]
+    return plan.with_new_children(children) if children else plan
+
+
+# ---------------------------------------------------------------------------
+# boundary injection
+# ---------------------------------------------------------------------------
+
+
+def _inject(plan: ExecutionPlan, cfg: DistributedConfig):
+    """-> (plan, distribution, TaskCountAnnotation of the open stage).
+
+    Leaves are NOT split here: splitting waits until the stage's boundary
+    resolves its final task count from the merged lattice (`_seal_stage`),
+    mirroring the reference's estimate-then-scale_up_leaf_node order."""
+    t = cfg.num_tasks
+
+    # -- leaves: contribute lattice annotations; split deferred ------------
+    if isinstance(plan, MemoryScanExec):
+        if len(plan.tasks) == 1 and t > 1 and not plan.replicated:
+            return (plan, Distribution.PARTITIONED,
+                    _leaf_annotation(plan, cfg))
+        replicated = plan.replicated or len(plan.tasks) == 1
+        return plan, (
+            Distribution.REPLICATED if replicated
+            else Distribution.PARTITIONED
+        ), _leaf_annotation(plan, cfg, replicated=replicated)
+    if isinstance(plan, ParquetScanExec):
+        return plan, Distribution.PARTITIONED, _leaf_annotation(plan, cfg)
+
+    # -- elementwise: keep child distribution ------------------------------
+    if isinstance(plan, (FilterExec, ProjectionExec, CoalescePartitionsExec)):
+        child, dist, ann = _inject(plan.children()[0], cfg)
+        return plan.with_new_children([child]), dist, ann
+
+    if isinstance(plan, HashAggregateExec):
+        return _inject_aggregate(plan, cfg)
+
+    if isinstance(plan, HashJoinExec):
+        return _inject_join(plan, cfg)
+
+    if isinstance(plan, CrossJoinExec):
+        left, ldist, lann = _inject(plan.left, cfg)
+        right, rdist, rann = _inject(plan.right, cfg)
+        if rdist == Distribution.PARTITIONED:
+            right, _tb = _seal_stage(right, rann, cfg)
+            right = BroadcastExchangeExec(right, t)
+            # the build stage was sealed into _tb slices; without the stamp
+            # the coordinator would dispatch cfg.num_tasks producer tasks
+            right.producer_tasks = _tb
+        return plan.with_new_children([left, right]), ldist, lann
+
+    if isinstance(plan, WindowExec):
+        child, dist, ann = _inject(plan.child, cfg)
+        if dist == Distribution.REPLICATED:
+            return plan.with_new_children([child]), dist, ann
+        if plan.partition_names:
+            # rows of one window partition must land on one task
+            child, t_p = _seal_stage(child, ann, cfg)
+            t_c = _consumer_count(child, t_p, cfg)
+            if t_c <= 1:
+                gathered = CoalesceExchangeExec(child, t_p)
+                return (plan.with_new_children([gathered]),
+                        Distribution.REPLICATED, TaskCountAnnotation(1))
+            shuffled = _mk_shuffle(child, plan.partition_names, cfg, t_c, t_p)
+            return (plan.with_new_children([shuffled]),
+                    Distribution.PARTITIONED, TaskCountAnnotation(t_c))
+        child, t_p = _seal_stage(child, ann, cfg)
+        gathered = CoalesceExchangeExec(child, t_p)
+        return (plan.with_new_children([gathered]), Distribution.REPLICATED,
+                TaskCountAnnotation(1))
+
+    if isinstance(plan, SortExec):
+        child, dist, ann = _inject(plan.child, cfg)
+        if dist == Distribution.REPLICATED:
+            return plan.with_new_children([child]), dist, ann
+        if plan.fetch is None:
+            # unlimited ORDER BY: distributed sample sort — range-shuffle
+            # on the sort key, sort locally, gather in axis order (which IS
+            # the global order). The old coalesce-then-sort shape made
+            # every device re-sort the full gathered dataset.
+            child, t_p = _seal_stage(child, ann, cfg)
+            t_c = _consumer_count(child, t_p, cfg)
+            # prefer the planner-stamped row ESTIMATE over padded capacity:
+            # capacity is an upper bound, and pow2-padded small-but-wide
+            # inputs (post-aggregate results) would otherwise take the
+            # 3-stage distributed sample sort where coalesce-then-sort is
+            # cheaper
+            est_total = child.est_rows
+            size = (est_total if est_total is not None
+                    else child.output_capacity() * max(t_p, 1))
+            big = size > cfg.range_sort_threshold_rows
+            if t_c > 1 and big:
+                per_dest = round_up_pow2(max(
+                    cfg.shuffle_skew_factor * child.output_capacity()
+                    // max(t_c, 1), 8,
+                ))
+                rs = RangeShuffleExchangeExec(child, plan.keys, t_c, per_dest)
+                rs.producer_tasks = t_p
+                local = SortExec(plan.keys, rs)
+                gathered = CoalesceExchangeExec(local, t_c)
+                return (gathered, Distribution.REPLICATED,
+                        TaskCountAnnotation(1))
+            gathered = CoalesceExchangeExec(child, t_p)
+            final = SortExec(plan.keys, gathered)
+            return final, Distribution.REPLICATED, TaskCountAnnotation(1)
+        # fetch-limited: local top-k sort -> coalesce -> final sort; fetch
+        # pushdown is the push_fetch_into_network_coalesce analogue
+        local = SortExec(plan.keys, child, fetch=plan.fetch)
+        local, t_p = _seal_stage(local, ann, cfg)
+        gathered = CoalesceExchangeExec(local, t_p)
+        final = SortExec(plan.keys, gathered, fetch=plan.fetch)
+        return final, Distribution.REPLICATED, TaskCountAnnotation(1)
+
+    if isinstance(plan, LimitExec):
+        child, dist, ann = _inject(plan.child, cfg)
+        if dist == Distribution.REPLICATED:
+            return plan.with_new_children([child]), dist, ann
+        # local limit bounds rows crossing the exchange (fetch+skip of them)
+        local = LimitExec(child, plan.fetch + plan.skip, 0)
+        local, t_p = _seal_stage(local, ann, cfg)
+        gathered = CoalesceExchangeExec(local, t_p)
+        # the streaming data plane stops pulling chunks once this many rows
+        # arrived — ANY fetch+skip rows satisfy an unordered LIMIT
+        gathered.consumer_fetch = plan.fetch + plan.skip
+        return (LimitExec(gathered, plan.fetch, plan.skip),
+                Distribution.REPLICATED, TaskCountAnnotation(1))
+
+    if isinstance(plan, UnionExec):
+        children = []
+        anns = []
+        replicated_idx = []
+        for i, c in enumerate(plan.children()):
+            cc, cdist, cann = _inject(c, cfg)
+            if cdist == Distribution.REPLICATED:
+                replicated_idx.append(len(children))
+            children.append(cc)
+            anns.append(cann)
+        ann = TaskCountAnnotation(1)
+        for i, a in enumerate(anns):
+            if i not in replicated_idx:
+                ann = ann.merge(a)
+        if replicated_idx:
+            # child isolation (ChildrenIsolatorUnionExec analogue): each
+            # replicated arm is COMPUTED on exactly one task — weighted
+            # greedy assignment; running it everywhere and row-slicing after
+            # the fact (round-1's PartitionReplicated) pays the arm's FLOPs
+            # T times
+            weights = [
+                float(children[i].output_capacity()) for i in replicated_idx
+            ]
+            assigned = assign_arms_to_tasks(weights, _stage_cap(cfg))
+            for i, task in zip(replicated_idx, assigned):
+                children[i] = IsolatedArmExec(children[i], task)
+            ann = ann.merge(TaskCountAnnotation(1 + max(assigned)))
+        return UnionExec(children), Distribution.PARTITIONED, ann
+
+    if not plan.children():
+        return plan, Distribution.REPLICATED, TaskCountAnnotation(1)
+
+    # default: single child passthrough
+    children = []
+    dist = Distribution.REPLICATED
+    ann = TaskCountAnnotation(1)
+    for c in plan.children():
+        cc, cdist, cann = _inject(c, cfg)
+        children.append(cc)
+        if cdist == Distribution.PARTITIONED:
+            dist = Distribution.PARTITIONED
+        ann = ann.merge(cann)
+    return plan.with_new_children(children), dist, ann
+
+
+def _inject_aggregate(plan: HashAggregateExec, cfg: DistributedConfig):
+    child, dist, ann = _inject(plan.child, cfg)
+    if dist == Distribution.REPLICATED:
+        return plan.with_new_children([child]), dist, ann
+    if plan.mode != "single":
+        # already split by a previous pass
+        return plan.with_new_children([child]), dist, ann
+
+    if not plan.group_names:
+        partial = HashAggregateExec(
+            "partial", [], plan.aggs, child, plan.num_slots
+        )
+        partial, t_p = _seal_stage(partial, ann, cfg)
+        gathered = CoalesceExchangeExec(partial, t_p)
+        final = HashAggregateExec(
+            "final", [], plan.aggs, gathered, plan.num_slots
+        )
+        return final, Distribution.REPLICATED, TaskCountAnnotation(1)
+
+    if cfg.global_hash_agg:
+        rewritten = _inject_global_agg(plan, child, ann, cfg)
+        if rewritten is not None:
+            return rewritten
+
+    partial = HashAggregateExec(
+        "partial", plan.group_names, plan.aggs, child, plan.num_slots
+    )
+    partial.est_rows = plan.est_rows  # NDV estimate survives the split
+    partial, t_p = _seal_stage(partial, ann, cfg)
+    t_c = _consumer_count(partial, t_p, cfg)
+    if t_c <= 1:
+        # one consumer: gather instead of shuffle (keys co-locate trivially;
+        # the coalesced output is replicated, not partitioned)
+        gathered = CoalesceExchangeExec(partial, t_p)
+        final = HashAggregateExec(
+            "final", plan.group_names, plan.aggs, gathered, plan.num_slots
+        )
+        final.est_rows = plan.est_rows
+        return final, Distribution.REPLICATED, TaskCountAnnotation(1)
+    shuffle = _mk_shuffle(partial, plan.group_names, cfg, t_c, t_p)
+    final = HashAggregateExec(
+        "final", plan.group_names, plan.aggs, shuffle,
+        min(plan.num_slots, round_up_pow2(max(shuffle.output_capacity(), 16))),
+    )
+    final.est_rows = plan.est_rows
+    return final, Distribution.PARTITIONED, TaskCountAnnotation(t_c)
+
+
+def _inject_global_agg(plan: HashAggregateExec, child, ann,
+                       cfg: DistributedConfig):
+    """Global-hash-table aggregation shape (`SET distributed.global_hash_agg`
+    — *Global Hash Tables Strike Back!*): when sampled NDV predicts the
+    partial-state rows will NOT meaningfully undercut the raw rows (the
+    high-NDV regime where per-partition tables + merge is pure overhead),
+    shuffle the RAW rows on the group keys and run ONE single-mode
+    aggregate per task over its disjoint key range — one shared table, no
+    merge step. In `tpu` mode that single-mode aggregate runs the fused
+    build+accumulate kernel (ops/hash_kernels.group_aggregate) where its
+    aggregates allow. Returns the (plan, dist, annotation) triple or None
+    to keep the partial+final shape."""
+    sealed, t_p = _seal_stage(child, ann, cfg)
+    t_c = _consumer_count(sealed, t_p, cfg)
+    if t_c <= 1:
+        return None  # one consumer: the gather shape is already merge-free
+    rows_in = estimate_rows(child)
+    ndv = (max(float(plan.est_rows), 1.0) if plan.est_rows is not None
+           else max(rows_in ** 0.5, 1.0))
+    pred = predict_partial_agg_reduction(rows_in, ndv, t_p)
+    if pred.reduction >= cfg.partial_agg_pushdown_min_reduction:
+        return None  # low NDV: partial states collapse; keep partial+final
+    shuffle = _mk_shuffle(sealed, plan.group_names, cfg, t_c, t_p)
+    # the shared table is NDV-sized upstream (plan.num_slots comes from the
+    # catalog's sampled NDV), capped by what the exchange can deliver to
+    # one task — capacity-safe: groups <= delivered rows
+    single = HashAggregateExec(
+        "single", plan.group_names, plan.aggs, shuffle,
+        min(plan.num_slots,
+            round_up_pow2(max(shuffle.output_capacity(), 16))),
+    )
+    single.est_rows = plan.est_rows
+    single.global_agg_selected = True
+    note_global_agg_selected()
+    return single, Distribution.PARTITIONED, TaskCountAnnotation(t_c)
+
+
+def _mk_shuffle(child, keys, cfg: DistributedConfig,
+                t_consumer: Optional[int] = None,
+                t_producer: Optional[int] = None) -> ShuffleExchangeExec:
+    t = t_consumer if t_consumer is not None else cfg.num_tasks
+    per_dest = round_up_pow2(
+        max(cfg.shuffle_skew_factor * child.output_capacity() // max(t, 1), 8)
+    )
+    ex = ShuffleExchangeExec(child, keys, t, per_dest)
+    if t_producer is not None:
+        ex.producer_tasks = t_producer
+    return ex
+
+
+def _repack_slots(partial: HashAggregateExec) -> int:
+    """Slot count for a partial_reduce re-pack: one task's slice can
+    hold at most `slice_capacity` distinct keys, so
+    min(global_slots, pow2(2 * slice_capacity)) keeps the load factor
+    <= 0.5 without the global table's padding (capacity-safe: groups
+    <= slice rows <= slice capacity, so this can never overflow)."""
+    return min(
+        partial.num_slots,
+        round_up_pow2(max(2 * partial.child.output_capacity(), 16)),
+    )
+
+
+def _repack_partial_shuffle(
+    node: ShuffleExchangeExec, cfg: DistributedConfig,
+    cap_per_dest: bool = False,
+) -> ShuffleExchangeExec:
+    """Insert a `partial_reduce` re-group between ``node``'s partial
+    aggregate and the shuffle, re-sizing the per-destination capacity
+    from the tighter slot count. ONE rewrite shared by
+    `_partial_reduce_pass` (unconditional, knob-gated) and the
+    stats-gated shape of `_partial_agg_pushdown_pass` — the capacity
+    arithmetic must not drift between them. ``cap_per_dest`` bounds the
+    new per-destination capacity by the original shuffle's (the
+    push-down pass never widens an exchange)."""
+    partial = node.child
+    slots = _repack_slots(partial)
+    reduce_node = HashAggregateExec(
+        "partial_reduce", partial.group_names, partial.aggs, partial,
+        slots,
+    )
+    per_dest = round_up_pow2(max(
+        cfg.shuffle_skew_factor * slots // max(node.num_tasks, 1), 8
+    ))
+    if cap_per_dest:
+        per_dest = min(node.per_dest_capacity, per_dest)
+    ex = ShuffleExchangeExec(
+        reduce_node, node.key_names, node.num_tasks, per_dest
+    )
+    ex.stage_id = node.stage_id
+    ex.producer_tasks = getattr(node, "producer_tasks", None)
+    ex.consumer_fetch = node.consumer_fetch
+    ex.predicted_exchange_bytes = node.predicted_exchange_bytes
+    return ex
+
+
+def _partial_reduce_pass(plan: ExecutionPlan,
+                         cfg: DistributedConfig) -> ExecutionPlan:
+    """Insert `mode=partial_reduce` between a producer stage's partial
+    aggregate and its hash shuffle (the reference's
+    `partial_reduce_below_network_shuffles.rs`, gated off by default by
+    `DistributedConfig.partial_reduce` exactly like the reference knob).
+
+    Rationale: exchange payloads are PADDED capacity buffers, and a
+    partial aggregate is sized for the GLOBAL group cardinality while one
+    task's slice can only hold `slice_capacity` distinct keys. The inserted
+    re-group re-packs partial states into `min(global_slots,
+    2*slice_capacity)` slots, shrinking the all_to_all payload for
+    high-cardinality GROUP BYs (the merge itself is the same accumulator
+    merge the reference performs post-repartition)."""
+    if not cfg.partial_reduce:
+        return plan
+
+    def walk(node: ExecutionPlan) -> ExecutionPlan:
+        children = [walk(c) for c in node.children()]
+        if children:
+            node = node.with_new_children(children)
+        if not (
+            isinstance(node, ShuffleExchangeExec)
+            and isinstance(node.child, HashAggregateExec)
+            and node.child.mode == "partial"
+            and node.child.group_names
+            and list(node.key_names) == list(node.child.group_names)
+        ):
+            return node
+        return _repack_partial_shuffle(node, cfg)
+
+    return walk(plan)
+
+
+def _partial_agg_pushdown_pass(plan: ExecutionPlan,
+                               cfg: DistributedConfig) -> ExecutionPlan:
+    """Statistics-driven partial-aggregate push-down below hash shuffles
+    (`DistributedConfig.partial_agg_pushdown`, default off).
+
+    Two shapes, both decided from the SAMPLED key-distribution
+    statistics the planner already carries (catalog NDV samples stamped
+    as `est_rows` — planner/statistics.py):
+
+    1. ``agg(single) over shuffle over raw rows`` (pre-injected /
+       hand-placed boundaries, where the SQL planner's eager split never
+       ran): rewrite to ``agg(final) over shuffle over agg(partial)``
+       when the predicted partial-state bytes undercut the raw-row bytes
+       by at least `partial_agg_pushdown_min_reduction`. Eligibility:
+       decomposable aggregates only (sum/count/min/max, avg via its
+       sum+count decomposition — ops/aggregate.py
+       PUSHDOWN_DECOMPOSABLE_FUNCS) and shuffle keys ⊆ group keys (same
+       group ⇒ same partition, so the final merge is partition-local).
+       The rewritten shuffle's per-destination capacity and the final
+       aggregate's merge-table sizing come from the same prediction —
+       the consumer-side merge schedule follows the statistics instead
+       of the raw-row capacities.
+
+    2. ``shuffle over agg(partial)`` (the SQL planner's eager split):
+       the exchange already carries partial states; stamp the predicted
+       exchange bytes (so the coordinator can record
+       predicted-vs-measured through the telemetry registry) and insert
+       a `partial_reduce` re-pack — the `_partial_reduce_pass` rewrite —
+       only where the statistics predict it pays (per-task groups well
+       under the padded slice capacity), instead of unconditionally.
+
+    The decision is the distribution-aware placement of *Chasing
+    Similarity*: low-NDV keys collapse under pre-exchange aggregation
+    (q1's handful of groups), high-NDV keys gain nothing and skip the
+    extra aggregate. Prediction math: `expected_distinct` /
+    `predict_partial_agg_reduction` (planner/statistics.py)."""
+    if not cfg.partial_agg_pushdown:
+        return plan
+    threshold = max(min(cfg.partial_agg_pushdown_min_reduction, 1.0), 0.0)
+
+    def agg_ndv(agg: HashAggregateExec, rows_in: float) -> float:
+        if agg.est_rows is not None:
+            return max(float(agg.est_rows), 1.0)
+        return max(rows_in ** 0.5, 1.0)
+
+    def walk(node: ExecutionPlan) -> ExecutionPlan:
+        children = [walk(c) for c in node.children()]
+        if children:
+            node = node.with_new_children(children)
+        # -- shape 1: single aggregate directly above a raw-row shuffle --
+        if (
+            isinstance(node, HashAggregateExec)
+            and node.mode == "single"
+            and node.group_names
+            and type(node.child) is ShuffleExchangeExec
+            and not isinstance(node.child.child, HashAggregateExec)
+            and set(node.child.key_names) <= set(node.group_names)
+            and all(a.func in PUSHDOWN_DECOMPOSABLE_FUNCS
+                    for a in node.aggs)
+            # the global-hash-agg shape IS single-over-raw-shuffle by
+            # design — never rewrite it back to partial+final
+            and not getattr(node, "global_agg_selected", False)
+        ):
+            ex = node.child
+            t_prod = (ex.producer_tasks if ex.producer_tasks is not None
+                      else ex.num_tasks)
+            rows_in = estimate_rows(ex.child)
+            ndv = agg_ndv(node, rows_in)
+            pred = predict_partial_agg_reduction(rows_in, ndv, t_prod)
+            partial = HashAggregateExec(
+                "partial", node.group_names, node.aggs, ex.child,
+            )
+            partial.est_rows = node.est_rows
+            # runtime bail-out candidacy (runtime/adaptivity.py): the
+            # coordinator probes the first task's measured reduction and
+            # swaps the partial for a passthrough when this prediction
+            # was wrong. Coordinator-side annotation only — never
+            # fingerprinted, never serialized.
+            partial.bailout_candidate = True
+            partial.predicted_partial_rows = int(pred.rows_out)
+            w_raw = row_width(ex.child.schema())
+            w_partial = row_width(partial.schema())
+            bytes_in = rows_in * w_raw
+            bytes_out = pred.rows_out * w_partial
+            if bytes_in <= 0 or (
+                1.0 - bytes_out / bytes_in
+            ) < threshold:
+                return node  # high-NDV regime: aggregate after the wire
+            per_dest = min(
+                ex.per_dest_capacity,
+                round_up_pow2(max(
+                    cfg.shuffle_skew_factor
+                    * int(pred.rows_per_task + 1) // max(ex.num_tasks, 1),
+                    8,
+                )),
+            )
+            new_ex = ShuffleExchangeExec(
+                partial, ex.key_names, ex.num_tasks, per_dest
+            )
+            new_ex.stage_id = ex.stage_id
+            new_ex.producer_tasks = ex.producer_tasks
+            new_ex.consumer_fetch = ex.consumer_fetch
+            new_ex.predicted_exchange_bytes = int(bytes_out)
+            # consumer-side merge sizing mirrors _inject_aggregate's
+            # final stage: bounded by what the rewritten exchange can
+            # actually deliver (never an overflow the session retry
+            # could not already handle)
+            final = HashAggregateExec(
+                "final", node.group_names, node.aggs, new_ex,
+                min(node.num_slots,
+                    round_up_pow2(max(new_ex.output_capacity(), 16))),
+            )
+            final.est_rows = node.est_rows
+            return final
+        # -- shape 2: shuffle already over an eager partial aggregate ----
+        if (
+            type(node) is ShuffleExchangeExec
+            and isinstance(node.child, HashAggregateExec)
+            and node.child.mode == "partial"
+            and node.child.group_names
+            and list(node.key_names) == list(node.child.group_names)
+        ):
+            partial = node.child
+            t_prod = (node.producer_tasks
+                      if node.producer_tasks is not None
+                      else node.num_tasks)
+            rows_in = estimate_rows(partial.child)
+            ndv = agg_ndv(partial, rows_in)
+            pred = predict_partial_agg_reduction(rows_in, ndv, t_prod)
+            node.predicted_exchange_bytes = int(
+                pred.rows_out * row_width(partial.schema())
+            )
+            partial.bailout_candidate = True
+            partial.predicted_partial_rows = int(pred.rows_out)
+            # stats-gated partial_reduce re-pack (the SAME rewrite the
+            # partial_reduce knob applies unconditionally —
+            # _repack_partial_shuffle): only when a task's slice
+            # capacity bounds its groups far tighter than the global
+            # table AND the key distribution actually collapses
+            if (_repack_slots(partial) < partial.num_slots
+                    and pred.reduction >= threshold
+                    and not isinstance(partial.child,
+                                       HashAggregateExec)):
+                return _repack_partial_shuffle(node, cfg,
+                                               cap_per_dest=True)
+        return node
+
+    return walk(plan)
+
+
+def _multiway_fusion_pass(
+    plan: ExecutionPlan, cfg: DistributedConfig
+) -> ExecutionPlan:
+    """Fuse chains of >= 2 key-compatible binary hash joins into one
+    MultiwayHashJoinExec stage (`SET distributed.multiway_join`).
+
+    Two link shapes extend a chain downward through a join's probe side:
+
+    - **same-stage link** (broadcast build): the probe child IS another
+      hash join — no exchange separates them, fusing just packs both probes
+      into one node (one compiled program instead of two kernel subtrees).
+    - **shuffle link**: the probe child is a shuffle S over a join whose
+      OWN probe arrived through a shuffle S2 with the SAME key names and
+      the SAME task count. Probe-side key columns pass through a join
+      unchanged, so re-hashing them sends every row back to the task it is
+      already on — S is an identity re-partition and is DELETED. Name
+      safety: each key must resolve on the probe stream and be unshadowed
+      by any build-side column, otherwise the "same columns" premise
+      breaks.
+
+    Gates: the statistics module bounds the fused stage's combined
+    resident build bytes (every build table is live in one program), and
+    kept build-side shuffles must match the base layout's task count. The
+    fused node is marked `multiway_bailout_candidate` so the coordinator
+    can swap it back to the binary chain when measured build sizes diverge
+    (runtime/coordinator._bailout_multiway).
+
+    Runs AFTER the push-down pass (so aggregate rewrites see the original
+    exchanges) and BEFORE _prepare (stage ids are stamped on whatever
+    exchanges survive).
+    """
+    if not cfg.multiway_join:
+        return plan
+
+    def build_schemas(j):
+        if isinstance(j, MultiwayHashJoinExec):
+            return [b.schema() for b in j.builds]
+        return [j.build.schema()]
+
+    def fusible_inner(p):
+        """(inner join-or-fused-stage feeding ``p``, shuffle this link
+        deletes or None) — or (None, None) when the chain stops here."""
+        if isinstance(p, (HashJoinExec, MultiwayHashJoinExec)):
+            return p, None  # same-stage link
+        if (type(p) is ShuffleExchangeExec
+                and isinstance(p.child,
+                               (HashJoinExec, MultiwayHashJoinExec))):
+            inner = p.child
+            s2 = inner.probe
+            if (type(s2) is ShuffleExchangeExec
+                    and list(p.key_names) == list(s2.key_names)
+                    and p.num_tasks == s2.num_tasks):
+                probe_names = set(inner.probe.schema().names)
+                build_names = set()
+                for bs in build_schemas(inner):
+                    build_names |= set(bs.names)
+                if (set(p.key_names) <= probe_names
+                        and not (set(p.key_names) & build_names)):
+                    return inner, p
+        return None, None
+
+    def try_fuse(outer: ExecutionPlan) -> ExecutionPlan:
+        if not isinstance(outer, HashJoinExec):
+            return outer
+        steps = [MultiwayJoinStep.from_join(outer)]
+        builds = [outer.build]
+        probe = outer.probe
+        deleted = 0
+        while True:
+            inner, ex = fusible_inner(probe)
+            if inner is None:
+                break
+            if isinstance(inner, MultiwayHashJoinExec):
+                steps = list(inner.steps) + steps
+                builds = list(inner.builds) + builds
+                deleted += inner.multiway_deleted_exchanges or 0
+            else:
+                steps = [MultiwayJoinStep.from_join(inner)] + steps
+                builds = [inner.build] + builds
+            if ex is not None:
+                deleted += 1
+            probe = inner.probe
+        if len(steps) < 2:
+            return outer
+        if deleted:
+            # the fused stage runs on the base shuffle's layout; every kept
+            # co-shuffled build must agree with it
+            t = (probe.num_tasks if type(probe) is ShuffleExchangeExec
+                 else None)
+            if t is None:
+                return outer
+            for b in builds:
+                if type(b) is ShuffleExchangeExec and b.num_tasks != t:
+                    return outer
+        if not multiway_fusion_allowed(builds, cfg.multiway_build_bytes_max):
+            return outer
+        mw = MultiwayHashJoinExec(probe, builds, steps)
+        mw.multiway_bailout_candidate = True
+        mw.est_rows = outer.est_rows
+        mw.multiway_deleted_exchanges = deleted
+        if cfg.multiway_probe_reorder:
+            mw.probe_order_hint = choose_probe_order(builds)
+        return mw
+
+    def walk(node: ExecutionPlan) -> ExecutionPlan:
+        children = [walk(c) for c in node.children()]
+        if children:
+            node = node.with_new_children(children)
+        return try_fuse(node)
+
+    out = walk(plan)
+    fused = 0
+    removed = 0
+    for n in out.collect(lambda x: isinstance(x, MultiwayHashJoinExec)):
+        if getattr(n, "multiway_deleted_exchanges", None) is not None:
+            fused += len(n.steps)
+            removed += n.multiway_deleted_exchanges
+    if fused:
+        note_multiway_fusion(fused, removed)
+    return out
+
+
+def _inject_join(plan: HashJoinExec, cfg: DistributedConfig):
+    """Join distribution rules. Correctness constraints:
+
+    - preserved-side join types (left/semi/anti/mark) need every build row
+      that could match a probe row visible on that probe row's task: either
+      broadcast the build, or co-shuffle BOTH sides on the join keys.
+    - a REPLICATED input must never be shuffled (every task would inject its
+      full copy -> T-fold duplication); replicated probe forces a
+      replicated/broadcast build.
+    - null-aware anti (NOT IN) needs the global "any NULL build key" fact, so
+      the build is always broadcast.
+    - co-shuffled sides share ONE consumer task count (`hash % t` must agree
+      or co-partitioning breaks), merged from both sides' lattices.
+    """
+    t = cfg.num_tasks
+    probe, pdist, pann = _inject(plan.probe, cfg)
+    build, bdist, bann = _inject(plan.build, cfg)
+    preserved = plan.join_type in ("left", "semi", "anti", "mark")
+
+    if bdist == Distribution.REPLICATED and pdist == Distribution.REPLICATED:
+        return (plan.with_new_children([probe, build]),
+                Distribution.REPLICATED, pann.merge(bann))
+
+    if bdist == Distribution.REPLICATED:
+        # build already everywhere; partitioned probe joins locally
+        return plan.with_new_children([probe, build]), pdist, pann
+
+    small_build = (
+        cfg.broadcast_joins
+        and build.output_capacity() <= cfg.broadcast_threshold_rows
+    )
+    must_broadcast = (
+        plan.null_aware
+        or pdist == Distribution.REPLICATED
+    )
+    if must_broadcast or small_build:
+        build, _tb = _seal_stage(build, bann, cfg)
+        b = BroadcastExchangeExec(build, t)
+        b.producer_tasks = _tb
+        out = plan.with_new_children([probe, b])
+        return out, pdist, pann
+
+    # co-shuffle both sides on the join keys (probe is PARTITIONED here;
+    # applies to preserved joins and plain inner joins alike)
+    probe, t_pp = _seal_stage(probe, pann, cfg)
+    build, t_pb = _seal_stage(build, bann, cfg)
+    t_c = _consumer_count(probe, t_pp, cfg, (build, t_pb))
+    if t_c <= 1:
+        # one consumer: gather both sides; the join runs replicated
+        p = CoalesceExchangeExec(probe, t_pp)
+        b = CoalesceExchangeExec(build, t_pb)
+        return (plan.with_new_children([p, b]), Distribution.REPLICATED,
+                TaskCountAnnotation(1))
+    p = _mk_shuffle(probe, plan.probe_keys, cfg, t_c, t_pp)
+    b = _mk_shuffle(build, plan.build_keys, cfg, t_c, t_pb)
+    out = plan.with_new_children([p, b])
+    return out, Distribution.PARTITIONED, TaskCountAnnotation(t_c)
+
+
+# ---------------------------------------------------------------------------
+# prepare: elide no-op boundaries, stamp stage ids
+# ---------------------------------------------------------------------------
+
+
+def _prepare(plan: ExecutionPlan) -> ExecutionPlan:
+    """Stamp stage ids bottom-up (the (query_id, stage_num) of the
+    reference's TaskKey) and elide degenerate 1-task exchanges."""
+    counter = [0]
+
+    def walk(node: ExecutionPlan) -> ExecutionPlan:
+        children = [walk(c) for c in node.children()]
+        node = node.with_new_children(children) if children else node
+        if node.is_exchange:
+            if node.num_tasks <= 1:
+                return node.children()[0]  # 1:1 boundary elision
+            node.stage_id = counter[0]
+            counter[0] += 1
+        return node
+
+    return walk(plan)
+
+
+@dataclass
+class StageDagNode:
+    """One schedulable stage: an exchange boundary whose producer subtree
+    runs as a worker-task fan-out. ``deps`` are the stage ids of the
+    exchanges on the producer subtree's FRONTIER — the stages whose
+    materialized output this one consumes (node = stage, edge = data
+    dependency; the reference fans all stage work out as concurrent async
+    sends, `query_coordinator.rs:140-222`). ``est_bytes`` is the stage's
+    OWN device-buffer estimate (output_capacity x row_width summed over
+    the nodes between this boundary and its frontier, nested stages
+    excluded) — the cost hint the multi-query serving scheduler uses to
+    order same-pass stages deterministically (runtime/serving.py)."""
+
+    stage_id: int
+    exchange: ExecutionPlan
+    deps: tuple = ()
+    est_bytes: int = 0
+    #: planned output rows of the exchange boundary (capacity upper
+    #: bound) — with est_bytes, the planner's cost hints for this stage
+    est_rows: int = 0
+
+    def span_attrs(self) -> dict:
+        """Planner cost hints as trace-span attributes: the distributed
+        tracer (runtime/tracing.py) stamps these onto the stage span so a
+        profile can compare planned bytes/rows against the measured
+        data-plane counters of the same stage."""
+        return {
+            "est_bytes": int(self.est_bytes),
+            "est_rows": int(self.est_rows),
+            "deps": list(self.deps),
+            "exchange": type(self.exchange).__name__,
+        }
+
+
+@dataclass
+class StageDag:
+    """Dependency graph of a staged plan's exchange subtrees. Because each
+    exchange has exactly one consumer in the plan tree, the graph is a
+    tree of stages — what the concurrent scheduler exploits is SIBLING
+    independence: a hash join's build and probe feeds, the 2+ producer
+    stages of every co-shuffled group, union branches, independent scans
+    share no edges and may run concurrently."""
+
+    nodes: dict  # stage_id -> StageDagNode
+    root_deps: tuple  # frontier stage ids of the root consumer stage
+
+    def consumers_map(self) -> dict:
+        """stage_id -> sorted stage ids consuming its output (the reverse
+        edges). The concurrent scheduler releases these as their feeds
+        materialize; because every released stage's task dispatch resolves
+        LIVE cluster membership, a worker that joins mid-query starts
+        receiving tasks at the next stage released off this map."""
+        out: dict = {}
+        for sid, n in self.nodes.items():
+            for d in n.deps:
+                out.setdefault(d, []).append(sid)
+        for sids in out.values():
+            sids.sort()
+        return out
+
+    def schedulable_order(self) -> list:
+        """Deterministic topological order (ascending stage_id within each
+        ready frontier) — with stage_parallelism=1 this reproduces the
+        depth-first recursion's post-order exactly, because `_prepare`
+        stamps stage ids in the same post-order walk."""
+        waiting = {sid: set(n.deps) for sid, n in self.nodes.items()}
+        order: list = []
+        while waiting:
+            ready = sorted(s for s, deps in waiting.items() if not deps)
+            if not ready:  # cycle — cannot happen for tree-shaped plans
+                raise ValueError("stage DAG has a cycle")
+            for s in ready:
+                order.append(s)
+                del waiting[s]
+            for deps in waiting.values():
+                deps.difference_update(ready)
+        return order
+
+
+def exchange_frontier(node: ExecutionPlan) -> list:
+    """The exchange nodes reachable from ``node`` without crossing another
+    exchange boundary — the stages whose output the stage headed at
+    ``node`` directly consumes."""
+    out: list = []
+    for c in node.children():
+        if c.is_exchange:
+            out.append(c)
+        else:
+            out.extend(exchange_frontier(c))
+    return out
+
+
+def stage_device_bytes(exchange: ExecutionPlan) -> int:
+    """Device-buffer estimate for ONE stage: the exchange boundary plus
+    its producer subtree up to (not across) nested exchange boundaries —
+    the statistics.plan_device_bytes arithmetic scoped to a single
+    schedulable unit. Nested stages are their own DAG nodes and carry
+    their own estimates."""
+    total = 0
+
+    def walk(node, root: bool) -> None:
+        nonlocal total
+        if not root and node.is_exchange:
+            return  # nested boundary: a different stage's cost
+        total += _padded_bytes(node)
+        for c in node.children():
+            walk(c, False)
+
+    walk(exchange, True)
+    return total
+
+
+def build_stage_dag(plan: ExecutionPlan) -> Optional[StageDag]:
+    """Extract the stage dependency DAG from a staged plan, or None when
+    the plan is not DAG-schedulable and the caller must fall back to the
+    sequential depth-first recursion: exchanges missing a stamped
+    stage_id (hand-built plans that never went through `_prepare`),
+    duplicate stage ids, or a shared exchange OBJECT appearing twice in
+    the tree (the recursion materializes it once per occurrence; the DAG
+    would silently dedupe, changing semantics)."""
+    exchanges: list = []
+    seen_objs: set = set()
+    dup = [False]
+
+    def walk(node: ExecutionPlan) -> None:
+        if dup[0]:
+            return
+        if node.is_exchange:
+            if id(node) in seen_objs:
+                dup[0] = True
+                return
+            seen_objs.add(id(node))
+            exchanges.append(node)
+        for c in node.children():
+            walk(c)
+
+    walk(plan)
+    if dup[0]:
+        return None
+    sids = [e.stage_id for e in exchanges]
+    if any(s is None for s in sids) or len(set(sids)) != len(sids):
+        return None
+    def est_rows_of(e) -> int:
+        try:
+            return int(e.output_capacity())
+        except NotImplementedError:
+            return 0
+
+    nodes = {
+        e.stage_id: StageDagNode(
+            e.stage_id, e,
+            deps=tuple(f.stage_id
+                       for f in exchange_frontier(e.children()[0])),
+            est_bytes=stage_device_bytes(e),
+            est_rows=est_rows_of(e),
+        )
+        for e in exchanges
+    }
+    if plan.is_exchange:
+        root_deps = (plan.stage_id,)
+    else:
+        root_deps = tuple(f.stage_id for f in exchange_frontier(plan))
+    return StageDag(nodes=nodes, root_deps=root_deps)
+
+
+def collect_stages(plan: ExecutionPlan) -> list:
+    """[(stage_id, exchange node)] in bottom-up order, for display/metrics."""
+    out = []
+
+    def walk(node):
+        for c in node.children():
+            walk(c)
+        if node.is_exchange:
+            out.append((node.stage_id, node))
+
+    walk(plan)
+    return out
+
+
+def display_staged_plan(plan: ExecutionPlan) -> str:
+    """ASCII stage-tree display (the reference's display_plan_ascii stage
+    boxes, `stage.rs:266-355`)."""
+    lines = []
+
+    def walk(node, indent):
+        marker = ""
+        if node.is_exchange:
+            marker = f" ── stage {node.stage_id} boundary"
+        lines.append("  " * indent + node.display() + marker)
+        for c in node.children():
+            walk(c, indent + 1)
+
+    walk(plan, 0)
+    return "\n".join(lines)
+
+
+def display_staged_plan_graphviz(plan: ExecutionPlan) -> str:
+    """Graphviz DOT rendering with one cluster per stage (the reference's
+    display_plan_graphviz, `stage.rs:618-685`). Render with
+    `dot -Tsvg plan.dot`."""
+    nodes: list[str] = []
+    edges: list[str] = []
+    clusters: dict[int, list[str]] = {}
+
+    def nid(node) -> str:
+        return f"n{node.node_id}"
+
+    def walk(node, stage: int) -> None:
+        label = node.display().replace('"', "'")
+        this_stage = stage
+        if node.is_exchange and node.stage_id is not None:
+            this_stage = node.stage_id
+            nodes.append(
+                f'  {nid(node)} [label="{label}", shape=cds, '
+                'style=filled, fillcolor=lightsteelblue];'
+            )
+        else:
+            clusters.setdefault(stage, []).append(
+                f'    {nid(node)} [label="{label}", shape=box];'
+            )
+        for c in node.children():
+            child_stage = this_stage
+            if node.is_exchange:
+                # an exchange's child opens its producer stage
+                child_stage = (
+                    node.stage_id if node.stage_id is not None else stage
+                )
+            walk(c, child_stage)
+            edges.append(f"  {nid(c)} -> {nid(node)};")
+
+    walk(plan, -1)
+    out = ["digraph staged_plan {", "  rankdir=BT;"]
+    out.extend(nodes)
+    for stage, members in sorted(clusters.items()):
+        name = "root" if stage == -1 else f"stage_{stage}"
+        out.append(f"  subgraph cluster_{name.replace('-', 'm')} {{")
+        out.append(f'    label="{name}";')
+        out.extend(members)
+        out.append("  }")
+    out.extend(edges)
+    out.append("}")
+    return "\n".join(out)

@@ -81,6 +81,11 @@ def oracle_rtol() -> float:
     return 1e-6 if MODE == "x64" else 5e-4
 
 
+def oracle_atol() -> float:
+    """Absolute float tolerance beside `oracle_rtol`, for values near 0."""
+    return 1e-6 if MODE == "x64" else 1e-4
+
+
 def test_rtol() -> float:
     """Tolerance for engine-vs-engine comparisons (same inputs, two
     summation orders)."""

@@ -15,9 +15,15 @@ runs (plan/verify.py, `SET distributed.verify_plans`), and physical plans
 are cached per session, keyed on the logical plan's structural fingerprint
 (plan/fingerprint.py), so a fresh ``ctx.sql(same_text)`` reuses the planned
 tree. ``ctx.prepare("... where x < $1")`` binds parameters into a template.
-The distributed, coordinated, serving, tracing and result-cache entry
-points of the reference (and EXPLAIN VERIFY, which renders the staged plan)
-are not ported yet.
+
+The distributed planner is ported: ``df.distributed_plan(T)`` and
+``df.explain_distributed(T)`` give the staged plan for T tasks,
+``df.explain_verify()`` and ``EXPLAIN VERIFY <query>`` render it with the
+verifier's diagnostics, and ``df.collect_distributed_table(1)`` runs the
+one-task staged plan (fused multiway joins included) on the session's
+device. Running T > 1 tasks, and the coordinated, serving, tracing and
+result-cache entry points of the reference, wait for later slices
+(ROADMAP A.2-A.5).
 """
 
 from __future__ import annotations
@@ -178,6 +184,11 @@ class SessionConfig:
         else:
             raise ValueError(f"unknown option scope {scope!r}")
 
+    def distributed_snapshot(self) -> dict:
+        """A point-in-time copy of `distributed_options`: ``list(d.items())``
+        copies in one C call, so a concurrent SET cannot fail the copy."""
+        return dict(list(self.distributed_options.items()))
+
 
 class OverflowRetryAbandoned(RuntimeError):
     """Raised (instead of another widening) when an overflow retry's plan
@@ -193,21 +204,28 @@ def _overflow_node_names(err) -> str:
     return m.group(1) if m else ""
 
 
-def _widen_for_overflow(pcfg: PlannerConfig, err,
-                        force_all: bool = False) -> PlannerConfig:
-    """-> pcfg with only the capacity knobs implicated by the overflow error
-    widened 4x; everything widens when nothing applicable is implicated or
-    on the last attempt (``force_all``)."""
+def _widen_for_overflow(pcfg: PlannerConfig, dcfg, err,
+                        force_all: bool = False):
+    """-> (pcfg, dcfg) with only the capacity knobs implicated by the
+    overflow error widened 4x: join expansion, aggregate slots, and (for a
+    staged plan, ``dcfg`` not None) the shuffles' skew factor. Everything
+    applicable widens when nothing applicable is implicated, or on the last
+    attempt (``force_all``)."""
     names = _overflow_node_names(err)
     join = "Join" in names
     agg = "Aggregate" in names
-    if force_all or not (join or agg):
+    shuf = "Shuffle" in names and dcfg is not None
+    if force_all or not (join or agg or shuf):
         join = agg = True
-    return replace(
+        shuf = dcfg is not None
+    pcfg = replace(
         pcfg,
         join_expansion_factor=pcfg.join_expansion_factor * (4 if join else 1),
         agg_slot_factor=pcfg.agg_slot_factor * (4 if agg else 1),
     )
+    if shuf:
+        dcfg = replace(dcfg, shuffle_skew_factor=dcfg.shuffle_skew_factor * 4)
+    return pcfg, dcfg
 
 
 def _overflow_retry_guard(plan, attempt: int, last_err) -> None:
@@ -323,8 +341,8 @@ class DataFrame:
                 if "overflow" not in str(e):
                     raise
                 last_err = e
-                cfg = _widen_for_overflow(
-                    cfg, e,
+                cfg, _ = _widen_for_overflow(
+                    cfg, None, e,
                     force_all=attempt >= self.ctx.config.overflow_retries - 1,
                 )
         raise last_err  # type: ignore[misc]
@@ -349,8 +367,187 @@ class DataFrame:
             seen.add(short)
         return Table(tuple(names), t.columns, t.num_rows)
 
+    # -- the staged (distributed) plan ---------------------------------------
+    def distributed_plan(self, num_tasks: int = 8, config=None,
+                         planner_config: Optional[PlannerConfig] = None,
+                         executing: bool = False):
+        """The staged plan for ``num_tasks`` tasks, verified and cached per
+        session. ``config`` (a DistributedConfig) defaults to the session's
+        `SET distributed.*` options. ``executing`` marks the plan that
+        `collect_distributed_table` runs: its scalar subqueries run through
+        the same staged path, it is verified for a program over
+        ``num_tasks`` tasks, and it is cached apart from the plan that
+        EXPLAIN renders (the reference's mesh and mesh-less entries)."""
+        from datafusion_distributed_tpu_torch.plan.verify import (
+            enforce_verification,
+        )
+        from datafusion_distributed_tpu_torch.planner.distributed import (
+            DistributedConfig,
+            distribute_plan,
+        )
+
+        if config is None:
+            opts = {
+                k: v
+                for k, v in self.ctx.config.distributed_snapshot().items()
+                if k in DistributedConfig.__dataclass_fields__
+            }
+            opts.setdefault("num_tasks", num_tasks)
+            config = DistributedConfig(**opts)
+        cfg = config
+        pcfg = planner_config or self.ctx.config.planner
+        # EVERY plan-shaping config field keys the cache; the unhashable
+        # estimator keys by identity
+        cfg_key = tuple(
+            id(v) if k == "task_estimator" else v
+            for k, v in (
+                (k, getattr(cfg, k))
+                for k in type(cfg).__dataclass_fields__
+            )
+        )
+        verify_kw = dict(
+            options=self.ctx.config.distributed_options,
+            mesh_axis_size=cfg.num_tasks if executing else None,
+            context="distributed plan",
+        )
+        key = ("dist", cfg_key, self._pcfg_key(pcfg), executing)
+        plan = self._plan_cache_get(key)
+        if plan is not None:
+            enforce_verification(plan, **verify_kw)
+            return plan
+        subquery_executor = None
+        if executing:
+            def subquery_executor(p):
+                return execute_plan(distribute_plan(p, cfg))
+
+        planner = PhysicalPlanner(self.ctx.catalog, pcfg, subquery_executor)
+        plan = distribute_plan(planner.plan(self.logical), cfg)
+        self._plan_cache_put(key, plan)
+        enforce_verification(plan, **verify_kw)
+        return plan
+
+    def collect_distributed_table(self, num_tasks: Optional[int] = None
+                                  ) -> Table:
+        """Run the staged plan on the session's device, with the overflow
+        retry of `collect_table` (shuffle capacities widen too). Only one
+        task runs here (``num_tasks`` None or 1): the staged plan of one task
+        has no exchange, and its fused multiway joins run the one-launch
+        probe cascade. More tasks raise: their exchanges are ROADMAP A.2."""
+        t = 1 if num_tasks is None else int(num_tasks)
+        if t != 1:
+            raise NotImplementedError(
+                f"collect_distributed_table({t}): running the tasks of a "
+                "staged plan and the exchanges between them is not ported "
+                "yet (ROADMAP A.2); num_tasks=1 runs the one-task staged plan"
+            )
+        pcfg = self.ctx.config.planner
+        # one program over t tasks: every stage runs at t
+        dcfg = replace(self._seeded_distributed_config(t),
+                       uniform_stage_tasks=True)
+        last_err: Optional[Exception] = None
+        for attempt in range(self.ctx.config.overflow_retries + 1):
+            try:
+                plan = self.distributed_plan(t, dcfg, pcfg, executing=True)
+                _overflow_retry_guard(plan, attempt, last_err)
+                out = execute_plan(plan)
+                self.last_retry_count = attempt
+                return out
+            except RuntimeError as e:
+                if isinstance(e, OverflowRetryAbandoned):
+                    raise
+                if "overflow" not in str(e):
+                    raise
+                last_err = e
+                # widen in place so every other customized field survives
+                pcfg, dcfg = _widen_for_overflow(
+                    pcfg, dcfg, e,
+                    force_all=attempt >= self.ctx.config.overflow_retries - 1,
+                )
+        raise last_err  # type: ignore[misc]
+
+    def collect_distributed(self, num_tasks: Optional[int] = None):
+        """`collect_distributed_table` -> pyarrow Table."""
+        from datafusion_distributed_tpu_torch.io.parquet import table_to_arrow
+
+        return table_to_arrow(
+            self._strip_quals(self.collect_distributed_table(num_tasks))
+        )
+
+    def _seeded_distributed_config(self, num_tasks: int):
+        """DistributedConfig honoring the session's `SET distributed.*`
+        options, at ``num_tasks`` tasks."""
+        from datafusion_distributed_tpu_torch.planner.distributed import (
+            DistributedConfig,
+        )
+
+        opts = {
+            k: v for k, v in self.ctx.config.distributed_snapshot().items()
+            if k in DistributedConfig.__dataclass_fields__
+        }
+        opts["num_tasks"] = num_tasks
+        return DistributedConfig(**opts)
+
     def explain(self) -> str:
         return self.physical_plan().display_tree()
+
+    def explain_distributed(self, num_tasks: int = 8) -> str:
+        """The staged plan for ``num_tasks`` tasks, one node a line, each
+        exchange marked with its stage id."""
+        from datafusion_distributed_tpu_torch.planner.distributed import (
+            display_staged_plan,
+        )
+
+        return display_staged_plan(self.distributed_plan(num_tasks))
+
+    def explain_verify(self, num_tasks: Optional[int] = None,
+                       mesh_axis_size: Optional[int] = None
+                       ) -> "VerifyReport":
+        """The `EXPLAIN VERIFY` surface: the staged plan annotated with every
+        verifier diagnostic per node (plan/verify.py). Never raises on a
+        malformed plan: it shows what strict mode would reject."""
+        from datafusion_distributed_tpu_torch.plan.verify import (
+            render_verified_tree,
+            verify_physical_plan,
+        )
+
+        t = num_tasks or int(
+            self.ctx.config.distributed_options.get("num_tasks", 8)
+        )
+        plan = self._plan_without_enforce(t)
+        result = verify_physical_plan(plan, mesh_axis_size=mesh_axis_size)
+        return VerifyReport(render_verified_tree(plan, result), result)
+
+    def _plan_without_enforce(self, num_tasks: int):
+        """The staged plan with enforcement suppressed: EXPLAIN VERIFY must
+        render a strict-mode-rejected plan, not die on it."""
+        opts = self.ctx.config.distributed_options
+        saved = opts.get("verify_plans")
+        opts["verify_plans"] = "off"
+        try:
+            return self.distributed_plan(
+                num_tasks, self._seeded_distributed_config(num_tasks),
+                self.ctx.config.planner,
+            )
+        finally:
+            if saved is None:
+                opts.pop("verify_plans", None)
+            else:
+                opts["verify_plans"] = saved
+
+    def logical_display(self) -> str:
+        return self.logical.display_tree()
+
+
+class VerifyReport(str):
+    """The result of `EXPLAIN VERIFY` / `DataFrame.explain_verify`: renders
+    as the annotated plan tree; `.result` carries the structured
+    VerifyResult and `.diagnostics` the raw Diagnostic list."""
+
+    def __new__(cls, text: str, result):
+        obj = super().__new__(cls, text)
+        obj.result = result
+        obj.diagnostics = result.diagnostics
+        return obj
 
 
 class SessionContext:
@@ -442,11 +639,11 @@ class SessionContext:
             elif isinstance(stmt, SetOption):
                 self.config.set_option(stmt.name, stmt.value)
             elif isinstance(stmt, ExplainVerify):
-                raise NotImplementedError(
-                    "EXPLAIN VERIFY renders the staged (distributed) plan; "
-                    "it waits for the distributed planner, which is not "
-                    "ported yet"
-                )
+                binder = Binder(_ViewCatalog(self.catalog, views), views)
+                # later statements of the script still run; the report is
+                # the script's result only when it is the last statement
+                result = DataFrame(
+                    self, binder.bind(stmt.query)).explain_verify()
             else:
                 binder = Binder(_ViewCatalog(self.catalog, views), views)
                 result = DataFrame(self, binder.bind(stmt))

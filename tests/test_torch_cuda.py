@@ -1,5 +1,7 @@
 """On the card: each CUDA hash-table kernel equals its plain PyTorch version
-bit for bit (chip_smoke.py repeats this at main-path shapes).
+bit for bit (chip_smoke.py repeats this at main-path shapes), and a fused
+multiway join gives the same table through its one-launch cascade as
+through its binary chain.
 
 This file imports neither jax nor the JAX package, so it also runs where
 they are absent, as on a machine with the card:
@@ -218,3 +220,50 @@ def test_probe_matches_plain(dev, case, pack_used):
     assert bool(got[1].any()) == (over and keys.shape[0] > 0)
     if keys.shape[0] and kwargs.get("active", 0.9) > 0:
         assert bool((got[0] >= 0).any()) and bool((got[0] < 0).any())
+
+
+@pytest.mark.cuda
+def test_multiway_cascade_equals_chain_at_k3(dev):
+    """A fused join of three steps on the base stream's keys: the cascade
+    (one launch of the probe kernel over K = 3 tables) and the binary chain
+    (three K = 1 launches) give byte-identical tables on the card."""
+    import pyarrow as pa
+
+    from datafusion_distributed_tpu_torch.io.parquet import arrow_to_table
+    from datafusion_distributed_tpu_torch.plan import joins, physical
+
+    rng = np.random.default_rng(6)
+    n, nb = 50_000, 4096
+    probe = arrow_to_table(pa.table(
+        {"k1": rng.integers(0, nb, n), "k2": rng.integers(0, nb, n),
+         "k3": rng.integers(0, nb, n), "pv": np.arange(n)}), device=dev)
+    scans, steps = [], []
+    cur = sp = physical.MemoryScanExec([probe], probe.schema())
+    leaves = {sp.node_id: probe}
+    for i in (1, 2, 3):
+        b = arrow_to_table(pa.table({f"k{i}": rng.integers(0, nb, nb),
+                                     f"b{i}": np.arange(nb)}), device=dev)
+        scan = physical.MemoryScanExec([b], b.schema())
+        leaves[scan.node_id] = b
+        scans.append(scan)
+        cur = joins.HashJoinExec(cur, scan, [f"k{i}"], [f"k{i}"], "inner")
+        steps.append(joins.MultiwayJoinStep.from_join(cur))
+    mw = joins.MultiwayHashJoinExec(sp, scans, steps)
+    assert mw.cascade_eligible()
+
+    def run(node):
+        ctx = physical.ExecContext(task=physical.DistributedTaskContext(),
+                                   inputs=dict(leaves))
+        out = node.execute(ctx)
+        assert not any(bool(f) for _, f in ctx.overflow_flags)
+        return out.to_numpy()
+
+    hk.reset_launch_counts()
+    cascade = run(mw)
+    assert hk.LAUNCHES["multiway_probe"] == 1
+    assert [k for (_n, k, _l, _s) in hk.PROBE_SHAPES] == [3]
+    chain = run(cur)
+    assert hk.LAUNCHES["multiway_probe"] == 4
+    assert list(cascade) == list(chain) and len(cascade["pv"]) > 0
+    for name in cascade:
+        assert cascade[name].tobytes() == chain[name].tobytes(), name

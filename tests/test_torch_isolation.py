@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor the reference package,
-runs a TPC-H query, a window query, a prepared-statement binding and a
-ClickBench query on the CPU when asked to, and refuses to start without a
+runs a TPC-H query, a window query, a prepared-statement binding, a
+ClickBench query and a one-task staged plan with a fused multiway join on
+the CPU when asked to, plans for four tasks, and refuses to start without a
 CUDA device otherwise."""
 
 import os
@@ -44,6 +45,18 @@ _SCRIPT = textwrap.dedent("""
     clickbenchgen.register_clickbench(ctx, 1000, 3)
     cb = ctx.sql(open("benchmarks/queries/clickbench/q9.sql").read())
     assert len(cb.collect_table().to_numpy()["RegionID"]) == 10
+    ctx.sql("SET distributed.multiway_join = true")
+    star = ("select s_nationkey, count(*) n from lineitem join orders on "
+            "l_orderkey = o_orderkey join part on l_partkey = p_partkey "
+            "join supplier on l_suppkey = s_suppkey group by s_nationkey "
+            "order by s_nationkey")
+    sdf = ctx.sql(star)
+    assert "MultiwayHashJoin" in sdf.explain_distributed(1)
+    assert "stage 0 boundary" in sdf.explain_distributed(4)
+    staged = sdf.collect_distributed_table(1).to_numpy()
+    assert staged["n"].tobytes() == \
+        ctx.sql(star).collect_table().to_numpy()["n"].tobytes()
+    assert "verification:" in ctx.sql("EXPLAIN VERIFY " + star)
     loaded = sorted(m for m in sys.modules
                     if m == "datafusion_distributed_tpu"
                     or m.startswith("datafusion_distributed_tpu."))

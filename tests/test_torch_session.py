@@ -4,7 +4,9 @@ CPU: structural fingerprints, the session plan cache and literal hoisting
 verifier (the single-node cases of tests/test_plan_verify.py: the same
 codes, severities and messages), all 22 TPC-H plans (no error diagnostic,
 the same diagnostics and fingerprints in both packages, byte-identical
-results with hoisting on and off) and prepared statements."""
+results with hoisting on and off), prepared statements, and EXPLAIN VERIFY
+with test_plan_verify.py's clean sweep, whose text and findings equal the
+reference's."""
 
 import os
 import re
@@ -38,7 +40,11 @@ from datafusion_distributed_tpu_torch import precision as tprec
 from datafusion_distributed_tpu_torch.schema import DataType as TDT
 from datafusion_distributed_tpu_torch.sql import planner as tplanner
 from datafusion_distributed_tpu_torch.sql.context import SessionContext as TContext
-from tests.torch_port_helpers import assert_results_equal, identical
+from tests.torch_port_helpers import (
+    assert_results_equal,
+    identical,
+    mask_subquery_floats,
+)
 
 torch.set_num_threads(1)
 
@@ -387,10 +393,99 @@ def test_set_validation_matches_the_reference(key, good, bad):
         jphys.set_plan_cache_size(jphys._plan_cache_default())
 
 
-def test_explain_verify_waits_for_the_distributed_planner():
-    _j, t = _contexts()
-    with pytest.raises(NotImplementedError, match="distributed planner"):
-        t.sql("EXPLAIN VERIFY select a from t")
+# ---------------------------------------------------------------------------
+# EXPLAIN VERIFY and the clean sweep (tests/test_plan_verify.py's cases)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def verify_ctxs():
+    """The reference's and the port's session over test_plan_verify.py's
+    table ``t``."""
+    rng = np.random.default_rng(11)
+    arrow = pa.table({
+        "k": rng.integers(0, 6, 2000),
+        "v": rng.normal(size=2000),
+        "s": np.asarray([f"cat{i % 4}" for i in range(2000)], dtype=object),
+    })
+    j, t = JContext(), TContext(device="cpu")
+    j.register_arrow("t", arrow)
+    t.register_arrow("t", arrow)
+    return j, t
+
+
+def test_explain_verify_statement(verify_ctxs):
+    from datafusion_distributed_tpu_torch.sql.context import VerifyReport
+
+    sql = ("EXPLAIN VERIFY select k, count(*) c from t "
+           "where s like '%at1%' group by k")
+    jrep, rep = (ctx.sql(sql) for ctx in verify_ctxs)
+    assert isinstance(rep, VerifyReport)
+    assert str(rep) == str(jrep)
+    assert _diags(rep.result) == _diags(jrep.result)
+    assert "verification:" in rep
+    # the unhoistable LIKE warning lands on the Filter node line
+    assert "DFTPU042" in rep
+    assert any(d.code == "DFTPU042" for d in rep.diagnostics)
+    assert all(d.severity != "error" for d in rep.diagnostics)
+
+
+@pytest.mark.parametrize("num_tasks,axis", [(4, None), (4, 4), (2, 8),
+                                             (None, None)])
+def test_explain_verify_method_matches_the_reference(verify_ctxs, num_tasks,
+                                                     axis):
+    sql = "select k, sum(v) s from t group by k order by k"
+    jrep, rep = (ctx.sql(sql).explain_verify(num_tasks=num_tasks,
+                                             mesh_axis_size=axis)
+                 for ctx in verify_ctxs)
+    assert str(rep) == str(jrep)
+    assert _diags(rep.result) == _diags(jrep.result)
+    assert "verification:" in rep
+    # a mesh narrower or wider than the stages is an error (DFTPU035)
+    assert bool(rep.result.errors()) == (axis not in (None, num_tasks))
+
+
+#: test_plan_verify.py's inlined battery (every operator family)
+SWEEP_QUERIES = {
+    "global_agg": "select count(*) c, sum(v) s, avg(v) a from t",
+    "group_sort": "select k, sum(v) s from t group by k order by s desc",
+    "filter_like": "select k from t where s like '%at3%' and v > 0.5",
+    "topk": "select k, v from t order by v desc limit 7",
+    "window": "select k, v, row_number() over "
+              "(partition by k order by v) rn from t",
+    "join": "select a.k, sum(a.v + b.v) s from t a, t b "
+            "where a.k = b.k group by a.k",
+    "union": "select k from t where v > 1 union all "
+             "select k from t where v < -1",
+    "in_list": "select count(*) c from t where k in (1, 3, 5)",
+    "subquery": "select k from t where v > (select avg(v) from t)",
+    "distinct": "select k, count(distinct s) u from t group by k",
+}
+
+
+@pytest.mark.parametrize("name", sorted(SWEEP_QUERIES))
+def test_clean_sweep_matches_the_reference(verify_ctxs, name):
+    from datafusion_distributed_tpu.planner.distributed import (
+        DistributedConfig as JDC,
+    )
+    from datafusion_distributed_tpu_torch.planner.distributed import (
+        DistributedConfig as TDC,
+    )
+
+    jdf, tdf = (ctx.sql(SWEEP_QUERIES[name]) for ctx in verify_ctxs)
+    pairs = [(jdf.physical_plan(), tdf.physical_plan()),
+             (jdf.distributed_plan(num_tasks=4),
+              tdf.distributed_plan(num_tasks=4))]
+    # lattice-active configs reshape stage widths; they must stay coherent
+    for kw in ({"max_tasks_per_stage": 3}, {"size_tasks_to_data": True},
+               {"cardinality_task_count_factor": 2.0}):
+        pairs.append((jdf.distributed_plan(config=JDC(num_tasks=8, **kw)),
+                      tdf.distributed_plan(config=TDC(num_tasks=8, **kw))))
+    for jp, tp in pairs:
+        jr, tr = jver.verify_physical_plan(jp), tver.verify_physical_plan(tp)
+        assert tr.ok, f"{name}: false positives:\n{tr.render()}"
+        assert _diags(tr) == _diags(jr)
+        assert tp.display_tree() == jp.display_tree()
 
 
 # ---------------------------------------------------------------------------
@@ -416,20 +511,6 @@ def _sql(q):
         return f.read()
 
 
-def _mask_subquery_floats(tokens, found: list):
-    """The token tree with each resolved scalar subquery's float value
-    replaced by a marker (collected in ``found``): two packages sum floats
-    in different orders, so such a value agrees at test_rtol, not to the
-    bit, and neither does its token."""
-    if isinstance(tokens, tuple):
-        if (len(tokens) == 3 and tokens[0] == "subqlit"
-                and isinstance(tokens[1], tuple) and tokens[1][0] == "float"):
-            found.append(float(tokens[1][1]))
-            return ("subqlit", "float", tokens[2])
-        return tuple(_mask_subquery_floats(x, found) for x in tokens)
-    return tokens
-
-
 @pytest.mark.parametrize("q", TPCH)
 def test_tpch_plan_verifies_and_fingerprints_as_the_reference(tpch, q):
     jctx, tctx = tpch
@@ -444,8 +525,8 @@ def test_tpch_plan_verifies_and_fingerprints_as_the_reference(tpch, q):
         jprep.int_params, jprep.float_params)
     if tprep.fingerprint != jprep.fingerprint:
         jf, tf = [], []
-        assert _mask_subquery_floats(
-            tfp._canon_plan(tprep.plan), tf) == _mask_subquery_floats(
+        assert mask_subquery_floats(
+            tfp._canon_plan(tprep.plan), tf) == mask_subquery_floats(
             jfp._canon_plan(jprep.plan), jf)
         assert tf and np.allclose(tf, jf, rtol=tprec.test_rtol())
 

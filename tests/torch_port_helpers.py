@@ -115,3 +115,78 @@ def first_difference(a: dict, b: dict) -> str:
         elif not np.array_equal(x, y):
             return k
     return ""
+
+
+def mask_subquery_floats(tokens, found: list):
+    """The token tree with each resolved scalar subquery's float value
+    replaced by a marker (collected in ``found``): two packages sum floats
+    in different orders, so such a value agrees at test_rtol, not to the
+    bit, and neither does its token."""
+    if isinstance(tokens, tuple):
+        if (len(tokens) == 3 and tokens[0] == "subqlit"
+                and isinstance(tokens[1], tuple) and tokens[1][0] == "float"):
+            found.append(float(tokens[1][1]))
+            return ("subqlit", "float", tokens[2])
+        return tuple(mask_subquery_floats(x, found) for x in tokens)
+    return tokens
+
+
+def diagnostics(result) -> list:
+    """A VerifyResult's findings as comparable tuples (node ids differ
+    between the packages; the node's label does not)."""
+    return [(d.code, d.severity, d.node, d.message)
+            for d in result.diagnostics]
+
+
+#: the distributed planner's annotations of a node and of an exchange
+PLANNER_ANNOTATIONS = (
+    "est_rows", "bailout_candidate", "predicted_partial_rows",
+    "multiway_bailout_candidate", "probe_order_hint",
+    "multiway_deleted_exchanges", "global_agg_selected", "stage_id",
+    "producer_tasks", "consumer_fetch", "predicted_exchange_bytes",
+)
+
+
+def planner_annotations(plan) -> list:
+    """Each node's class and planner annotations, in pre-order."""
+    return [(type(n).__name__,) + tuple(getattr(n, a, None)
+                                         for a in PLANNER_ANNOTATIONS)
+            for n in plan.collect(lambda _n: True)]
+
+
+def assert_staged_plans_equal(jplan, tplan, num_tasks: int,
+                              what: str = "") -> None:
+    """A staged plan of the reference and the port's counterpart: the same
+    display string, the same planner annotations, the same verifier findings with the mesh width given
+    and not given, no error finding, and the same structural fingerprint
+    (a scalar subquery's float value at test_rtol). With the mesh width
+    given, a stage of another width is an error in both packages alike."""
+    from datafusion_distributed_tpu.plan import fingerprint as jfp
+    from datafusion_distributed_tpu.plan import verify as jver
+    from datafusion_distributed_tpu.planner.distributed import (
+        display_staged_plan as jdisplay,
+    )
+    from datafusion_distributed_tpu_torch.plan import fingerprint as tfp
+    from datafusion_distributed_tpu_torch.plan import verify as tver
+    from datafusion_distributed_tpu_torch.planner.distributed import (
+        display_staged_plan as tdisplay,
+    )
+
+    assert tdisplay(tplan) == jdisplay(jplan), f"{what}: display differs"
+    assert planner_annotations(tplan) == planner_annotations(jplan), \
+        f"{what}: annotations differ"
+    for axis in (None, num_tasks):
+        jr = jver.verify_physical_plan(jplan, mesh_axis_size=axis)
+        tr = tver.verify_physical_plan(tplan, mesh_axis_size=axis)
+        assert diagnostics(tr) == diagnostics(jr), f"{what} axis={axis}"
+        assert axis is not None or not tr.errors(), f"{what}: {tr.render()}"
+    jprep, tprep = jfp.prepare_plan(jplan), tfp.prepare_plan(tplan)
+    assert tprep.fingerprint is not None, what
+    assert (tprep.int_params, tprep.float_params) == (
+        jprep.int_params, jprep.float_params), what
+    if tprep.fingerprint != jprep.fingerprint:
+        jf, tf = [], []
+        assert mask_subquery_floats(
+            tfp._canon_plan(tprep.plan), tf) == mask_subquery_floats(
+            jfp._canon_plan(jprep.plan), jf), f"{what}: fingerprint differs"
+        assert tf and np.allclose(tf, jf, rtol=tprec.test_rtol()), what
