@@ -33,17 +33,26 @@ Phases, each of which must pass:
    off and on (no error diagnostic; first and cached planning ms; the
    device bytes of the scans split for 8 tasks); the one-task staged path
    (collect_distributed_table(1), fused multiway joins on) twice,
-   byte-identical and equal to collect_table, with kernel 2 launched at
-   K = 3 by S1's fused join; S1's fused node through its cascade and its
-   binary chain, byte-identical; and at SF 0.01 the staged results and
-   staged plans on "cuda" against "cpu".
-9. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
+   byte-identical and equal to collect_table; kernel 2 at every probe shape
+   it logged; and at SF 0.01 the staged results and staged plans on "cuda"
+   against "cpu".
+9. tasks — the 22 queries and the star queries S1 and S2 through
+   collect_distributed_table(8), twice, byte-identical and equal to
+   single-node (warm seconds, sync calls, retries, peak memory per query);
+   again with multiway fusion on (the star queries' fused nodes timed in
+   every task); kernels 1 and 2 at every shape the 8-task runs logged,
+   against their plain versions; at SF 0.01, T in 2 and 8 on "cuda"
+   against "cpu" (a CPU subprocess that runs meanwhile).
+10. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
    import): the `hits` table at its published 99,997,497 rows, seed 3, all
    43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
    kernels 1 and 2 at every shape that run gave them (group builds on
    `hits`'s int64 keys through the (lo, hi) lane split, up to 2^28 slots),
-   bit-exact against their plain versions; and at 20,000 rows on "cuda"
-   against "cpu", results and the staged plans for 8 tasks.
+   bit-exact against their plain versions; the 43 queries over 8 tasks on
+   its first 2^26 rows (8 tasks' buffers on one card do not fit at the
+   full size), cold and warm, against single-node on those rows, and
+   kernels 1 and 2 at their shapes; and at 20,000 rows on "cuda" against
+   "cpu", results and the staged plans for 8 tasks.
 
 The check phase also runs q22 and q13 over `orders` without the customers
 whose key is divisible by 3, card against CPU (7 and 22 rows at SF 0.01).
@@ -60,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -1009,20 +1019,23 @@ def _launches_by_k(hk) -> dict:
     return dict(sorted(out.items()))
 
 
-def _scan_split_bytes(plan) -> int:
-    """Device bytes of the per-task slices the planner cut the plan's scans
-    into (each slice's columns and validity masks)."""
+def _scan_split_bytes(plans) -> int:
+    """Device bytes of the per-task slices the planner cut the plans' scans
+    into (each slice's columns and validity masks), each storage counted
+    once: plans over the same table share the split of a column."""
     from datafusion_distributed_tpu_torch.plan.physical import MemoryScanExec
 
-    total = 0
-    for leaf in plan.collect(lambda n: isinstance(n, MemoryScanExec)):
-        if len(leaf.tasks) > 1:
-            for t in leaf.tasks:
-                for c in t.columns:
-                    total += nbytes(c.data)
-                    if c.validity is not None:
-                        total += nbytes(c.validity)
-    return total
+    storages = {}
+    for plan in plans:
+        for leaf in plan.collect(lambda n: isinstance(n, MemoryScanExec)):
+            if len(leaf.tasks) > 1:
+                for t in leaf.tasks:
+                    for c in t.columns:
+                        for x in (c.data, c.validity):
+                            if x is not None:
+                                st = x.untyped_storage()
+                                storages[st.data_ptr()] = st.nbytes()
+    return sum(storages.values())
 
 
 def _fused_nodes(plan):
@@ -1039,22 +1052,14 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
     ms; the device bytes of the split scans at T = 8.
     2. collect_distributed_table(1) with multiway_join on, twice: the runs
     byte-identical and equal to collect_table; kernel 2 launched at K = 3.
-    3. S1's fused node at SF 1 through its cascade and its binary chain:
-    byte-identical; the cascade's K = 3 probe, on the query's own inputs,
-    bit for bit against the plain probe, and so every probe shape the
-    staged run logged, on seeded tables.
+    3. Kernel 2 at every probe shape the staged run logged, on seeded
+    tables, bit for bit against its plain version.
     4. At SF ``check_sf``: the one-task results on the card equal the CPU's,
     and explain_distributed(T) gives the same string on both devices."""
-    import dataclasses
-
     import torch
 
     from datafusion_distributed_tpu_torch import precision
     from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
-    from datafusion_distributed_tpu_torch.plan.joins import (
-        cascade_probe_inputs,
-    )
-    from datafusion_distributed_tpu_torch.plan.physical import execute_plan
     from datafusion_distributed_tpu_torch.plan.verify import (
         verify_physical_plan,
     )
@@ -1066,7 +1071,7 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
 
     # --- 1. planning, each T in a session of its own ---------------------
     planning: dict = {}
-    split_bytes = 0
+    split_plans = []
     fused_at: dict = {}
     for t in STAGED_TASKS:
         ctx = _session("cuda", sf, seed)
@@ -1093,9 +1098,12 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
                     fused_at.setdefault(t, {})[q] = [
                         len(n.steps) for n in _fused_nodes(plan)]
                 if t == 8:
-                    split_bytes += _scan_split_bytes(plan)
+                    split_plans.append(plan)
         planning[t] = row
         log(f"[distributed] T={t}: {row}")
+        if t == 8:
+            split_bytes = _scan_split_bytes(split_plans)
+            del split_plans
         del ctx
     planning_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
@@ -1125,7 +1133,6 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
     for k in DISTRIBUTED_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by the one-task "
               "staged path")
-    check(by_k.get(3, 0) > 0, f"kernel 2 never ran at K = 3: {by_k}")
     rtol = precision.test_rtol()
     for q, sql in queries:
         _run(ctx, sql)  # warm
@@ -1137,44 +1144,8 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
               f"{diff}")
         log(f"[distributed] {q}: {per_query[q]}")
 
-    # --- 3. S1's fused node: cascade against chain at SF 1 ----------------
-    df = ctx.sql(S1)
-    dcfg = dataclasses.replace(df._seeded_distributed_config(1),
-                               uniform_stage_tasks=True)
-    (mw,) = _fused_nodes(df.distributed_plan(1, dcfg, executing=True))
-    check(mw.cascade_eligible(), "S1's fused node does not take the cascade")
-    chain = mw.to_binary_chain()
-    cascade_out = execute_plan(mw).to_numpy()
-    chain_out = execute_plan(chain).to_numpy()
-    check(_identical(cascade_out, chain_out),
-          "S1: cascade and chain differ at SF 1")
-    cascade_ms = time_ms(lambda: execute_plan(mw), REPS)
-    chain_ms = time_ms(lambda: execute_plan(chain), REPS)
-    fused_rows = len(next(iter(cascade_out.values())))
-    log(f"[distributed] S1 fused node: {fused_rows} rows, cascade "
-        f"{cascade_ms:.3f} ms, chain {chain_ms:.3f} ms")
-    # the cascade's own probe inputs, rebuilt from the node's inputs as
-    # _execute_cascade builds them: kernel 2 at K = 3 against its plain
-    # version at the shape the staged run launched it
-    probe_t = execute_plan(mw.probe)
-    _sides, args = cascade_probe_inputs(
-        mw.steps, probe_t, [execute_plan(b) for b in mw.builds])
-    keys = args[0]
-    shape = [keys.shape[0], keys.shape[1], keys.shape[2], list(args[5])]
-    check(any(p[:4] == shape for p in probe_shapes),
-          f"S1's cascade probe {shape} is not a shape the staged run logged")
-    s1_probe = _probe_against_plain(args)
-    log(f"[distributed] S1 cascade probe rows={shape[0]} tables={shape[1]} "
-        f"lanes={shape[2]} slots={shape[3]}: {s1_probe}")
-    check(s1_probe["max_abs_err"] == 0,
-          "S1's cascade probe: kernel != plain on the query's own inputs")
-    del probe_t, _sides, args, keys
-    cascade_ops = device_ops(lambda: execute_plan(mw))
-    chain_ops = device_ops(lambda: execute_plan(chain))
-    log(f"[distributed] S1 cascade device ops: {cascade_ops}")
-    log(f"[distributed] S1 chain device ops: {chain_ops}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del ctx, df, mw, chain, staged
+    del ctx, staged
     torch.cuda.empty_cache()
     # kernel 2 at every probe shape the staged run logged, on seeded tables
     probe_checks = probe_shape_checks(probe_shapes, torch.device("cuda"),
@@ -1203,11 +1174,7 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
         "fused_steps": fused_at, "queries": per_query,
         "launches": launches, "multiway_probe_launches_by_k": by_k,
         "probe_shapes": probe_shapes,
-        "kernel_checks": {"multiway_probe": {
-            "S1 cascade": s1_probe, **probe_checks}},
-        "s1_fused": {"rows": fused_rows, "cascade_ms": cascade_ms,
-                     "chain_ms": chain_ms, "cascade_ops": cascade_ops,
-                     "chain_ops": chain_ops},
+        "kernel_checks": {"multiway_probe": probe_checks},
         "peak_gb": peak_gb,
         "staged_s": sum(v["staged_s"] for v in per_query.values()),
         "single_s": sum(v["single_s"] for v in per_query.values()),
@@ -1215,10 +1182,350 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: ClickBench in x64 mode, in a subprocess
+# phase 9: staged plans over 8 tasks on the card
+# ---------------------------------------------------------------------------
+
+#: S1's star with a selective first step: the suppliers of one nation keep
+#: about 4% of lineitem's rows
+S2 = """select p_brand, o_orderpriority, count(*) as n, sum(l_quantity) as q
+from lineitem join orders on l_orderkey = o_orderkey
+join part on l_partkey = p_partkey join supplier on l_suppkey = s_suppkey
+where s_nationkey = 3
+group by p_brand, o_orderpriority order by p_brand, o_orderpriority"""
+TASKS = 8
+CHECK_TASKS = (2, 8)  # card against CPU
+NODE_REPS = 3  # timed calls of a fused node, each way, after one warm-up
+TASKS_CPU_TIMEOUT_S = 600
+
+
+def _since(t0: float) -> str:
+    return f"{time.perf_counter() - t0:.1f}s into the phase"
+
+
+def _task_queries(names):
+    return _queries(names) + [("S1", S1), ("S2", S2)]
+
+
+def _collect_tasks(df, num_tasks: int) -> dict:
+    import torch
+
+    table = df.collect_distributed_table(num_tasks)
+    out = table.to_numpy()
+    if table.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def _row_order(a: dict) -> np.ndarray:
+    """A permutation sorting the rows by every column, floats last."""
+    names = ([k for k in a if a[k].dtype.kind != "f"]
+             + [k for k in a if a[k].dtype.kind == "f"])
+    keys = []
+    for k in names:
+        x = a[k]
+        if isinstance(x, np.ma.MaskedArray):
+            keys.append(np.ma.getmaskarray(x))
+            x = np.ma.filled(x, 0 if x.dtype != object else "")
+        if x.dtype == object:
+            x = np.unique(x.astype(str), return_inverse=True)[1]
+        keys.append(x)
+    return np.lexsort(keys[::-1])
+
+
+def _close_or_ties(a: dict, b: dict, rtol: float) -> tuple:
+    """(first difference or '', whether the rows had to be compared as a
+    sorted set): an ORDER BY that leaves ties may order tied rows
+    differently over 8 tasks than on one."""
+    diff = _close(a, b, rtol)
+    if diff == "":
+        return "", False
+    ia, ib = _row_order(a), _row_order(b)
+    return _close({k: v[ia] for k, v in a.items()},
+                  {k: v[ib] for k, v in b.items()}, rtol), True
+
+
+def _sync_calls(fn) -> int:
+    """The synchronizing CUDA calls one call of ``fn`` makes (device to host
+    copies, stream syncs), as PyTorch's sync debug mode reports them: a
+    profiler trace of 8 tasks' launches takes minutes to read."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def build_shape_checks(build_shapes, dev, tag: str) -> dict:
+    """Kernel 1 at every build shape a run logged ([rows, int32 lanes,
+    slots, launches]), on seeded keys (about 0.45 * slots distinct, 90% of
+    the rows live), bit for bit and round for round against its plain
+    version. The launches made here are not the path's."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.ops.hash import hash_columns
+
+    builds = {}
+    for n, lanes, slots, _count in build_shapes:
+        rng = _rng(f"{tag} build {n} {lanes} {slots}")
+        ndv = max(1, int(0.45 * slots))
+        vals = rng.integers(-2**31, 2**31 - 1, (ndv, lanes), dtype=np.int64)
+        keys = torch.from_numpy(
+            vals[rng.integers(0, ndv, n)].astype(np.int32)).to(dev)
+        s0 = (hash_columns([keys[:, i] for i in range(lanes)],
+                           [None] * lanes) & (slots - 1)).to(torch.int32)
+        live = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        got = hk.build_group_ids(keys, s0, live, slots)
+        ref, plain_ms = timed_once(
+            lambda: hk.build_group_ids_plain(keys, s0, live, slots))
+        err = max_abs_err(zip(got[:4], ref[:4]))
+        case = {"rounds": int(got[4]), "max_abs_err": err,
+                "overflow": bool(got[3]), "plain_ms": plain_ms,
+                "ms": time_ms(lambda: hk.build_group_ids(keys, s0, live,
+                                                         slots), 1)}
+        check(err == 0 and case["rounds"] == int(ref[4]),
+              f"build_group_ids rows={n} lanes={lanes} slots={slots}: "
+              f"kernel != plain ({case}, plain rounds {int(ref[4])})")
+        builds[f"{n}x{lanes}/{slots}"] = case
+        log(f"[{tag}] build_group_ids rows={n} lanes={lanes} slots={slots}: "
+            f"{case}")
+        del keys, s0, live, got, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return builds
+
+
+def _fused_node_times(ctx, sql: str, num_tasks: int):
+    """The query over ``num_tasks`` tasks, with each task's fused multiway
+    node run once more alone on its own inputs and timed. -> its probe
+    rows, output rows and time, summed over the tasks, or None when the
+    plan has no fused node."""
+    from datafusion_distributed_tpu_torch.plan.joins import (
+        MultiwayHashJoinExec,
+    )
+    from datafusion_distributed_tpu_torch.plan.physical import (
+        MemoryScanExec,
+        execute_plan,
+    )
+
+    real = MultiwayHashJoinExec._execute
+    records: list = []
+    busy: list = []  # set while a node runs alone: its own calls are real
+
+    def timed(self, ctx):
+        if busy:
+            return real(self, ctx)
+        busy.append(True)
+        try:
+            inputs = [self.probe.execute(ctx)] + [b.execute(ctx)
+                                                  for b in self.builds]
+            node = self.with_new_children(
+                [MemoryScanExec([t], t.schema()) for t in inputs])
+            out = execute_plan(node)
+            records.append({
+                "probe_rows": int(inputs[0].num_rows),
+                "rows": int(out.num_rows),
+                "ms": time_ms(lambda: execute_plan(node), NODE_REPS)})
+        finally:
+            busy.clear()
+        return real(self, ctx)
+
+    MultiwayHashJoinExec._execute = timed
+    try:
+        _collect_tasks(ctx.sql(sql), num_tasks)
+    finally:
+        MultiwayHashJoinExec._execute = real
+    if not records:
+        return None
+    check(len(records) == num_tasks, f"the fused node ran in {len(records)} "
+          f"of {num_tasks} tasks")
+    return {"tasks": num_tasks, **{k: sum(r[k] for r in records)
+                                   for k in ("probe_rows", "rows", "ms")}}
+
+
+def tasks_cpu_worker(sf: float, out_path: str) -> int:
+    """The CPU's collect_distributed_table(T) of the 24 queries at SF ``sf``
+    for T in CHECK_TASKS, pickled: the tasks phase holds the card's against
+    them."""
+    import torch
+
+    torch.set_num_threads(4)
+    ctx = _session("cpu", sf, SEED)
+    out = {(t, q): _collect_tasks(ctx.sql(sql), t)
+           for t in CHECK_TASKS for q, sql in _task_queries(QUERIES)}
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def phase_tasks(sf: float, check_sf: float, names, seed: int) -> dict:
+    """1. The 22 queries, S1 and S2 through collect_distributed_table(8),
+    multiway fusion off, twice: the runs byte-identical, each equal to the
+    same session's collect_table (sorted rows where ORDER BY leaves ties);
+    per query the warm seconds against single-node, sync calls, retries
+    and peak device memory.
+    2. The same 24 queries with fusion on, equal to step 1's; S1's and
+    S2's fused nodes timed in every task at T = 1 and T = 8.
+    3. Kernels 1 and 2 at every build and probe shape the T = 8 runs
+    logged, bit for bit against their plain versions.
+    4. At SF ``check_sf``: collect_distributed_table(T) on the card against
+    the CPU (a subprocess that runs meanwhile) for T in 2, 8."""
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+
+    queries = _task_queries(names)
+    rtol = precision.test_rtol()
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t_phase = time.perf_counter()
+    # the CPU's results for step 4 are computed meanwhile, in a subprocess
+    cpu_out = Path(tempfile.mkdtemp()) / "tasks_cpu.pkl"
+    cpu_worker = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--tasks-cpu-worker",
+         str(check_sf), "--out", str(cpu_out)], stdout=subprocess.DEVNULL)
+
+    # --- 1. T = 8, fusion off ---------------------------------------------
+    ctx = _session("cuda", sf, seed)
+    per_query: dict = {}
+    results: dict = {}
+    for q, sql in queries:
+        t0 = time.perf_counter()
+        results[q] = _collect_tasks(ctx.sql(sql), TASKS)
+        per_query[q] = {"first_s": time.perf_counter() - t0}
+        log(f"[tasks] {q} T={TASKS} cold: {per_query[q]['first_s']:.3f}s, "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    hk.reset_launch_counts()
+    for q, sql in queries:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        df = ctx.sql(sql)
+        warm = _collect_tasks(df, TASKS)
+        per_query[q].update(warm_s=time.perf_counter() - t0,
+                            retries=df.last_retry_count,
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                            rows=len(next(iter(warm.values()))))
+        check(_identical(results[q], warm), f"{q}: two runs at T={TASKS} "
+              "differ")
+    launches = dict(hk.LAUNCHES)
+    by_k = _launches_by_k(hk)
+    builds, probes = kernel_shapes(hk, "tasks")
+    # kernel 3 fuses a single-mode GROUP BY, which 8 tasks split into
+    # partial and final: its launches are reported, not required
+    for k in ("build_group_ids", "multiway_probe"):
+        check(launches[k] > 0, f"kernel {k} was not launched at T={TASKS}")
+    ties = []
+    for q, sql in queries:
+        _run(ctx, sql)  # warm
+        t0 = time.perf_counter()
+        single = _run(ctx, sql)
+        per_query[q]["single_s"] = time.perf_counter() - t0
+        diff, tied = _close_or_ties(results[q], single, rtol)
+        check(diff == "", f"{q}: T={TASKS} and single-node results differ in "
+              f"{diff}")
+        if tied:
+            ties.append(q)
+        per_query[q]["sync_calls"] = _sync_calls(
+            lambda: _collect_tasks(ctx.sql(sql), TASKS))
+        per_query[q]["single_sync_calls"] = _sync_calls(
+            lambda: _run(ctx, sql))
+        log(f"[tasks] {q}: {per_query[q]}")
+    log(f"[tasks] compared as sorted rows (ORDER BY ties): {ties} "
+        f"({_since(t_phase)})")
+    peak_gb = max(v["peak_gb"] for v in per_query.values())
+    fused_off = results
+
+    # --- 2. fusion on, and the star queries' fused nodes ------------------
+    ctx.config.distributed_options["multiway_join"] = True
+    hk.reset_launch_counts()
+    for q, sql in queries:
+        diff = _close(_collect_tasks(ctx.sql(sql), TASKS), fused_off[q],
+                      rtol)
+        check(diff == "", f"{q}: T={TASKS} with and without multiway "
+              f"fusion differ in {diff}")
+    mw_launches = dict(hk.LAUNCHES)
+    mw_by_k = _launches_by_k(hk)
+    mw_builds, mw_probes = kernel_shapes(hk, "tasks multiway")
+    del fused_off, results
+    # the star queries' fused nodes at T = 1 and 8 at SF ``sf``, and where
+    # they do not fuse there (over 8 tasks their broadcast builds pass the
+    # planner's byte gate only at a smaller scale) at SF ``check_sf``
+    small = _session("cuda", check_sf, seed)
+    small.config.distributed_options["multiway_join"] = True
+    nodes: dict = {}
+    for q, sql in (("S1", S1), ("S2", S2)):
+        for t in (1, TASKS):
+            for at_sf, c in ((sf, ctx), (check_sf, small)):
+                row = _fused_node_times(c, sql, t)
+                if row is not None:
+                    break
+            check(row is not None, f"{q}: no fused node at T={t}")
+            nodes[f"{q} T={t}"] = dict(row, sf=at_sf)
+            log(f"[tasks] {q} fused node at T={t}, SF {at_sf}: "
+                f"{nodes[f'{q} T={t}']} ({_since(t_phase)})")
+    ctx.config.distributed_options["multiway_join"] = False
+    del ctx, small
+    torch.cuda.empty_cache()
+
+    # --- 3. every logged shape against the plain version -----------------
+    dev = torch.device("cuda")
+    build_checks = build_shape_checks(
+        list({tuple(b[:3]): b for b in builds + mw_builds}.values()),
+        dev, "tasks")
+    probe_checks = probe_shape_checks(
+        list({str(p[:4]): p for p in probes + mw_probes}.values()),
+        dev, "tasks")
+    log(f"[tasks] shapes checked ({_since(t_phase)})")
+
+    # --- 4. card against CPU ----------------------------------------------
+    gpu = _session("cuda", check_sf, seed)
+    check(cpu_worker.wait(timeout=TASKS_CPU_TIMEOUT_S) == 0,
+          f"the CPU worker exited {cpu_worker.returncode}")
+    with open(cpu_out, "rb") as f:
+        cpu_results = pickle.load(f)
+    identical = 0
+    for t in CHECK_TASKS:
+        for q, sql in queries:
+            a = _collect_tasks(gpu.sql(sql), t)
+            diff = _close(a, cpu_results[(t, q)], rtol)
+            check(diff == "", f"{q} T={t}: cuda and cpu differ in {diff}")
+            identical += _identical(a, cpu_results[(t, q)])
+    log(f"[tasks] SF {check_sf}, T in {CHECK_TASKS}: {len(queries)} queries "
+        f"equal on cuda and cpu, {identical} of {2 * len(queries)} byte for "
+        f"byte ({_since(t_phase)})")
+    return {
+        "queries": per_query, "ties": ties, "base_gb": base_gb,
+        "peak_gb": peak_gb, "launches": launches,
+        "multiway_probe_launches_by_k": by_k,
+        "multiway_launches": mw_launches,
+        "multiway_probe_launches_by_k_fused": mw_by_k,
+        "build_shapes": builds, "probe_shapes": probes,
+        "kernel_checks": {"build_group_ids": build_checks,
+                          "multiway_probe": probe_checks},
+        "fused_nodes": nodes,
+        "card_cpu_identical": identical,
+        "warm_s": sum(v["warm_s"] for v in per_query.values()),
+        "single_s": sum(v["single_s"] for v in per_query.values()),
+        "sync_calls": sum(v["sync_calls"] for v in per_query.values()),
+        "single_sync_calls": sum(v["single_sync_calls"]
+                                 for v in per_query.values()),
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 10: ClickBench in x64 mode, in a subprocess
 # ---------------------------------------------------------------------------
 
 CLICKBENCH_ROWS = 99_997_497  # ClickBench's `hits` table
+CLICKBENCH_TASK_ROWS = 1 << 26  # its first 67,108,864 rows, over 8 tasks
 CLICKBENCH_CHECK_ROWS = 20_000  # card against CPU, as the CPU tests size it
 CLICKBENCH_SEED = 3
 CLICKBENCH_QUERIES = [f"q{i}" for i in range(43)]
@@ -1233,7 +1540,10 @@ def phase_clickbench(timeout_s: float) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "clickbench.json"
+        # expandable segments: `hits` and its split for 8 tasks leave the
+        # allocator little room for whole new blocks
         env = dict(os.environ, DFTPU_PRECISION="x64")
+        env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
         # the overflow retry's default 16 GB plan budget is below `hits`
         # itself at this size: let a widened plan use 3/4 of the card
         env.setdefault("DFTPU_RETRY_BYTES_BUDGET", str(int(
@@ -1301,15 +1611,26 @@ def clickbench_worker(out_path: str) -> int:
         check(launches[k] > 0, f"kernel {k} was not launched by ClickBench")
     build_shapes, probe_shapes = kernel_shapes(hk, "clickbench")
     peak_dev = torch.cuda.max_memory_allocated()
+
     peak_host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     hits = ctx.catalog.tables["hits"]
     key_cols = {name: hits.column(name) for name in CLICKBENCH_KEY_COLUMNS}
     live = hits.row_mask()
+    # 8 tasks hold T padded copies of each exchange's buffers on one card:
+    # at 99,997,497 rows the 43 queries do not fit (PERF.md), so they run
+    # on the first CLICKBENCH_TASK_ROWS rows
+    # (kept on the host while the kernel checks take the card's memory)
+    cut = _row_prefix(hits, CLICKBENCH_TASK_ROWS, "cpu")
     del ctx, hits
     torch.cuda.empty_cache()
     kernel_checks = clickbench_kernel_checks(key_cols, live, build_shapes,
                                              probe_shapes)
     del key_cols, live
+    torch.cuda.empty_cache()
+    checked = {tuple(b[:3]) for b in build_shapes} | {
+        str(p[:4]) for p in probe_shapes}
+    t8 = _clickbench_tasks(_on_device(cut, "cuda"), queries, checked)
+    del cut
     torch.cuda.empty_cache()
     gpu = SessionContext(device="cuda")
     clickbenchgen.register_clickbench(gpu, CLICKBENCH_CHECK_ROWS,
@@ -1348,8 +1669,133 @@ def clickbench_worker(out_path: str) -> int:
         "kernel_checks": kernel_checks,
         "warm_s": sum(v["second_s"] for v in per_query.values()),
         "peak_device_gb": peak_dev / 1e9, "peak_host_gb": peak_host / 1e9,
+        "t8": t8,
     }))
     return 0
+
+
+def _row_prefix(table, rows: int, device):
+    """A copy of the table's first ``rows`` rows on ``device`` (capacity
+    ``rows``, a power of two), with its dictionaries."""
+    check(int(table.num_rows) >= rows, f"a prefix of {rows} rows of a "
+          f"table of {int(table.num_rows)}")
+    return _on_device(table, device, rows)
+
+
+def _on_device(table, device, rows=None):
+    """A copy of the table's first ``rows`` rows (all of them) on
+    ``device``."""
+    from datafusion_distributed_tpu_torch.ops.table import Column, Table
+
+    rows = table.capacity if rows is None else rows
+    return Table(table.names, tuple(
+        Column(c.data[:rows].to(device, copy=True),
+               c.validity[:rows].to(device, copy=True)
+               if c.validity is not None else None, c.dtype, c.dictionary)
+        for c in table.columns), table.num_rows.clamp(max=rows).to(device))
+
+
+def _clickbench_tasks(hits, queries, checked: set) -> dict:
+    """The 43 queries over 8 tasks on ``hits``, cold then warm, each held
+    against the same session's single-node result (a LIMIT query on its
+    ORDER BY columns); then kernels 1 and 2 at every shape the run logged
+    and not in ``checked`` (shapes the full-size run already held),
+    against their plain versions."""
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.sql.context import (
+        SessionConfig,
+        SessionContext,
+    )
+
+    rows = int(hits.num_rows)
+    ctx = SessionContext(SessionConfig(overflow_retries=CLICKBENCH_RETRIES),
+                         device="cuda")
+    ctx.register_table("hits", hits)
+    ctx.sql(f"SET planner.max_slots = {2 * hits.capacity}")
+    single: dict = {}
+    single_s: dict = {}
+    for q, sql in queries:
+        _run(ctx, sql)
+        t0 = time.perf_counter()
+        single[q] = _run(ctx, sql)
+        single_s[q] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launch_counts()
+    t8: dict = {}
+    for q, sql in queries:
+        t0 = time.perf_counter()
+        _collect_tasks(ctx.sql(sql), TASKS)
+        t8[q] = {"cold_s": time.perf_counter() - t0}
+        log(f"[clickbench] {q} T={TASKS} cold: {t8[q]['cold_s']:.3f}s, "
+            f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    cold_peak = torch.cuda.max_memory_allocated()
+    limit_cut = {}
+    for q, sql in queries:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        df = ctx.sql(sql)
+        got = _collect_tasks(df, TASKS)
+        t8[q].update(warm_s=time.perf_counter() - t0,
+                     single_s=single_s[q], retries=df.last_retry_count,
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        keys = _limit_keys(sql)
+        ref = single[q]
+        if keys is not None:
+            # a LIMIT cuts ties where the order of tied rows decides: only
+            # the ORDER BY columns are determined (none without ORDER BY)
+            limit_cut[q] = keys
+            check(len(next(iter(got.values()))) ==
+                  len(next(iter(ref.values()))), f"{q}: T={TASKS} rows")
+            got = {k: v for k, v in got.items() if k.split(".")[-1] in keys}
+            ref = {k: v for k, v in ref.items() if k.split(".")[-1] in keys}
+            diff = _close(got, ref, precision.test_rtol())
+        else:
+            diff, t8[q]["ties"] = _close_or_ties(got, ref,
+                                                 precision.test_rtol())
+        check(diff == "", f"{q}: T={TASKS} and single-node differ in {diff}")
+        log(f"[clickbench] {q} T={TASKS}: {t8[q]}")
+    launches = dict(hk.LAUNCHES)
+    for k in CLICKBENCH_KERNELS:
+        check(launches[k] > 0,
+              f"kernel {k} was not launched by ClickBench at T={TASKS}")
+    builds, probes = kernel_shapes(hk, f"clickbench T={TASKS}")
+    peak = max(v["peak_gb"] for v in t8.values())
+    log(f"[clickbench] T={TASKS}, {rows} rows: warm "
+        f"{sum(v['warm_s'] for v in t8.values()):.3f}s, peak {peak:.2f} GB; "
+        f"LIMIT queries compared on their ORDER BY columns: {limit_cut}")
+    del ctx, single
+    torch.cuda.empty_cache()
+    key_cols = {name: hits.column(name) for name in CLICKBENCH_KEY_COLUMNS}
+    checks = clickbench_kernel_checks(
+        key_cols, hits.row_mask(),
+        [b for b in builds if tuple(b[:3]) not in checked],
+        [p for p in probes if str(p[:4]) not in checked])
+    return {"rows": rows, "queries": t8, "launches": launches,
+            "build_shapes": builds, "probe_shapes": probes,
+            "kernel_checks": checks,
+            "warm_s": sum(v["warm_s"] for v in t8.values()),
+            "single_s": sum(single_s.values()),
+            "cold_s": sum(v["cold_s"] for v in t8.values()),
+            "peak_device_gb": peak, "cold_peak_device_gb": cold_peak / 1e9,
+            "limit_keys": limit_cut}
+
+
+def _limit_keys(sql: str):
+    """The ORDER BY column names of a query with a LIMIT ([] without an
+    ORDER BY), None without a LIMIT."""
+    text = " ".join(sql.split())
+    if not re.search(r"\blimit\b", text, re.I):
+        return None
+    m = re.search(r"\border by (.*?) limit\b", text, re.I)
+    if m is None:
+        return []
+    return [re.sub(r"\s+(asc|desc)$", "", k.strip(), flags=re.I).strip('"')
+            for k in m.group(1).split(",")]
 
 
 #: the key columns of the group-build checks at ClickBench's shapes: WatchID
@@ -1374,8 +1820,8 @@ def _clickbench_keys(key_cols: dict, n: int, lanes: int, slots: int,
     check(nkeys <= len(CLICKBENCH_KEY_COLUMNS),
           f"no check keys for {lanes} lanes")
     cols = [key_cols[c] for c in CLICKBENCH_KEY_COLUMNS[:nkeys]]
-    data = [c.data[:n].to(torch.int64) for c in cols]
-    valids = [c.validity[:n] if c.validity is not None else None
+    data = [_first_rows(c.data, n).to(torch.int64) for c in cols]
+    valids = [_first_rows(c.validity, n) if c.validity is not None else None
               for c in cols]
     if slots < max_slots:
         ndv = max(1, int(0.45 * slots))
@@ -1387,6 +1833,16 @@ def _clickbench_keys(key_cols: dict, n: int, lanes: int, slots: int,
     keys = torch.stack(keys64, dim=1)
     slot0 = (hash_columns(data, valids) & (slots - 1)).to(torch.int32)
     return keys, slot0
+
+
+def _first_rows(x, n: int):
+    """``x``'s first ``n`` rows; past its end it starts over (a build over 8
+    tasks' coalesced tables may take more rows than the table has)."""
+    import torch
+
+    if n <= x.shape[0]:
+        return x[:n]
+    return x[torch.arange(n, device=x.device) % x.shape[0]]
 
 
 def probe_shape_checks(probe_shapes, dev, tag: str) -> dict:
@@ -1469,12 +1925,12 @@ def clickbench_kernel_checks(key_cols: dict, live, build_shapes,
     from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
 
     dev = live.device
-    max_slots = max(h for _n, _l, h, _c in build_shapes)
+    max_slots = max((h for _n, _l, h, _c in build_shapes), default=0)
     builds = {}
     for n, lanes, slots, _count in build_shapes:
         keys, s0 = _clickbench_keys(key_cols, n, lanes, slots, max_slots)
         check(keys.shape[1] * 2 == lanes, f"build check lanes {keys.shape}")
-        lv = live[:n]
+        lv = _first_rows(live, n)
         got = hk.build_group_ids(keys, s0, lv, slots)
         ref, plain_ms = timed_once(
             lambda: hk.build_group_ids_plain(keys, s0, lv, slots))
@@ -1509,8 +1965,8 @@ REPS = 5  # timed calls per kernel, after one warm-up
 SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
-          "window", "distributed", "clickbench")
-CLICKBENCH_TIMEOUT_S = 600
+          "window", "distributed", "tasks", "clickbench")
+CLICKBENCH_TIMEOUT_S = 800
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
 
@@ -1524,6 +1980,8 @@ def main(argv=None) -> int:
                     help="profile phase: write each query's op tables here")
     ap.add_argument("--clickbench-worker", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--tasks-cpu-worker", type=float, default=None,
+                    metavar="SF", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -1536,6 +1994,8 @@ def main(argv=None) -> int:
     except ImportError as e:
         log(f"chip_smoke: the port package is missing: {e}")
         return 2
+    if args.tasks_cpu_worker is not None:
+        return tasks_cpu_worker(args.tasks_cpu_worker, args.out)
     if args.clickbench_worker:
         try:
             return clickbench_worker(args.out)
@@ -1579,6 +2039,8 @@ def main(argv=None) -> int:
             elif phase == "distributed":
                 results["distributed"] = phase_distributed(
                     SF, CHECK_SF, QUERIES, SEED)
+            elif phase == "tasks":
+                results["tasks"] = phase_tasks(SF, CHECK_SF, QUERIES, SEED)
             else:
                 results["clickbench"] = phase_clickbench(CLICKBENCH_TIMEOUT_S)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
@@ -1588,7 +2050,8 @@ def main(argv=None) -> int:
             log(f"[{phase}] FAILED: {e}")
             results.setdefault("failed", []).append(phase)
             ok = False
-        log(f"[{phase}] {time.perf_counter() - t0:.1f}s")
+        results.setdefault("phase_s", {})[phase] = time.perf_counter() - t0
+        log(f"[{phase}] {results['phase_s'][phase]:.1f}s")
     results["total_s"] = time.perf_counter() - t_all
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1600,19 +2063,26 @@ def main(argv=None) -> int:
     kernels = []
     # launches: the main path's (TPC-H, tpu mode), and by path (TPC-H,
     # window, ClickBench in x64 mode); null where the phase did not run
-    paths = {"tpch_tpu": "main", "window": "window",
-             "staged_t1": "distributed", "clickbench_x64": "clickbench"}
+    paths = {"tpch_tpu": ("main",), "window": ("window",),
+             "staged_t1": ("distributed",), "staged_t8": ("tasks",),
+             "clickbench_x64": ("clickbench",),
+             "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
-                    for phase in ("distributed", "clickbench")]
+                    for phase in ("distributed", "tasks", "clickbench")]
+    shape_checks.append(results.get("clickbench", {}).get("t8", {})
+                        .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
         # the kernel phase's cases and the checks at the staged run's and
         # ClickBench's shapes
         err = max([k["max_abs_err"]] + [
             c["max_abs_err"] for checks in shape_checks
             for c in checks.get(name, {}).values()])
-        by_path = {path: results[phase]["launches"].get(name)
-                   if phase in results else None
-                   for path, phase in paths.items()}
+        by_path = {}
+        for path, (phase, *sub) in paths.items():
+            r = results.get(phase)
+            for key in sub:
+                r = r.get(key) if r else None
+            by_path[path] = r["launches"].get(name) if r else None
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": by_path["tpch_tpu"],
@@ -1628,7 +2098,10 @@ def main(argv=None) -> int:
                 for path, phase, key in (
                     ("tpch_tpu", "main", "launches_by_k"),
                     ("staged_t1", "distributed",
-                     "multiway_probe_launches_by_k"))
+                     "multiway_probe_launches_by_k"),
+                    ("staged_t8", "tasks", "multiway_probe_launches_by_k"),
+                    ("staged_t8_multiway", "tasks",
+                     "multiway_probe_launches_by_k_fused"))
                 if phase in results}
         kernels.append(entry)
     if "main" in results:
@@ -1650,16 +2123,22 @@ def main(argv=None) -> int:
                             for t, v in d["planning"].items()},
             "split_scan_bytes_t8": d["split_scan_bytes_t8"],
             "staged_s": d["staged_s"], "single_s": d["single_s"],
-            "s1_fused": d["s1_fused"],
-            "s1_cascade_probe":
-                d["kernel_checks"]["multiway_probe"]["S1 cascade"],
             "multiway_probe_launches_by_k":
                 d["multiway_probe_launches_by_k"]}}))
+    if "tasks" in results:
+        d = results["tasks"]
+        print(json.dumps({"tasks": {
+            k: d[k] for k in ("warm_s", "single_s", "sync_calls",
+                              "single_sync_calls", "peak_gb", "ties",
+                              "fused_nodes", "card_cpu_identical")}}))
     if "clickbench" in results:
         cb = results["clickbench"]
         print(json.dumps({"clickbench": {
-            k: cb[k] for k in ("rows", "setup_s", "warm_s",
-                               "peak_device_gb", "peak_host_gb")}}))
+            **{k: cb[k] for k in ("rows", "setup_s", "warm_s",
+                                  "peak_device_gb", "peak_host_gb")},
+            "t8": {k: cb["t8"][k] for k in (
+                "rows", "warm_s", "single_s", "cold_s", "peak_device_gb",
+                "cold_peak_device_gb")}}}))
     print(json.dumps({"kernels": kernels}))
     print(results["card"])
     print(json.dumps({"ok": True, "device": {

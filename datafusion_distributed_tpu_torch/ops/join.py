@@ -180,26 +180,19 @@ def hash_join(
     out_capacity: int,
     probe_prefix: str = "",
     build_prefix: str = "",
-    precomputed: Optional[tuple] = None,
 ) -> tuple[Table, torch.Tensor]:
     """Join probe against a built side. Returns (result, overflow flag).
 
     inner/left: probe columns then build columns; semi/anti: probe rows
     filtered by match; mark: probe plus a BOOL `__mark` column. `left`
-    marks unmatched probe rows' build columns invalid.
-    ``precomputed=(found, probe_overflow)`` supplies slots resolved
-    elsewhere (a multi-table probe)."""
+    marks unmatched probe rows' build columns invalid."""
     live = probe.row_mask()
-    if precomputed is not None:
-        g, probe_overflow = precomputed
-        g = torch.where(live, g, -1)
-    else:
-        cols = [probe.column(k).data for k in probe_keys]
-        valids = [probe.column(k).validity for k in probe_keys]
-        g, probe_overflow = probe_group_table(
-            build_side.raw_slot_keys, build_side.slot_used, cols, valids,
-            live, build_side.lane_plan,
-        )
+    cols = [probe.column(k).data for k in probe_keys]
+    valids = [probe.column(k).validity for k in probe_keys]
+    g, probe_overflow = probe_group_table(
+        build_side.raw_slot_keys, build_side.slot_used, cols, valids,
+        live, build_side.lane_plan,
+    )
     table_overflow = build_side.overflow | probe_overflow
     found = g >= 0
     g_safe = torch.where(found, g, 0).to(torch.int64)

@@ -13,21 +13,38 @@ The planner (planner/distributed.py) places them, sizes them and stamps
 their stage ids; the verifier checks them. Their capacities, rebuilds and
 display strings equal the reference's.
 
-Executing an exchange needs the T tasks of its stages: that is ROADMAP A.2.
-Until then an exchange's `_execute` raises, as the reference's does outside
-a mesh. A one-task staged plan has no exchange left (`_prepare` elides every
-1:1 boundary), so it runs through `execute_plan` like a single-node plan.
+An exchange runs inside a multi-task run (runtime/mesh_executor.py), whose
+task contexts share one exchange cache: the first task to reach it runs
+its child for every producer task, routes the rows with the data plane
+(parallel/exchange.py), and caches the consumer tables (a shuffle's as a
+sequence that gathers each when it is taken); each task then takes its
+own. Outside such a run an exchange raises. A one-task staged plan has no
+exchange left (`_prepare` elides every 1:1 boundary).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from datafusion_distributed_tpu_torch.ops.table import Table
+import torch
+
+from datafusion_distributed_tpu_torch.ops.table import Column, Table
+from datafusion_distributed_tpu_torch.parallel.exchange import (
+    broadcast_exchange,
+    coalesce_exchange,
+    group_coalesce_exchange,
+    live_prefix,
+    range_shuffle_exchange,
+    shuffle_exchange,
+)
 from datafusion_distributed_tpu_torch.plan.physical import (
     ExecContext,
     ExecutionPlan,
 )
+
+#: producer tables of at least this many padded rows are cut to their live
+#: rows before routing (smaller ones are kept whole: no host sync)
+PREFIX_MIN_ROWS = 1 << 16
 
 
 class ExchangeExec(ExecutionPlan):
@@ -61,21 +78,51 @@ class ExchangeExec(ExecutionPlan):
         return self.child.schema()
 
     def execute(self, ctx: ExecContext):
-        """Memoized: an exchange runs once per plan run (see
-        ExecContext.exchange_cache)."""
-        cached = ctx.exchange_cache.get(self.node_id)
-        if cached is not None:
-            return cached
-        out = super().execute(ctx)
-        ctx.exchange_cache[self.node_id] = out
-        return out
+        """This task's consumer table. The exchange routes once per run,
+        for every task (see ExecContext.exchange_cache); each task records
+        its overflow flag once, however often the tree reaches it."""
+        routed = ctx.exchange_cache.get(self.node_id)
+        if routed is None:
+            if not ctx.peers:
+                raise RuntimeError(
+                    f"{type(self).__name__} executed outside a multi-task "
+                    "run: a staged plan with exchanges runs through "
+                    "runtime/mesh_executor.execute_tasks"
+                )
+            tables, overflow = self._route(*self._producers(ctx.peers))
+            routed = (tables, overflow, set())
+            ctx.exchange_cache[self.node_id] = routed
+        tables, overflow, taken = routed
+        task = ctx.task.task_index
+        if task not in taken:
+            taken.add(task)
+            if overflow is not None:
+                ctx.record_overflow(self, overflow)
+        return tables[task]
 
-    def _execute(self, ctx: ExecContext) -> Table:
-        raise RuntimeError(
-            f"{type(self).__name__} executed outside a multi-task run: "
-            "exchanges between the tasks of a staged plan are not ported "
-            "yet (ROADMAP A.2); a one-task staged plan has none"
-        )
+    def _producers(self, peers: list) -> tuple:
+        """Every producer task's table, in task order, and their padded
+        capacity. A large one is cut to its live rows as soon as it is made
+        (`live_prefix`, one host sync), so that the T padded tables never
+        exist at once; the data plane gets their capacity beside them."""
+        out = []
+        for c in peers:
+            t = self.child.execute(c)
+            out.append(live_prefix(t)
+                       if t.capacity >= PREFIX_MIN_ROWS and self._cut()
+                       else t)
+            capacity = t.capacity
+        return out, capacity
+
+    def _cut(self) -> bool:
+        """Whether the route reads only the producers' live rows."""
+        return True
+
+    def _route(self, producers: list, capacity: int) -> tuple:
+        """The producer tasks' tables (or their live rows) and their padded
+        capacity -> (the consumer tasks' tables, as a sequence in task
+        order, and the overflow flag or None)."""
+        raise NotImplementedError
 
 
 def _stamped(src: ExchangeExec, n: ExchangeExec) -> ExchangeExec:
@@ -115,6 +162,10 @@ class ShuffleExchangeExec(ExchangeExec):
                   else self.num_tasks)
         return t_prod * self.per_dest_capacity
 
+    def _route(self, producers, capacity):
+        return shuffle_exchange(producers, self.key_names, self.num_tasks,
+                                self.per_dest_capacity, capacity)
+
     def display(self):
         return (
             f"ShuffleExchange keys=[{', '.join(self.key_names)}] "
@@ -149,6 +200,11 @@ class RangeShuffleExchangeExec(ExchangeExec):
                   else self.num_tasks)
         return t_prod * self.per_dest_capacity
 
+    def _route(self, producers, capacity):
+        return range_shuffle_exchange(producers, self.sort_keys,
+                                      self.num_tasks, self.per_dest_capacity,
+                                      capacity=capacity)
+
     def display(self):
         keys = ", ".join(
             f"{k.name}{'' if k.ascending else ' DESC'}" for k in self.sort_keys
@@ -169,6 +225,16 @@ class PartitionReplicatedExec(ExchangeExec):
 
     def output_capacity(self):
         return self.child.output_capacity()
+
+    def _cut(self):
+        return False  # each task keeps rows of its own whole table
+
+    def _route(self, producers, capacity):
+        out = []
+        for task, t in enumerate(producers):
+            idx = torch.arange(t.capacity, device=t.device)
+            out.append(t.compact((idx % self.num_tasks) == task))
+        return out, None
 
     def display(self):
         return f"PartitionReplicated tasks={self.num_tasks}"
@@ -198,6 +264,18 @@ class CoalesceExchangeExec(ExchangeExec):
             return self.child.output_capacity() * g
         return self.child.output_capacity() * self.num_tasks
 
+    def _cut(self):
+        # an N:M coalesce with one producer a consumer keeps each whole
+        return -(-self.num_tasks // self.num_consumers) > 1
+
+    def _route(self, producers, capacity):
+        if self.num_consumers > 1:
+            return group_coalesce_exchange(
+                producers, self.num_tasks, self.num_consumers,
+                capacity), None
+        return coalesce_exchange(producers, self.num_tasks,
+                                 capacity), None
+
     def display(self):
         m = (f" consumers={self.num_consumers}"
              if self.num_consumers > 1 else "")
@@ -213,6 +291,10 @@ class BroadcastExchangeExec(ExchangeExec):
 
     def output_capacity(self):
         return self.child.output_capacity() * self.num_tasks
+
+    def _route(self, producers, capacity):
+        return broadcast_exchange(producers, self.num_tasks,
+                                  capacity), None
 
     def display(self):
         return f"BroadcastExchange tasks={self.num_tasks}"
@@ -241,16 +323,47 @@ class IsolatedArmExec(ExecutionPlan):
         return self.child.output_capacity()
 
     def _execute(self, ctx: ExecContext) -> Table:
-        # the reference's task-indexed form: a task other than the assigned
-        # one contributes an empty arm
-        if ctx.task.task_count > 1 and (
-            ctx.task.task_index != self.assigned_task
-        ):
-            t = self.child.execute(ExecContext(
-                task=ctx.task, inputs=ctx.inputs, config=ctx.config,
-            ))
-            return Table(t.names, t.columns, t.num_rows.new_zeros(()))
-        return self.child.execute(ctx)
+        """One task: the arm. In a multi-task run, as the reference's mesh
+        tier: every task runs the arm's exchanges (into the shared cache);
+        the assigned task alone computes the arm; every other task gets an
+        empty table of the arm's columns, capacity and dictionaries, with
+        the arm's overflow flags recorded as false."""
+        if ctx.task.task_count <= 1:
+            return self.child.execute(ctx)
+        if not ctx.peers:
+            raise RuntimeError(
+                "IsolatedArmExec executed outside a multi-task run: a "
+                "staged plan runs through runtime/mesh_executor.execute_tasks"
+            )
+        for ex in self.child.collect(lambda n: n.is_exchange):
+            ex.execute(ctx)
+        out, flag_names = self._assigned_arm(ctx.peers[self.assigned_task])
+        if ctx.task.task_index == self.assigned_task:
+            return out
+        false = torch.zeros((), dtype=torch.bool, device=out.device)
+        ctx.overflow_flags.extend((name, false) for name in flag_names)
+        cols = tuple(
+            Column(torch.zeros_like(c.data),
+                   torch.zeros_like(c.validity)
+                   if c.validity is not None else None,
+                   c.dtype, c.dictionary)
+            for c in out.columns)
+        return Table(out.names, cols, out.num_rows.new_zeros(()))
+
+    def _assigned_arm(self, actx: ExecContext) -> tuple:
+        """The arm computed once, on the assigned task's own context
+        (memoized in the shared cache), and the names of the flags its own
+        compute recorded there."""
+        key = ("arm", self.node_id)
+        done = actx.exchange_cache.get(key)
+        if done is None:
+            for ex in self.child.collect(lambda n: n.is_exchange):
+                ex.execute(actx)
+            first = len(actx.overflow_flags)
+            out = self.child.execute(actx)
+            done = (out, [name for name, _ in actx.overflow_flags[first:]])
+            actx.exchange_cache[key] = done
+        return done
 
     def display(self):
         return f"IsolatedArm task={self.assigned_task}"

@@ -14,12 +14,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from datafusion_distributed_tpu_torch import precision
-from datafusion_distributed_tpu_torch.ops import hash_kernels
 from datafusion_distributed_tpu_torch.ops.join import (
     build_join_table,
     hash_join,
-    probe_inputs,
 )
 from datafusion_distributed_tpu_torch.ops.table import (
     Column,
@@ -245,9 +242,6 @@ def _unify_key_dictionaries(probe: Table, build: Table, probe_keys, build_keys):
     return probe, build
 
 
-_MW_ORIG = "__mw_orig"
-
-
 @dataclass(frozen=True)
 class MultiwayJoinStep:
     """Parameters of one probe step of a fused multiway join: exactly the
@@ -286,14 +280,12 @@ class MultiwayHashJoinExec(ExecutionPlan):
     stream against ``build_k``. The planner's fusion pass
     (planner/distributed._multiway_fusion_pass) builds it.
 
-    Two paths, byte-identical: the binary chain (``to_binary_chain``,
-    rebuilt with the captured per-step capacities), and the cascade, which
-    resolves all K probes of the base rows with ONE call of the probe
-    kernel (`ops/hash_kernels.multiway_probe`, K tables) and feeds the
-    found slots into the per-step expansions of ``hash_join``. The cascade
-    runs whenever `cascade_eligible` holds: every step an inner join on
-    keys of the base probe stream, no residual, no string keys, 32-bit
-    lanes.
+    It runs as its binary chain (``to_binary_chain``, rebuilt with the
+    captured per-step capacities), the reference's default path. A cascade
+    that resolves all K probes of the base rows with one K-table probe
+    launch was measured slower than the chain on the H100, both where every
+    base row matches (a star join) and where the first step keeps 4% of
+    them (PERF.md), and is not used.
     """
 
     def __init__(self, probe: ExecutionPlan, builds: Sequence[ExecutionPlan],
@@ -343,62 +335,8 @@ class MultiwayHashJoinExec(ExecutionPlan):
     def output_capacity(self):
         return self._chain().output_capacity()
 
-    def cascade_eligible(self) -> bool:
-        """Static (schema-only) eligibility for the one-launch cascade:
-        inner-only steps, no residual or null-aware mode, every step's probe
-        keys on the BASE probe stream, no string (dictionary) keys, 32-bit
-        key lanes. Anything else takes the chain."""
-        if np.dtype(precision.LANE_INT).itemsize != 4:
-            return False
-        base = self.probe.schema()
-        base_names = set(base.names)
-        for s, b in zip(self.steps, self.builds):
-            if (s.join_type != "inner" or s.residual is not None
-                    or s.null_aware):
-                return False
-            if not set(s.probe_keys) <= base_names:
-                return False
-            bschema = b.schema()
-            for kn in s.probe_keys:
-                if base.field(kn).dtype == DataType.STRING:
-                    return False
-            for kn in s.build_keys:
-                if bschema.field(kn).dtype == DataType.STRING:
-                    return False
-        return True
-
     def _execute(self, ctx: ExecContext) -> Table:
-        if self.cascade_eligible():
-            return self._execute_cascade(ctx)
         return self._chain()._execute(ctx)
-
-    def _execute_cascade(self, ctx: ExecContext) -> Table:
-        probe_t = self.probe.execute(ctx)
-        builds_t = [b.execute(ctx) for b in self.builds]
-        sides, probe_args = cascade_probe_inputs(self.steps, probe_t,
-                                                 builds_t)
-        found, over = hash_kernels.multiway_probe(*probe_args)
-        n = probe_t.capacity
-        dev = probe_t.device
-
-        # a hidden original-row index threads the one-shot probe results
-        # through the per-step expansions (dead and padding rows carry
-        # garbage slots that hash_join masks against its own row_mask)
-        cur = probe_t.with_column(_MW_ORIG, Column(
-            torch.arange(n, dtype=torch.int32, device=dev), None,
-            DataType.INT32,
-        ))
-        for k, (s, bs) in enumerate(zip(self.steps, sides)):
-            orig = torch.clamp(cur.column(_MW_ORIG).data.to(torch.int32),
-                               0, n - 1)
-            pre = torch.index_select(found[:, k], 0, orig)
-            cur, overflow = hash_join(
-                cur, bs, list(s.probe_keys), "inner", s.out_capacity,
-                precomputed=(pre, over[k]),
-            )
-            ctx.record_overflow(self, overflow)
-        names = [nm for nm in cur.names if nm != _MW_ORIG]
-        return cur.select(names)
 
     def display(self):
         parts = []
@@ -411,49 +349,6 @@ class MultiwayHashJoinExec(ExecutionPlan):
             f"MultiwayHashJoin {' -> '.join(parts)} "
             f"out_cap={self.output_capacity()}"
         )
-
-
-def cascade_probe_inputs(steps, probe_t: Table, builds_t) -> tuple:
-    """The cascade's join tables and its one multi-table probe's arguments:
-    one table per step over ``builds_t``, then keys [N, K, L], slot0 and
-    active [N, K] from the base stream ``probe_t``, and the K tables packed
-    one after another (``hash_kernels.multiway_probe``'s arguments, in its
-    order). Lanes a step lacks stay 0 in its keys and its table: equal."""
-    sides = []
-    for s, bt in zip(steps, builds_t):
-        lane_plan = [
-            probe_t.column(pk).validity is not None
-            or bt.column(bk).validity is not None
-            for pk, bk in zip(s.probe_keys, s.build_keys)
-        ]
-        sides.append(build_join_table(
-            bt, list(s.build_keys), s.num_slots, lane_plan
-        ))
-    live0 = probe_t.row_mask()
-    n = probe_t.capacity
-    dev = probe_t.device
-    ntab = len(sides)
-    lmax = max(bs.raw_slot_keys.shape[1] for bs in sides)
-    table_slots = tuple(bs.slot_used.shape[0] for bs in sides)
-    keys = torch.zeros((n, ntab, lmax), dtype=torch.int32, device=dev)
-    slot0 = torch.empty((n, ntab), dtype=torch.int32, device=dev)
-    active = torch.empty((n, ntab), dtype=torch.bool, device=dev)
-    tkeys = torch.zeros((sum(table_slots), lmax), dtype=torch.int32,
-                        device=dev)
-    used = torch.empty(sum(table_slots), dtype=torch.bool, device=dev)
-    off = 0
-    for k, (s, bs) in enumerate(zip(steps, sides)):
-        lanes = bs.raw_slot_keys.shape[1]
-        hk = table_slots[k]
-        keys[:, k, :lanes], slot0[:, k], active[:, k] = probe_inputs(
-            [probe_t.column(c).data for c in s.probe_keys],
-            [probe_t.column(c).validity for c in s.probe_keys],
-            live0, bs.lane_plan, hk,
-        )
-        tkeys[off:off + hk, :lanes] = bs.raw_slot_keys
-        used[off:off + hk] = bs.slot_used
-        off += hk
-    return sides, (keys, slot0, active, tkeys, used, table_slots)
 
 
 class CrossJoinExec(ExecutionPlan):

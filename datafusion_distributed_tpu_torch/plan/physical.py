@@ -59,9 +59,15 @@ class ExecContext:
     inputs: dict  # leaf node_id -> loaded device Table
     overflow_flags: list = dc_field(default_factory=list)
     config: dict = dc_field(default_factory=dict)
-    # exchange-node memoization (node_id -> Table): an exchange's output is
-    # computed once per run, however often the tree reaches it
+    # exchange-node memoization: an exchange routes once per run, however
+    # often the tree reaches it. In a multi-task run the dict is shared by
+    # the tasks' contexts: node_id -> (every task's consumer table, the
+    # overflow flag, the tasks that took theirs)
     exchange_cache: dict = dc_field(default_factory=dict)
+    # the contexts of every task of a multi-task run, in task order (the
+    # same list in each of them; runtime/mesh_executor.py); empty when one
+    # task runs alone
+    peers: list = dc_field(default_factory=list)
 
     def record_overflow(self, node: "ExecutionPlan", flag) -> None:
         self.overflow_flags.append((node.label(), flag))

@@ -40,6 +40,9 @@ from datafusion_distributed_tpu_torch.plan.physical import (
     MemoryScanExec,
     execute_plan,
 )
+from datafusion_distributed_tpu_torch.runtime.mesh_executor import (
+    execute_tasks,
+)
 from datafusion_distributed_tpu_torch.schema import Field, Schema
 from datafusion_distributed_tpu_torch.sql.logical import Binder, LogicalPlan
 from datafusion_distributed_tpu_torch.sql.parser import (
@@ -418,7 +421,7 @@ class DataFrame:
         subquery_executor = None
         if executing:
             def subquery_executor(p):
-                return execute_plan(distribute_plan(p, cfg))
+                return execute_tasks(distribute_plan(p, cfg), cfg.num_tasks)
 
         planner = PhysicalPlanner(self.ctx.catalog, pcfg, subquery_executor)
         plan = distribute_plan(planner.plan(self.logical), cfg)
@@ -428,18 +431,15 @@ class DataFrame:
 
     def collect_distributed_table(self, num_tasks: Optional[int] = None
                                   ) -> Table:
-        """Run the staged plan on the session's device, with the overflow
-        retry of `collect_table` (shuffle capacities widen too). Only one
-        task runs here (``num_tasks`` None or 1): the staged plan of one task
-        has no exchange, and its fused multiway joins run the one-launch
-        probe cascade. More tasks raise: their exchanges are ROADMAP A.2."""
+        """Run the staged plan for ``num_tasks`` tasks (None: 1, the
+        session's one device) on the session's device, every stage at that
+        many tasks, with the overflow retry of `collect_table` (shuffle
+        capacities widen too). The tasks and the exchanges between them run
+        in `runtime/mesh_executor.execute_tasks`; the result is task 0's
+        copy of the replicated root, as on the reference's mesh."""
         t = 1 if num_tasks is None else int(num_tasks)
-        if t != 1:
-            raise NotImplementedError(
-                f"collect_distributed_table({t}): running the tasks of a "
-                "staged plan and the exchanges between them is not ported "
-                "yet (ROADMAP A.2); num_tasks=1 runs the one-task staged plan"
-            )
+        if t < 1:
+            raise ValueError(f"num_tasks must be at least 1, got {t}")
         pcfg = self.ctx.config.planner
         # one program over t tasks: every stage runs at t
         dcfg = replace(self._seeded_distributed_config(t),
@@ -449,7 +449,7 @@ class DataFrame:
             try:
                 plan = self.distributed_plan(t, dcfg, pcfg, executing=True)
                 _overflow_retry_guard(plan, attempt, last_err)
-                out = execute_plan(plan)
+                out = execute_tasks(plan, t)
                 self.last_retry_count = attempt
                 return out
             except RuntimeError as e:

@@ -1,7 +1,7 @@
 """On the card: each CUDA hash-table kernel equals its plain PyTorch version
-bit for bit (chip_smoke.py repeats this at main-path shapes), and a fused
-multiway join gives the same table through its one-launch cascade as
-through its binary chain.
+bit for bit (chip_smoke.py repeats this at main-path shapes), and the
+exchange data plane (parallel/exchange.py) gives every consumer task the
+same table on the card as on the CPU, byte for byte.
 
 This file imports neither jax nor the JAX package, so it also runs where
 they are absent, as on a machine with the card:
@@ -222,48 +222,88 @@ def test_probe_matches_plain(dev, case, pack_used):
         assert bool((got[0] >= 0).any()) and bool((got[0] < 0).any())
 
 
+# ---------------------------------------------------------------------------
+# the exchange data plane (parallel/exchange.py): cuda against cpu
+# ---------------------------------------------------------------------------
+
+
+def _exchange_tables(device, num_tasks: int, seed: int, cap: int = 64):
+    """Per-task tables with nulls, dictionary strings, floats (NaN, -0.0),
+    booleans and int64, an empty and a full task; the same on any device."""
+    from datafusion_distributed_tpu_torch.ops.table import (
+        Column,
+        Dictionary,
+        Table,
+    )
+    from datafusion_distributed_tpu_torch.schema import DataType
+
+    rng = np.random.default_rng(seed)
+    words = Dictionary(np.array(["ant", "bee", "cat", "dog"], dtype=object))
+    rows = [cap, 0] + [int(rng.integers(0, cap + 1))
+                       for _ in range(num_tasks - 2)]
+    out = []
+    for n in rows[:num_tasks]:
+        f = rng.normal(size=cap).astype(np.float32)
+        f[rng.random(cap) < 0.1] = np.nan
+        f[rng.random(cap) < 0.1] = -0.0
+        cols = {
+            "k": (rng.integers(-6, 6, cap).astype(np.int64),
+                  rng.random(cap) > 0.15, DataType.INT64, None),
+            "s": (rng.integers(0, 4, cap).astype(np.int32),
+                  rng.random(cap) > 0.1, DataType.STRING, words),
+            "f": (f, rng.random(cap) > 0.1, DataType.FLOAT32, None),
+            "b": (rng.random(cap) < 0.5, None, DataType.BOOL, None),
+        }
+        out.append(Table(tuple(cols), tuple(
+            Column(torch.from_numpy(d).to(device),
+                   None if v is None else torch.from_numpy(v).to(device),
+                   dt, dic)
+            for d, v, dt, dic in cols.values()),
+            torch.tensor(n, dtype=torch.int32, device=device)))
+    return out
+
+
+def _data_plane(name: str, tables, num_tasks: int):
+    from datafusion_distributed_tpu_torch.ops.sort import SortKey
+    from datafusion_distributed_tpu_torch.parallel import exchange as ex
+
+    if name == "shuffle":
+        return ex.shuffle_exchange(tables, ["k", "s"], num_tasks, 24)
+    if name == "shuffle overflow":
+        return ex.shuffle_exchange(tables, ["b"], num_tasks, 4)
+    if name == "range shuffle":
+        return ex.range_shuffle_exchange(
+            tables, [SortKey("f", False, True), SortKey("k")], num_tasks, 64)
+    if name == "broadcast":
+        return ex.broadcast_exchange(tables, num_tasks), None
+    if name == "group coalesce":
+        return ex.group_coalesce_exchange(tables, num_tasks, 3), None
+    raise ValueError(name)
+
+
 @pytest.mark.cuda
-def test_multiway_cascade_equals_chain_at_k3(dev):
-    """A fused join of three steps on the base stream's keys: the cascade
-    (one launch of the probe kernel over K = 3 tables) and the binary chain
-    (three K = 1 launches) give byte-identical tables on the card."""
-    import pyarrow as pa
-
-    from datafusion_distributed_tpu_torch.io.parquet import arrow_to_table
-    from datafusion_distributed_tpu_torch.plan import joins, physical
-
-    rng = np.random.default_rng(6)
-    n, nb = 50_000, 4096
-    probe = arrow_to_table(pa.table(
-        {"k1": rng.integers(0, nb, n), "k2": rng.integers(0, nb, n),
-         "k3": rng.integers(0, nb, n), "pv": np.arange(n)}), device=dev)
-    scans, steps = [], []
-    cur = sp = physical.MemoryScanExec([probe], probe.schema())
-    leaves = {sp.node_id: probe}
-    for i in (1, 2, 3):
-        b = arrow_to_table(pa.table({f"k{i}": rng.integers(0, nb, nb),
-                                     f"b{i}": np.arange(nb)}), device=dev)
-        scan = physical.MemoryScanExec([b], b.schema())
-        leaves[scan.node_id] = b
-        scans.append(scan)
-        cur = joins.HashJoinExec(cur, scan, [f"k{i}"], [f"k{i}"], "inner")
-        steps.append(joins.MultiwayJoinStep.from_join(cur))
-    mw = joins.MultiwayHashJoinExec(sp, scans, steps)
-    assert mw.cascade_eligible()
-
-    def run(node):
-        ctx = physical.ExecContext(task=physical.DistributedTaskContext(),
-                                   inputs=dict(leaves))
-        out = node.execute(ctx)
-        assert not any(bool(f) for _, f in ctx.overflow_flags)
-        return out.to_numpy()
-
-    hk.reset_launch_counts()
-    cascade = run(mw)
-    assert hk.LAUNCHES["multiway_probe"] == 1
-    assert [k for (_n, k, _l, _s) in hk.PROBE_SHAPES] == [3]
-    chain = run(cur)
-    assert hk.LAUNCHES["multiway_probe"] == 4
-    assert list(cascade) == list(chain) and len(cascade["pv"]) > 0
-    for name in cascade:
-        assert cascade[name].tobytes() == chain[name].tobytes(), name
+@pytest.mark.parametrize("num_tasks", [2, 8])
+@pytest.mark.parametrize("name", ["shuffle", "shuffle overflow",
+                                  "range shuffle", "broadcast",
+                                  "group coalesce"])
+def test_data_plane_cuda_equals_cpu(dev, name, num_tasks):
+    """Every consumer task's table, and the overflow flag, equal on the
+    card and on the CPU byte for byte."""
+    seed = 11 * num_tasks + len(name)
+    got, gflag = _data_plane(name, _exchange_tables(dev, num_tasks, seed),
+                             num_tasks)
+    ref, rflag = _data_plane(name, _exchange_tables("cpu", num_tasks, seed),
+                             num_tasks)
+    assert (gflag is None) == (rflag is None)
+    if rflag is not None:
+        assert bool(gflag) == bool(rflag)
+    assert len(got) == len(ref) == num_tasks
+    for a, b in zip(got, ref):
+        assert a.names == b.names and a.capacity == b.capacity
+        assert int(a.num_rows) == int(b.num_rows)
+        for ca, cb in zip(a.columns, b.columns):
+            assert ca.data.cpu().numpy().tobytes() == \
+                cb.data.numpy().tobytes()
+            assert (ca.validity is None) == (cb.validity is None)
+            if cb.validity is not None:
+                assert torch.equal(ca.validity.cpu(), cb.validity)

@@ -6,8 +6,8 @@ fingerprint are equal for all 22 TPC-H queries (SF 0.002, seed 7) and all
 planner's knob variants and at T = 8 in x64 mode; the inline cases of
 tests/test_plan_snapshots.py; and the planning-only cases of
 tests/test_distributed.py (partition_table, the task-count lattice, the
-arm assignment). A one-task staged plan has no exchange, and running more
-tasks raises until their exchanges are ported."""
+arm assignment). A one-task staged plan has no exchange; plans over more
+tasks run in tests/test_torch_tasks.py."""
 
 import os
 import subprocess
@@ -301,7 +301,7 @@ def test_assign_arms_weighted():
 
 
 # ---------------------------------------------------------------------------
-# what runs, and what waits
+# the one-task staged plan
 # ---------------------------------------------------------------------------
 
 
@@ -314,19 +314,3 @@ def test_one_task_staged_plans_have_no_exchange(tpch):
             assert not plan.collect(lambda n: n.is_exchange), q
     finally:
         del tctx.config.distributed_options["multiway_join"]
-
-
-def test_more_than_one_task_waits_for_the_exchanges(tpch):
-    df = tpch[1].sql(_sql(TPCH_DIR, "q3"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        df.collect_distributed_table(8)
-    plan = df.distributed_plan(4)
-    ex = plan.collect(lambda n: n.is_exchange)[0]
-    from datafusion_distributed_tpu_torch.plan.physical import (
-        DistributedTaskContext,
-        ExecContext,
-    )
-
-    ctx = ExecContext(task=DistributedTaskContext(0, 4), inputs={})
-    with pytest.raises(RuntimeError, match="ROADMAP A.2"):
-        ex._execute(ctx)

@@ -1,8 +1,8 @@
 """The port stands alone: it imports neither jax nor the reference package,
 runs a TPC-H query, a window query, a prepared-statement binding, a
-ClickBench query and a one-task staged plan with a fused multiway join on
-the CPU when asked to, plans for four tasks, and refuses to start without a
-CUDA device otherwise."""
+ClickBench query, a one-task staged plan with a fused multiway join and the
+same plan over four tasks (runtime/mesh_executor.py, its exchanges) on the
+CPU when asked to, and refuses to start without a CUDA device otherwise."""
 
 import os
 import re
@@ -56,6 +56,10 @@ _SCRIPT = textwrap.dedent("""
     staged = sdf.collect_distributed_table(1).to_numpy()
     assert staged["n"].tobytes() == \
         ctx.sql(star).collect_table().to_numpy()["n"].tobytes()
+    four = ctx.sql(star).collect_distributed_table(4).to_numpy()
+    assert four["n"].tobytes() == staged["n"].tobytes()
+    assert "datafusion_distributed_tpu_torch.runtime.mesh_executor" in \
+        sys.modules
     assert "verification:" in ctx.sql("EXPLAIN VERIFY " + star)
     loaded = sorted(m for m in sys.modules
                     if m == "datafusion_distributed_tpu"

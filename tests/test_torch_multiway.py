@@ -4,19 +4,20 @@ the reference package's on the CPU:
 - the fusion-pass units of tests/test_multiway_join.py (default off, the
   broadcast chain of case A, the identity-shuffle deletion of case B, the
   stop at a re-keying shuffle), with equal staged plans and equal counter
-  deltas in both packages;
+  deltas in both packages; the star queries S1 and S2 fuse into one node
+  of three steps at T = 1 and 8;
 - the verifier's multiway arms (DFTPU011/012/023/025/034), with the
   reference's findings;
 - `MultiwayHashJoinExec` on a seeded fixture (K = 2 and K = 3): the port's
-  cascade (one call of the K-table probe kernel's plain version), the port's
-  binary chain and the reference's chain give byte-identical tables;
+  fused node (its binary chain, one single-table probe a step), the
+  port's chain and the reference's fused node give byte-identical tables;
 - `collect_distributed_table(1)` with `multiway_join` on: the 13 TPC-H
-  queries that fuse at one task and the star query S1 (the one whose fused
-  node takes the cascade) equal the reference's
+  queries that fuse at one task and the star queries S1 and S2 (S2's first
+  step keeps the suppliers of one nation) equal the reference's
   `collect_distributed_table(1)` on a one-device CPU mesh; the other 9
   equal the reference's `collect_table`. Capacities and retry counts are
   equal too, and every result equals the port's own `collect_table` byte
-  for byte."""
+  for byte. (Both stars over 8 tasks: tests/test_torch_tasks.py.)"""
 
 import os
 
@@ -53,13 +54,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QDIR = os.path.join(REPO, "benchmarks", "queries", "tpch")
 
 #: the star query: lineitem probes orders, part and supplier on its own
-#: keys, so its three joins fuse into one node that takes the cascade
+#: keys, so its three joins fuse into one node
 S1 = """select s_nationkey, p_brand, o_orderpriority, count(*) as n,
        sum(l_quantity) as q
 from lineitem join orders on l_orderkey = o_orderkey
 join part on l_partkey = p_partkey join supplier on l_suppkey = s_suppkey
 group by s_nationkey, p_brand, o_orderpriority
 order by s_nationkey, p_brand, o_orderpriority"""
+
+#: S1's star with a selective first step: the suppliers of one nation
+S2 = """select p_brand, o_orderpriority, count(*) as n, sum(l_quantity) as q
+from lineitem join orders on l_orderkey = o_orderkey
+join part on l_partkey = p_partkey join supplier on l_suppkey = s_suppkey
+where s_nationkey = 3
+group by p_brand, o_orderpriority order by p_brand, o_orderpriority"""
+STARS = {"S1": S1, "S2": S2}
 
 #: the TPC-H queries with a fused node at one task (SF 0.002, seed 7)
 FUSED = ["q2", "q3", "q5", "q7", "q8", "q9", "q10", "q11", "q16", "q17",
@@ -68,8 +77,8 @@ UNFUSED = [f"q{i}" for i in range(1, 23) if f"q{i}" not in FUSED]
 
 
 def _sql(q: str) -> str:
-    if q == "S1":
-        return S1
+    if q in STARS:
+        return STARS[q]
     with open(os.path.join(QDIR, f"{q}.sql")) as f:
         return f.read()
 
@@ -159,13 +168,13 @@ def test_fusion_stops_on_rekeying_shuffle(arrow_tables):
     assert not _mw_nodes(tp) and deltas == [0, 0]
 
 
-def test_star_query_fuses_into_one_cascade_node(arrow_tables):
+@pytest.mark.parametrize("q", ["S1", "S2"])
+def test_star_queries_fuse_into_one_node(arrow_tables, q):
     for t in (1, 8):
         _jp, tp, (fused, _deleted) = _planned(
-            _contexts(arrow_tables, multiway_join=True), "S1", t)
+            _contexts(arrow_tables, multiway_join=True), q, t)
         (mw,) = _mw_nodes(tp)
         assert len(mw.steps) == 3 and fused == 3
-        assert mw.cascade_eligible()
 
 
 # ---------------------------------------------------------------------------
@@ -211,20 +220,21 @@ def _run_node(pkg, node, leaves):
 
 
 @pytest.mark.parametrize("k", [2, 3])
-def test_multiway_exec_byte_identical_cascade_chain_reference(k):
+def test_multiway_exec_byte_identical_to_reference(k):
+    """The fused node, its binary chain and the reference's fused node give
+    byte-identical tables."""
     jchain, jmw, jleaves = _fixture("j", 3 + k, k)
     tchain, tmw, tleaves = _fixture("t", 3 + k, k)
-    assert not jmw.cascade_eligible()  # the reference's default: its chain
-    assert tmw.cascade_eligible()  # the port: the one-launch cascade
     ref, ref_flags = _run_node("j", jmw, jleaves)
-    cascade, cascade_flags = _run_node("t", tmw, tleaves)
+    fused, fused_flags = _run_node("t", tmw, tleaves)
     chain, chain_flags = _run_node("t", tchain, tleaves)
-    assert not any(ref_flags + cascade_flags + chain_flags)
-    assert int(cascade.num_rows) == int(chain.num_rows) == int(ref.num_rows)
-    assert cascade.num_rows > 0
-    assert cascade.capacity == chain.capacity == ref.capacity
-    assert cascade.names == chain.names == ref.names
-    a, b = cascade.to_numpy(), chain.to_numpy()
+    assert not any(ref_flags + fused_flags + chain_flags)
+    assert fused_flags == chain_flags
+    assert int(fused.num_rows) == int(chain.num_rows) == int(ref.num_rows)
+    assert fused.num_rows > 0
+    assert fused.capacity == chain.capacity == ref.capacity
+    assert fused.names == chain.names == ref.names
+    a, b = fused.to_numpy(), chain.to_numpy()
     assert identical(a, b)
     r = {n: np.asarray(v) for n, v in ref.to_numpy().items()}
     assert identical({n: v.astype(a[n].dtype) for n, v in r.items()}, a)
@@ -233,9 +243,8 @@ def test_multiway_exec_byte_identical_cascade_chain_reference(k):
     assert tmw.display() == jmw.display()
 
 
-def test_cascade_probes_all_tables_in_one_call(monkeypatch):
-    """The cascade resolves its K probes with one call of the K-table probe
-    (K = 3 here); the chain makes one K = 1 call per step."""
+def test_fused_node_probes_one_table_a_step(monkeypatch):
+    """The fused node runs as its chain: one single-table probe a step."""
     from datafusion_distributed_tpu_torch.ops import hash_kernels
 
     calls = []
@@ -248,7 +257,7 @@ def test_cascade_probes_all_tables_in_one_call(monkeypatch):
     monkeypatch.setattr(hash_kernels, "multiway_probe", counting)
     chain, mw, leaves = _fixture("t", 6, 3)
     _run_node("t", mw, leaves)
-    assert calls == [3]
+    assert calls == [1, 1, 1]
     calls.clear()
     _run_node("t", chain, leaves)
     assert calls == [1, 1, 1]
@@ -321,7 +330,7 @@ def staged(arrow_tables):
     return _contexts(arrow_tables, multiway_join=True)
 
 
-@pytest.mark.parametrize("q", FUSED + ["S1"] + UNFUSED)
+@pytest.mark.parametrize("q", FUSED + list(STARS) + UNFUSED)
 def test_one_task_staged_results_match_reference(staged, q):
     jctx, tctx = staged
     jdf, tdf = jctx.sql(_sql(q)), tctx.sql(_sql(q))
