@@ -39,11 +39,22 @@ Phases, each of which must pass:
 9. tasks — the 22 queries and the star queries S1 and S2 through
    collect_distributed_table(8), twice, byte-identical and equal to
    single-node (warm seconds, sync calls, retries, peak memory per query);
-   again with multiway fusion on (the star queries' fused nodes timed in
+   S1 and S2 again with multiway fusion on (their fused nodes timed in
    every task); kernels 1 and 2 at every shape the 8-task runs logged,
    against their plain versions; at SF 0.01, T in 2 and 8 on "cuda"
    against "cpu" (a CPU subprocess that runs meanwhile).
-10. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
+10. coordinator — the 22 queries, S1 and S2 through
+   collect_coordinated_table(num_tasks=4) over InMemoryCluster(4), with
+   Coordinator and AdaptiveCoordinator, twice each: byte-identical runs,
+   each equal to single-node (warm seconds against single-node and
+   against collect_distributed_table(4), sync calls, device-to-host bytes,
+   peak memory, retries and the plane of every exchange, per query); q3,
+   q5, q18 and q21 under each data-plane knob at SF 0.1 (on the bulk
+   plane q21 does not fit the card at SF 1), byte-identical; kernels 1
+   and 2 at every shape the coordinated runs logged, against their plain
+   versions; at SF 0.01 both coordinators on "cuda" against "cpu" (a CPU
+   subprocess that runs meanwhile).
+11. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
    import): the `hits` table at its published 99,997,497 rows, seed 3, all
    43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
    kernels 1 and 2 at every shape that run gave them (group builds on
@@ -56,9 +67,9 @@ Phases, each of which must pass:
 
 The check phase also runs q22 and q13 over `orders` without the customers
 whose key is divisible by 3, card against CPU (7 and 22 rows at SF 0.01).
-The main phase, the window phase, the one-task staged path and the
-ClickBench run each set the kernels' launch counts to 0 just before they
-run and read them just after.
+The main phase, the window phase, the one-task staged path, each
+coordinator's second run and the ClickBench run each set the kernels'
+launch counts to 0 just before they run and read them just after.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, the script fails and prints no result.
@@ -307,6 +318,22 @@ def _rng(case: str):
     """Each case's own random stream, seeded from its name: adding a case
     moves no other case's inputs."""
     return np.random.default_rng(zlib.crc32(case.encode()))
+
+
+def _device_rng(case: str, dev):
+    """A case's own random stream on the card (shape checks draw tens of
+    millions of keys: host draws and copies cost seconds a shape)."""
+    import torch
+
+    return torch.Generator(device=dev).manual_seed(zlib.crc32(case.encode()))
+
+
+def _ints(gen, shape, dev, lo=-2**31, hi=2**31 - 1):
+    """int32 values in [lo, hi) drawn on the card."""
+    import torch
+
+    return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
 
 
 def _probe_tables(name: str, rng, n: int, h: int):
@@ -1264,9 +1291,9 @@ def _sync_calls(fn) -> int:
 
 def build_shape_checks(build_shapes, dev, tag: str) -> dict:
     """Kernel 1 at every build shape a run logged ([rows, int32 lanes,
-    slots, launches]), on seeded keys (about 0.45 * slots distinct, 90% of
-    the rows live), bit for bit and round for round against its plain
-    version. The launches made here are not the path's."""
+    slots, launches]), on seeded keys drawn on the card (about 0.45 *
+    slots distinct, 90% of the rows live), bit for bit and round for round
+    against its plain version. The launches made here are not the path's."""
     import torch
 
     from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
@@ -1274,14 +1301,13 @@ def build_shape_checks(build_shapes, dev, tag: str) -> dict:
 
     builds = {}
     for n, lanes, slots, _count in build_shapes:
-        rng = _rng(f"{tag} build {n} {lanes} {slots}")
+        gen = _device_rng(f"{tag} build {n} {lanes} {slots}", dev)
         ndv = max(1, int(0.45 * slots))
-        vals = rng.integers(-2**31, 2**31 - 1, (ndv, lanes), dtype=np.int64)
-        keys = torch.from_numpy(
-            vals[rng.integers(0, ndv, n)].astype(np.int32)).to(dev)
+        vals = _ints(gen, (ndv, lanes), dev)
+        keys = vals[torch.randint(0, ndv, (n,), generator=gen, device=dev)]
         s0 = (hash_columns([keys[:, i] for i in range(lanes)],
                            [None] * lanes) & (slots - 1)).to(torch.int32)
-        live = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        live = torch.rand(n, generator=gen, device=dev) < 0.9
         got = hk.build_group_ids(keys, s0, live, slots)
         ref, plain_ms = timed_once(
             lambda: hk.build_group_ids_plain(keys, s0, live, slots))
@@ -1371,8 +1397,8 @@ def phase_tasks(sf: float, check_sf: float, names, seed: int) -> dict:
     same session's collect_table (sorted rows where ORDER BY leaves ties);
     per query the warm seconds against single-node, sync calls, retries
     and peak device memory.
-    2. The same 24 queries with fusion on, equal to step 1's; S1's and
-    S2's fused nodes timed in every task at T = 1 and T = 8.
+    2. S1 and S2 with fusion on, equal to step 1's; their fused nodes
+    timed in every task at T = 1 and T = 8.
     3. Kernels 1 and 2 at every build and probe shape the T = 8 runs
     logged, bit for bit against their plain versions.
     4. At SF ``check_sf``: collect_distributed_table(T) on the card against
@@ -1446,7 +1472,7 @@ def phase_tasks(sf: float, check_sf: float, names, seed: int) -> dict:
     # --- 2. fusion on, and the star queries' fused nodes ------------------
     ctx.config.distributed_options["multiway_join"] = True
     hk.reset_launch_counts()
-    for q, sql in queries:
+    for q, sql in (("S1", S1), ("S2", S2)):
         diff = _close(_collect_tasks(ctx.sql(sql), TASKS), fused_off[q],
                       rtol)
         check(diff == "", f"{q}: T={TASKS} with and without multiway "
@@ -1521,7 +1547,347 @@ def phase_tasks(sf: float, check_sf: float, names, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: ClickBench in x64 mode, in a subprocess
+# phase 10: the coordinator/worker runtime over 4 in-memory workers
+# ---------------------------------------------------------------------------
+
+COORD_TASKS = 4
+COORD_WORKERS = 4
+#: the knob variants, each byte-identical to the default run on these
+#: queries (a forced plane, no peer pulls, no pipelining, one stage at a
+#: time)
+COORD_KNOB_QUERIES = ("q3", "q5", "q18", "q21")
+#: the scale of the knob variants: on the bulk plane (data_plane=unary)
+#: q21's shuffle slices keep producers x per-destination capacity rows
+#: each, which at SF 1 does not fit the card beside 4 workers' tasks
+#: (out of memory at 71 GB allocated)
+COORD_KNOB_SF = 0.1
+COORD_KNOBS = {
+    "data_plane=unary": {"data_plane": "unary"},
+    "data_plane=stream": {"data_plane": "stream"},
+    "peer_shuffle=false": {"peer_shuffle": False},
+    "pipelined_shuffle=false": {"pipelined_shuffle": False},
+    "stage_parallelism=1": {"stage_parallelism": 1},
+}
+COORD_KERNELS = ("build_group_ids", "multiway_probe")
+#: queries the adaptive coordinator runs at a smaller scale, and why: its
+#: sizing gives each of the 4 concurrent tasks of q21's join stage the
+#: capacities of the whole stage's rows (the reference's resize_for_inputs
+#: from the stage's merged LoadInfo), which at SF 1 peaks past the card's
+#: 80 GB (80.84 GB when it failed); 4 workers share one card here
+COORD_ADAPTIVE_CUT = {"q21": 0.1}
+COORD_CPU_TIMEOUT_S = 600
+
+
+def _coordinated(ctx, sql: str, adaptive: bool, cluster, opts=None):
+    """One query through collect_coordinated_table(num_tasks=4) on a fresh
+    Coordinator (or AdaptiveCoordinator) over ``cluster``. -> (result,
+    the coordinator, the DataFrame); every worker's store and task
+    registry must be empty afterwards."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        AdaptiveCoordinator,
+        Coordinator,
+    )
+
+    cls = AdaptiveCoordinator if adaptive else Coordinator
+    coord = cls(resolver=cluster, channels=cluster,
+                config_options={**ctx.config.distributed_snapshot(),
+                                **(opts or {})})
+    df = ctx.sql(sql)
+    table = df.collect_coordinated_table(coordinator=coord,
+                                         num_tasks=COORD_TASKS)
+    out = table.to_numpy()
+    if table.device.type == "cuda":
+        torch.cuda.synchronize()
+    for w in cluster.workers.values():
+        check(not w.table_store.tables and len(w.registry) == 0,
+              f"worker {w.url} kept {len(w.table_store.tables)} staged "
+              f"tables and {len(w.registry)} tasks after the query")
+    return out, coord, df
+
+
+def _planes(coord) -> dict:
+    """How many exchanges of the run took each data plane."""
+    out: dict = {}
+    for sm in coord.stream_metrics.values():
+        plane = sm.get("plane", "stream")
+        out[plane] = out.get(plane, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def _measured(fn) -> tuple:
+    """(fn(), its counts): the synchronizing calls one call of ``fn`` makes
+    (PyTorch's sync debug mode) and its device-to-host copies, from the
+    profiler's record of its CUDA activity, with the card's kernel count
+    (0 kernels: the profiler saw no device activity, and the copies are
+    not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    box: list = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        syncs = _sync_calls(lambda: box.append(fn()))
+    copies = kernels = nbytes = 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if "DtoH" in name:
+            copies += 1
+            nbytes += _copy_bytes(e)
+        elif str(e.device_type()).endswith("CUDA") and "emcpy" not in \
+                name and "emset" not in name:
+            kernels += 1
+    if copies and not nbytes:
+        # the events carry no byte counts: read them from the exported
+        # trace, whose copy events do
+        path = Path(tempfile.mkdtemp()) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        nbytes = sum(
+            int(e.get("args", {}).get("bytes", 0))
+            for e in json.loads(path.read_text()).get("traceEvents", [])
+            if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", ""))
+        path.unlink()
+    return box[0], {"sync_calls": syncs, "d2h_bytes": nbytes,
+                    "d2h_copies": copies, "kernels": kernels}
+
+
+def _copy_bytes(e) -> int:
+    """A profiler copy event's bytes, where the event carries them."""
+    n = e.nbytes()
+    if not n:
+        meta = (e.metadata_json() or "").strip()
+        if meta:
+            meta = json.loads(meta if meta.startswith("{")
+                              else "{" + meta + "}")
+            n = int(meta.get("bytes", 0))
+    extra = getattr(e, "extra_meta", None)
+    if not n and extra is not None:
+        n = int((extra() or {}).get("bytes", 0))
+    return n
+
+
+def _log_d2h_event() -> None:
+    """Log what the profiler records for one device-to-host copy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.arange(1 << 20, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        x.cpu()
+    for e in prof.profiler.kineto_results.events():
+        if "DtoH" in e.name():
+            log(f"[coordinator] a 8 MiB copy as the profiler records it: "
+                f"name={e.name()!r} bytes read={_copy_bytes(e)} "
+                f"metadata={e.metadata_json()!r} fields="
+                f"{[a for a in dir(e) if not a.startswith('_')]}")
+
+
+def coord_cpu_worker(sf: float, out_path: str) -> int:
+    """The CPU's coordinated results of the 24 queries at SF ``sf``,
+    static and adaptive, pickled: the coordinator phase holds the card's
+    against them."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+
+    torch.set_num_threads(4)
+    ctx = _session("cpu", sf, SEED)
+    cluster = InMemoryCluster(COORD_WORKERS)
+    out = {(adaptive, q): _coordinated(ctx, sql, adaptive, cluster)[0]
+           for adaptive in (False, True)
+           for q, sql in _task_queries(QUERIES)}
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
+    """1. The 22 queries, S1 and S2 through collect_coordinated_table(
+    num_tasks=4) over InMemoryCluster(4), with Coordinator and then
+    AdaptiveCoordinator, twice each: the runs byte-identical, each equal to
+    the same session's collect_table (sorted rows where ORDER BY leaves
+    ties). Kernel launches are counted from 0 over each coordinator's
+    second run. Per query: warm seconds against single-node and against
+    collect_distributed_table(4); peak device memory; overflow retries; the
+    plane each exchange took; and, in each coordinator's first run and in
+    one single-node run, sync calls (PyTorch's sync debug mode) and
+    device-to-host bytes (the profiler's CUDA activity).
+    2. q3, q5, q18 and q21 under each knob variant of COORD_KNOBS, static,
+    at SF COORD_KNOB_SF: byte-identical to the default run.
+    3. Kernels 1 and 2 at every build and probe shape the coordinated runs
+    logged, bit for bit against their plain versions.
+    4. At SF ``check_sf``: both coordinators on the card against the CPU
+    (a subprocess that runs meanwhile)."""
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+
+    queries = _task_queries(names)
+    rtol = precision.test_rtol()
+    t_phase = time.perf_counter()
+    cpu_out = Path(tempfile.mkdtemp()) / "coord_cpu.pkl"
+    cpu_worker = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--coord-cpu-worker",
+         str(check_sf), "--out", str(cpu_out)], stdout=subprocess.DEVNULL)
+
+    ctx = _session("cuda", sf, seed)
+    cut = {q: _session("cuda", at, seed)
+           for q, at in COORD_ADAPTIVE_CUT.items()}
+    cluster = InMemoryCluster(COORD_WORKERS)
+    per_query: dict = {q: {} for q, _ in queries}
+
+    def session(q, adaptive):
+        return cut[q] if adaptive and q in cut else ctx
+
+    runs: dict = {}
+    by_mode: dict = {}
+    _log_d2h_event()
+    for mode, adaptive in (("static", False), ("adaptive", True)):
+        # run 1, measured: sync calls and device-to-host copies
+        first: dict = {}
+        for q, sql in queries:
+            t0 = time.perf_counter()
+            first[q], meas = _measured(lambda: _coordinated(
+                session(q, adaptive), sql, adaptive, cluster)[0])
+            per_query[q][f"{mode}_first_s"] = time.perf_counter() - t0
+            per_query[q].update({f"{mode}_{k}": v for k, v in meas.items()})
+        log(f"[coordinator] {mode}, measured run ({_since(t_phase)})")
+        # run 2, warm: seconds, peak memory, launches counted from 0
+        hk.reset_launch_counts()
+        for q, sql in queries:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            warm, coord, df = _coordinated(session(q, adaptive), sql,
+                                           adaptive, cluster)
+            per_query[q].update({
+                f"{mode}_s": time.perf_counter() - t0,
+                f"{mode}_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                f"{mode}_retries": df.last_retry_count,
+                f"{mode}_planes": _planes(coord)})
+            if adaptive:
+                per_query[q]["adaptive_decisions"] = list(
+                    coord.task_count_decisions)
+            check(_identical(first[q], warm), f"{q}: two {mode} "
+                  "coordinated runs differ")
+        launches = dict(hk.LAUNCHES)
+        for k in COORD_KERNELS:
+            check(launches[k] > 0, f"kernel {k} was not launched by the "
+                  f"{mode} coordinator")
+        builds, probes = kernel_shapes(hk, f"coordinator {mode}")
+        by_mode[mode] = {"launches": launches, "build_shapes": builds,
+                         "probe_shapes": probes}
+        runs[mode] = first
+        warm_s = sum(v[f"{mode}_s"] for v in per_query.values())
+        log(f"[coordinator] {mode}: warm {warm_s:.3f}s, launches "
+            f"{launches} ({_since(t_phase)})")
+    ties = []
+    for q, sql in queries:
+        _run(ctx, sql)  # warm
+        t0 = time.perf_counter()
+        single = _run(ctx, sql)
+        per_query[q]["single_s"] = time.perf_counter() - t0
+        _single, meas = _measured(lambda: _run(ctx, sql))
+        per_query[q].update({f"single_{k}": v for k, v in meas.items()})
+        for mode in ("static", "adaptive"):
+            base = single
+            if mode == "adaptive" and q in cut:
+                base = _run(cut[q], sql)
+                per_query[q]["adaptive_sf"] = COORD_ADAPTIVE_CUT[q]
+            diff, tied = _close_or_ties(runs[mode][q], base, rtol)
+            check(diff == "", f"{q}: {mode} coordinated and single-node "
+                  f"results differ in {diff}")
+            if tied:
+                ties.append(f"{q} {mode}")
+        _collect_tasks(ctx.sql(sql), COORD_TASKS)  # warm
+        t0 = time.perf_counter()
+        _collect_tasks(ctx.sql(sql), COORD_TASKS)
+        per_query[q]["tasks_s"] = time.perf_counter() - t0
+        log(f"[coordinator] {q}: {per_query[q]}")
+    log(f"[coordinator] compared as sorted rows (ORDER BY ties): {ties} "
+        f"({_since(t_phase)})")
+
+    # --- 2. knob variants ---------------------------------------------------
+    knobs: dict = {}
+    knob_ctx = _session("cuda", COORD_KNOB_SF, seed)
+    for q, sql in _queries(COORD_KNOB_QUERIES):
+        default = _coordinated(knob_ctx, sql, False, cluster)[0]
+        for name, opts in COORD_KNOBS.items():
+            got, coord, _df = _coordinated(knob_ctx, sql, False, cluster,
+                                           opts)
+            check(_identical(got, default), f"{q}: {name} differs from "
+                  f"the default coordinated run at SF {COORD_KNOB_SF}")
+            knobs[f"{q} {name}"] = _planes(coord)
+    del knob_ctx
+    log(f"[coordinator] knob variants byte-identical: {knobs} "
+        f"({_since(t_phase)})")
+    del ctx, runs, cut
+    torch.cuda.empty_cache()
+
+    # --- 3. every logged shape against the plain version -----------------
+    dev = torch.device("cuda")
+    all_builds = [b for m in by_mode.values() for b in m["build_shapes"]]
+    all_probes = [p for m in by_mode.values() for p in m["probe_shapes"]]
+    build_checks = build_shape_checks(
+        list({tuple(b[:3]): b for b in all_builds}.values()), dev,
+        "coordinator")
+    probe_checks = probe_shape_checks(
+        list({str(p[:4]): p for p in all_probes}.values()), dev,
+        "coordinator")
+    log(f"[coordinator] shapes checked ({_since(t_phase)})")
+
+    # --- 4. card against CPU ----------------------------------------------
+    gpu = _session("cuda", check_sf, seed)
+    small = InMemoryCluster(COORD_WORKERS)
+    check(cpu_worker.wait(timeout=COORD_CPU_TIMEOUT_S) == 0,
+          f"the CPU worker exited {cpu_worker.returncode}")
+    with open(cpu_out, "rb") as f:
+        cpu_results = pickle.load(f)
+    identical = 0
+    for adaptive in (False, True):
+        for q, sql in queries:
+            a = _coordinated(gpu, sql, adaptive, small)[0]
+            diff = _close(a, cpu_results[(adaptive, q)], rtol)
+            check(diff == "", f"{q} adaptive={adaptive}: cuda and cpu "
+                  f"differ in {diff}")
+            identical += _identical(a, cpu_results[(adaptive, q)])
+    log(f"[coordinator] SF {check_sf}: {len(queries)} queries equal on cuda "
+        f"and cpu, static and adaptive, {identical} of {2 * len(queries)} "
+        f"byte for byte ({_since(t_phase)})")
+
+    def total(key):
+        return sum(v[key] for v in per_query.values())
+
+    return {
+        "queries": per_query, "ties": ties, "knobs": knobs,
+        "launches": by_mode["static"]["launches"],
+        "adaptive_launches": by_mode["adaptive"]["launches"],
+        "build_shapes": by_mode["static"]["build_shapes"],
+        "probe_shapes": by_mode["static"]["probe_shapes"],
+        "adaptive_build_shapes": by_mode["adaptive"]["build_shapes"],
+        "adaptive_probe_shapes": by_mode["adaptive"]["probe_shapes"],
+        "kernel_checks": {"build_group_ids": build_checks,
+                          "multiway_probe": probe_checks},
+        "card_cpu_identical": identical,
+        "summary": {
+            k: total(k) for k in (
+                "static_s", "adaptive_s", "single_s", "tasks_s",
+                "static_sync_calls", "adaptive_sync_calls",
+                "single_sync_calls", "single_d2h_bytes", "static_d2h_bytes",
+                "adaptive_d2h_bytes", "static_d2h_copies",
+                "adaptive_d2h_copies", "static_retries",
+                "adaptive_retries")},
+        "peak_gb": max(max(v["static_peak_gb"], v["adaptive_peak_gb"])
+                       for v in per_query.values()),
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 11: ClickBench in x64 mode, in a subprocess
 # ---------------------------------------------------------------------------
 
 CLICKBENCH_ROWS = 99_997_497  # ClickBench's `hits` table
@@ -1847,8 +2213,9 @@ def _first_rows(x, n: int):
 
 def probe_shape_checks(probe_shapes, dev, tag: str) -> dict:
     """Kernel 2 at every probe shape a run logged ([rows, tables, lanes,
-    table slots, launches]), on seeded tables of the recorded slots and
-    keys half present, held bit for bit against its plain version. The
+    table slots, launches]), on seeded tables (drawn on the card) of the
+    recorded slots and keys half present, held bit for bit against its
+    plain version. The
     launches made here are not the path's: they come after its counts were
     read."""
     import torch
@@ -1858,13 +2225,11 @@ def probe_shape_checks(probe_shapes, dev, tag: str) -> dict:
 
     probes = {}
     for n, ntab, lanes, slots, _count in probe_shapes:
-        rng = _rng(f"{tag} probe {n} {lanes} {slots}")
+        gen = _device_rng(f"{tag} probe {n} {lanes} {slots}", dev)
         tparts, uparts, kparts = [], [], []
         for hslots in slots:
             ndv = max(1, int(0.4 * hslots))
-            bkeys = torch.from_numpy(rng.integers(
-                -2**31, 2**31 - 1, (ndv, lanes), dtype=np.int64
-            ).astype(np.int32)).to(dev)
+            bkeys = _ints(gen, (ndv, lanes), dev)
             cols = [bkeys[:, i] for i in range(lanes)]
             bs0 = (hash_columns(cols, [None] * lanes) & (hslots - 1)).to(
                 torch.int32)
@@ -1874,11 +2239,10 @@ def probe_shape_checks(probe_shapes, dev, tag: str) -> dict:
             check(not bool(bover), f"a {tag} probe table overflowed")
             tparts.append(tk)
             uparts.append(used)
-            present = bkeys[torch.from_numpy(rng.integers(0, ndv, n)).to(dev)]
-            absent = torch.from_numpy(rng.integers(
-                -2**31, 2**31 - 1, (n, lanes), dtype=np.int64
-            ).astype(np.int32)).to(dev)
-            half = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+            present = bkeys[torch.randint(0, ndv, (n,), generator=gen,
+                                          device=dev)]
+            absent = _ints(gen, (n, lanes), dev)
+            half = torch.rand(n, generator=gen, device=dev) < 0.5
             kparts.append(torch.where(half[:, None], present, absent))
         keys = torch.stack(kparts, dim=1).contiguous()
         s0 = torch.stack([
@@ -1965,7 +2329,7 @@ REPS = 5  # timed calls per kernel, after one warm-up
 SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
-          "window", "distributed", "tasks", "clickbench")
+          "window", "distributed", "tasks", "coordinator", "clickbench")
 CLICKBENCH_TIMEOUT_S = 800
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -1982,6 +2346,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--tasks-cpu-worker", type=float, default=None,
                     metavar="SF", help=argparse.SUPPRESS)
+    ap.add_argument("--coord-cpu-worker", type=float, default=None,
+                    metavar="SF", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -1996,6 +2362,8 @@ def main(argv=None) -> int:
         return 2
     if args.tasks_cpu_worker is not None:
         return tasks_cpu_worker(args.tasks_cpu_worker, args.out)
+    if args.coord_cpu_worker is not None:
+        return coord_cpu_worker(args.coord_cpu_worker, args.out)
     if args.clickbench_worker:
         try:
             return clickbench_worker(args.out)
@@ -2041,6 +2409,9 @@ def main(argv=None) -> int:
                     SF, CHECK_SF, QUERIES, SEED)
             elif phase == "tasks":
                 results["tasks"] = phase_tasks(SF, CHECK_SF, QUERIES, SEED)
+            elif phase == "coordinator":
+                results["coordinator"] = phase_coordinator(
+                    SF, CHECK_SF, QUERIES, SEED)
             else:
                 results["clickbench"] = phase_clickbench(CLICKBENCH_TIMEOUT_S)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
@@ -2065,10 +2436,13 @@ def main(argv=None) -> int:
     # window, ClickBench in x64 mode); null where the phase did not run
     paths = {"tpch_tpu": ("main",), "window": ("window",),
              "staged_t1": ("distributed",), "staged_t8": ("tasks",),
+             "coordinated": ("coordinator",),
+             "coordinated_adaptive": ("coordinator",),
              "clickbench_x64": ("clickbench",),
              "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
-                    for phase in ("distributed", "tasks", "clickbench")]
+                    for phase in ("distributed", "tasks", "coordinator",
+                                  "clickbench")]
     shape_checks.append(results.get("clickbench", {}).get("t8", {})
                         .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
@@ -2082,7 +2456,10 @@ def main(argv=None) -> int:
             r = results.get(phase)
             for key in sub:
                 r = r.get(key) if r else None
-            by_path[path] = r["launches"].get(name) if r else None
+            launches = "launches"
+            if path == "coordinated_adaptive":
+                launches = "adaptive_launches"
+            by_path[path] = r[launches].get(name) if r else None
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": by_path["tpch_tpu"],
@@ -2131,6 +2508,11 @@ def main(argv=None) -> int:
             k: d[k] for k in ("warm_s", "single_s", "sync_calls",
                               "single_sync_calls", "peak_gb", "ties",
                               "fused_nodes", "card_cpu_identical")}}))
+    if "coordinator" in results:
+        d = results["coordinator"]
+        print(json.dumps({"coordinator": {
+            **d["summary"], "peak_gb": d["peak_gb"], "ties": d["ties"],
+            "card_cpu_identical": d["card_cpu_identical"]}}))
     if "clickbench" in results:
         cb = results["clickbench"]
         print(json.dumps({"clickbench": {

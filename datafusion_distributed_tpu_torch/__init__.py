@@ -9,7 +9,7 @@ on an NVIDIA H100. It keeps the reference package's module layout and names:
              exchange nodes and the fused multiway join of staged plans
 - planner/   statistics and cost model; the distributed (staged) planner
 - parallel/  the plan-time split of a table into per-task slices
-- runtime/   the planner's adaptivity counters
+- runtime/   the coordinator/worker runtime, the task executor, adaptivity
 - sql/       SQL front end (parser -> logical plan -> physical plan)
 - io/        host-side Arrow/Parquet <-> device Table
 - data/      TPC-H generator (numpy only)

@@ -58,7 +58,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
-from typing import NamedTuple
+import threading
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -95,13 +96,28 @@ PACK_PAIRS_PER_SLOT = 16
 #: counter per device (builds, rounds summed, most rounds of one build):
 #: the CUDA builds add to theirs on the card, the plain path to the CPU's
 ROUND_STATS: dict = {}
+#: every update of the counters above holds this lock: the coordinator runs
+#: stages and tasks on threads, and an unlocked read-modify-write loses
+#: counts
+_COUNT_LOCK = threading.Lock()
 
 
 def _round_stats_of(dev: torch.device) -> torch.Tensor:
-    t = ROUND_STATS.get(dev)
-    if t is None:
-        t = ROUND_STATS[dev] = torch.zeros(3, dtype=torch.int64, device=dev)
-    return t
+    with _COUNT_LOCK:
+        t = ROUND_STATS.get(dev)
+        if t is None:
+            t = ROUND_STATS[dev] = torch.zeros(3, dtype=torch.int64,
+                                               device=dev)
+        return t
+
+
+def _count_launch(wrapper: str, shapes: Optional[dict] = None,
+                  shape: Optional[tuple] = None) -> None:
+    """One launch of ``wrapper``'s kernel, and of its shape in ``shapes``."""
+    with _COUNT_LOCK:
+        LAUNCHES[wrapper] += 1
+        if shapes is not None:
+            shapes[shape] = shapes.get(shape, 0) + 1
 
 
 def round_stats() -> dict:
@@ -122,19 +138,21 @@ def reset_round_stats() -> None:
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    BUILD_SHAPES.clear()
-    PROBE_SHAPES.clear()
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        BUILD_SHAPES.clear()
+        PROBE_SHAPES.clear()
     reset_round_stats()
 
 
 def _note_rounds_cpu(rounds: torch.Tensor) -> None:
     r = int(rounds)
     t = _round_stats_of(torch.device("cpu"))
-    t[0] += 1
-    t[1] += r
-    t[2] = max(int(t[2]), r)
+    with _COUNT_LOCK:
+        t[0] += 1
+        t[1] += r
+        t[2] = max(int(t[2]), r)
 
 
 # ---------------------------------------------------------------------------
@@ -293,9 +311,7 @@ def build_group_ids(keys_mat, slot0, live, num_slots: int,
             _stream(keys),
         )
     _check(lib, err, "dftpu_group_build")
-    LAUNCHES["build_group_ids"] += 1
-    shape = (n, lanes, num_slots)
-    BUILD_SHAPES[shape] = BUILD_SHAPES.get(shape, 0) + 1
+    _count_launch("build_group_ids", BUILD_SHAPES, (n, lanes, num_slots))
     gid, slot_keys, slot_used, rounds, overflow = outs
     return (gid, _lanes_back(slot_keys, lane_dtype), slot_used, overflow,
             rounds)
@@ -500,9 +516,8 @@ def probe_cuda(keys, slot0, active, tkeys, used, table_slots,
                 _ptr(over), _stream(keys),
             )
             _check(lib, err, "dftpu_multiway_probe")
-            LAUNCHES["multiway_probe"] += 1
-            shape = (n, g, lanes, launch.slots)
-            PROBE_SHAPES[shape] = PROBE_SHAPES.get(shape, 0) + 1
+            _count_launch("multiway_probe", PROBE_SHAPES,
+                          (n, g, lanes, launch.slots))
     return found, over
 
 
@@ -587,5 +602,5 @@ def group_aggregate(keys_mat, slot0, live, values, num_slots: int,
             *[_ptr(t) for t in scratch], _stream(keys),
         )
     _check(lib, err, "dftpu_group_aggregate")
-    LAUNCHES["group_aggregate"] += 1
+    _count_launch("group_aggregate")
     return gid, rep, used, acc, overflow, rounds

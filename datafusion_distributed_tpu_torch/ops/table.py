@@ -18,6 +18,7 @@ allocate their outputs on the device of their inputs.
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import weakref
 from dataclasses import dataclass
@@ -223,12 +224,12 @@ class Column:
                 )
         buf = np.zeros(capacity, dtype=np_dtype)
         buf[:n] = vals
-        data = torch.from_numpy(buf).to(dev)
+        data = to_device(buf, dev)
         col_validity = None
         if validity is not None:
             v = np.zeros(capacity, dtype=np.bool_)
             v[:n] = validity
-            col_validity = torch.from_numpy(v).to(dev)
+            col_validity = to_device(v, dev)
         return Column(data, col_validity, dtype, dictionary)
 
     @property
@@ -399,19 +400,23 @@ class Table:
 
     def slice_rows(self, lo: int, count: int) -> "Table":
         """Row-range slice [lo, lo+count) as a compact table (host offsets:
-        reads num_rows)."""
-        n = int(self.num_rows)
+        reads num_rows once, `host_rows`): views of this table's buffers
+        with the reference's capacity, ``count`` rounded up to 8 as far as
+        the buffers reach."""
+        n = host_rows(self)
         lo = max(0, min(lo, n))
         count = max(0, min(count, n - lo))
+        end = min(lo + max(_round_up(count), 8), self.capacity)
         cols = tuple(
             Column(
-                c.data[lo:lo + count],
-                c.validity[lo:lo + count] if c.validity is not None else None,
+                c.data[lo:end],
+                c.validity[lo:end] if c.validity is not None else None,
                 c.dtype, c.dictionary,
             )
             for c in self.columns
         )
-        return Table(self.names, cols, _rows(count, self.device))
+        return _with_host_rows(
+            Table(self.names, cols, rows_tensor(count, self.device)), count)
 
     # -- host materialization -----------------------------------------------
     def to_numpy(self, decode_strings: bool = True) -> dict[str, np.ndarray]:
@@ -481,7 +486,10 @@ def concat_tables(tables: Sequence[Table],
                   capacity: Optional[int] = None) -> Table:
     """Concatenate same-schema tables into one padded table (rows are packed
     via cumulative offsets; capacity sizing is the caller's, as everywhere
-    else in the engine)."""
+    else in the engine). Inside a plan the row counts stay on the device;
+    the runtime's staged tables carry theirs on the host (`host_rows`),
+    and then the concat checks the capacity as the reference's host path
+    does and may return a view (`_concat_known`)."""
     if not tables:
         raise ValueError("concat of zero tables")
     first = tables[0]
@@ -497,6 +505,16 @@ def concat_tables(tables: Sequence[Table],
                 raise ValueError(
                     f"concat dtype mismatch on {names[ci]!r}: {a.dtype} vs {b.dtype}"
                 )
+    ns = [known_rows(t) for t in tables]
+    if None not in ns:
+        # every row count is already on the host (staged views, streamed
+        # chunks): check the capacity and copy live rows by host offsets,
+        # or hand out one view when the inputs abut in one buffer
+        total = sum(ns)
+        if total > total_cap:
+            raise ValueError(
+                f"concat overflow: {total} rows > capacity {total_cap}")
+        return _concat_known(tables, names, ns, total_cap)
     out_cols = []
     offsets = []
     acc = torch.zeros((), dtype=torch.int32, device=dev)
@@ -564,3 +582,255 @@ def unify_dictionaries(dicts):
             np.searchsorted(union_vals, d.values.astype(str)).astype(np.int32)
         )
     return union, luts
+
+
+# ---------------------------------------------------------------------------
+# Staging primitives of the coordinator/worker runtime
+# ---------------------------------------------------------------------------
+#
+# The reference's runtime rebinds staged tables to host numpy buffers once
+# (`host_view`) and then slices and reassembles them as numpy views. Here
+# tables between stages stay on the device they were made on: a row-range
+# slice is a `narrow` view of the same tensors, and views that abut in one
+# buffer reassemble without a copy. What the host needs is the live-row
+# count, read once per table and kept on it (`host_rows`); `read_rows`
+# reads many in one transfer. Buffers are immutable by contract: every
+# consumer shares them by reference. Only bytes that leave the process
+# (Arrow IPC, runtime/codec.py) go through `host_view`.
+
+
+def zero_copy_enabled(config: Optional[dict] = None) -> bool:
+    """Effective `SET distributed.zero_copy` (default ON). The env override
+    ``DFTPU_ZERO_COPY`` wins over session config (the A/B escape hatch)."""
+    env = os.environ.get("DFTPU_ZERO_COPY")
+    if env is not None:
+        return parse_bool_knob(env)
+    return parse_bool_knob((config or {}).get("zero_copy", True))
+
+
+def known_rows(table: Table) -> Optional[int]:
+    """The live-row count if the host already holds it, else None."""
+    return getattr(table, "_host_rows", None)
+
+
+def _with_host_rows(table: Table, n: int) -> Table:
+    table._host_rows = int(n)
+    return table
+
+
+def host_rows(table: Table) -> int:
+    """The live-row count as a host int: read once (one device-to-host
+    transfer for a table on the card) and kept on the table."""
+    n = known_rows(table)
+    if n is None:
+        n = _with_host_rows(table, int(table.num_rows))._host_rows
+    return n
+
+
+def read_rows(tables: Sequence[Table]) -> list:
+    """`host_rows` of every table, the unread ones in one transfer per
+    device."""
+    todo: dict = {}
+    for t in tables:
+        if known_rows(t) is None:
+            todo.setdefault(t.device, []).append(t)
+    for group in todo.values():
+        if len(group) == 1:
+            host_rows(group[0])
+            continue
+        vals = torch.stack([t.num_rows.to(torch.int64) for t in group])
+        for t, n in zip(group, vals.cpu().tolist()):
+            _with_host_rows(t, n)
+    return [known_rows(t) for t in tables]
+
+
+def rows_tensor(n: int, device) -> torch.Tensor:
+    """A 0-d int32 row count made on ``device`` by a fill kernel (a host
+    scalar copied to the card would synchronize)."""
+    return torch.full((), int(n), dtype=torch.int32, device=device)
+
+
+def host_prefix(table: Table, count: int) -> list:
+    """The first ``count`` rows of every column as host numpy arrays,
+    [(data, validity or None)], in one device-to-host transfer: the
+    columns' bytes are packed into one buffer on the device first."""
+    parts = []
+    for c in table.columns:
+        parts.append(c.data[:count])
+        if c.validity is not None:
+            parts.append(c.validity[:count])
+    if table.device.type == "cpu":
+        host = [p.numpy() for p in parts]
+    else:
+        flat = torch.cat([p.contiguous().view(torch.uint8)
+                          for p in parts]).cpu().numpy()
+        host, off = [], 0
+        for p in parts:
+            nb = p.numel() * p.element_size()
+            np_dtype = torch.empty(0, dtype=p.dtype).numpy().dtype
+            host.append(flat[off:off + nb].copy().view(np_dtype))
+            off += nb
+    out, i = [], 0
+    for c in table.columns:
+        data = host[i]
+        i += 1
+        validity = None
+        if c.validity is not None:
+            validity = host[i]
+            i += 1
+        out.append((data, validity))
+    return out
+
+
+def slice_view(table: Table, lo: int, count: int) -> Table:
+    """Zero-copy row-range view [lo, lo+count) of a table on its own
+    device: `narrow` views of the same tensors, capacity == count exactly,
+    the row count kept on the host."""
+    n = host_rows(table)
+    lo = max(0, min(lo, n))
+    count = max(0, min(count, n - lo))
+    cols = tuple(
+        Column(
+            c.data.narrow(0, lo, count),
+            c.validity.narrow(0, lo, count) if c.validity is not None
+            else None,
+            c.dtype, c.dictionary,
+        )
+        for c in table.columns
+    )
+    return _with_host_rows(
+        Table(table.names, cols, rows_tensor(count, table.device)), count)
+
+
+def is_host_backed(table: Table) -> bool:
+    """True when every buffer lives in host memory."""
+    return table.device.type == "cpu" and all(
+        c.data.device.type == "cpu" for c in table.columns)
+
+
+def move(table: Table, device) -> Table:
+    """The table on ``device`` (the same object when it is there already);
+    the host row count travels with it."""
+    dev = torch.device(device)
+    if table.device == dev:
+        return table
+    cols = tuple(
+        Column(
+            c.data.to(dev),
+            c.validity.to(dev) if c.validity is not None else None,
+            c.dtype, c.dictionary,
+        )
+        for c in table.columns
+    )
+    out = Table(table.names, cols, table.num_rows.to(dev))
+    n = known_rows(table)
+    return _with_host_rows(out, n) if n is not None else out
+
+
+def host_view(table: Table) -> Table:
+    """The table's buffers in host memory: free for a table on the CPU,
+    one device-to-host copy of every column otherwise. Only bytes that
+    leave the process need it (Arrow IPC); the in-process planes keep
+    tables on their device."""
+    return table if is_host_backed(table) else move(table, "cpu")
+
+
+def to_device(arr: np.ndarray, device=None) -> torch.Tensor:
+    """Host buffer -> tensor on ``device`` (None: the card); on the CPU the
+    tensor shares the buffer, so the caller hands it over: it must not be
+    mutated afterwards."""
+    return torch.from_numpy(arr).to(resolve_device(device))
+
+
+def _merge_views(arrs: list, want_len: int) -> Optional[torch.Tensor]:
+    """Exact-length contiguous 1-D views that abut in ONE storage -> one
+    view of length ``want_len`` over that storage (reading past the last
+    view only if the storage has the room), else None."""
+    nz = [a for a in arrs if a.numel()]
+    if not nz:
+        return None
+    first = nz[0]
+    storage = first.untyped_storage()
+    end = first.data_ptr() + first.numel() * first.element_size()
+    for a in nz[1:]:
+        if (a.untyped_storage().data_ptr() != storage.data_ptr()
+                or a.data_ptr() != end or not a.is_contiguous()):
+            return None
+        end += a.numel() * a.element_size()
+    room = (storage.data_ptr() + storage.nbytes() - first.data_ptr()) \
+        // first.element_size()
+    if want_len > room or not first.is_contiguous():
+        return None
+    return first.as_strided((want_len,), (1,))
+
+
+def _concat_known(tables, names, ns, total_cap: int) -> Table:
+    """Concat of tables whose row counts the host holds: one view of the
+    base buffer when the inputs are contiguous views that abut in it and
+    need no dictionary re-encode; otherwise one copy of each input's live
+    rows into a zero-padded buffer (the device path's padding)."""
+    total = sum(ns)
+    dev = tables[0].device
+    unified = [
+        unify_dictionaries([t.columns[ci].dictionary for t in tables])
+        for ci in range(len(names))
+    ]
+    view = _concat_views(tables, names, ns, unified, total_cap)
+    if view is not None:
+        return _with_host_rows(view, total)
+    out_cols = []
+    for ci in range(len(names)):
+        cols = [t.columns[ci] for t in tables]
+        dtype = cols[0].dtype
+        d, luts = unified[ci]
+        has_validity = any(c.validity is not None for c in cols)
+        data = torch.zeros(total_cap, dtype=dtype.torch_dtype, device=dev)
+        validity = (torch.zeros(total_cap, dtype=torch.bool, device=dev)
+                    if has_validity else None)
+        off = 0
+        for c, lut, n in zip(cols, luts, ns):
+            if n:
+                vals = c.data[:n]
+                if lut is not None:
+                    vals = apply_lut(lut, vals)
+                data[off:off + n] = vals.to(data.dtype)
+                if has_validity:
+                    if c.validity is not None:
+                        validity[off:off + n] = c.validity[:n]
+                    else:
+                        validity[off:off + n] = True
+            off += n
+        out_cols.append(Column(data, validity, dtype, d))
+    return _with_host_rows(
+        Table(tuple(names), tuple(out_cols), rows_tensor(total, dev)), total)
+
+
+def _concat_views(tables, names, ns, unified, total_cap: int):
+    total = sum(ns)
+    if total == 0:
+        return None
+    for _d, luts in unified:
+        if any(lut is not None for lut in luts):
+            return None
+    out_cols = []
+    for ci in range(len(names)):
+        cols = [t.columns[ci] for t in tables]
+        if len({c.validity is not None for c in cols}) > 1:
+            return None
+        for c, n in zip(cols, ns):
+            if c.data.shape[0] != n or (
+                    c.validity is not None and c.validity.shape[0] != n):
+                return None  # not an exact-length view
+        merged = _merge_views([c.data for c in cols], total_cap)
+        if merged is None:
+            return None
+        merged_validity = None
+        if cols[0].validity is not None:
+            merged_validity = _merge_views([c.validity for c in cols],
+                                           total_cap)
+            if merged_validity is None:
+                return None
+        out_cols.append(Column(merged, merged_validity, cols[0].dtype,
+                               unified[ci][0]))
+    return Table(tuple(names), tuple(out_cols),
+                 rows_tensor(total, tables[0].device))

@@ -384,6 +384,16 @@ _PLAN_ATTRS: dict = {
         int(n.num_tasks), n.producer_tasks, n.consumer_fetch,
     ),
     "IsolatedArmExec": lambda n: (int(n.assigned_task),),
+    # stateless metric pass-through (planner/adaptive.py)
+    "SamplerExec": lambda n: (),
+    "PeerShuffleScanExec": lambda n: (
+        len(n.pulls_per_task),
+        tuple(len(s) for s in n.pulls_per_task),
+        tuple(n.key_names), int(n.num_partitions),
+        int(n.per_dest_capacity), _canon_schema(n._schema),
+        bool(n.replicated), n.pinned_task, bool(n.pull_all),
+        int(n.capacity_hint),
+    ),
 }
 
 
@@ -483,10 +493,13 @@ _PREP_ATTR = "_dftpu_prepared"
 def prepare_plan(plan) -> PreparedPlan:
     """Hoist + fingerprint ``plan``, memoized on the plan object (plans are
     treated as immutable after planning; rebuilt trees are new objects and
-    re-prepare)."""
+    re-prepare). A plan that hoists nothing is its own prepared form; its
+    memo then leaves the plan out, so that no reference cycle keeps a
+    worker's decoded plan, and the device tables it holds, alive after
+    the task."""
     prep = getattr(plan, _PREP_ATTR, None)
     if prep is not None:
-        return prep
+        return prep if prep.plan is not None else dataclasses.replace(prep, plan=plan)
     hoisted_plan, ints, floats = plan, (), ()
     if hoist_enabled():
         col = _HoistCollector()
@@ -509,7 +522,8 @@ def prepare_plan(plan) -> PreparedPlan:
     else:
         prep = PreparedPlan(hoisted_plan, fp, ints, floats)
     try:
-        setattr(plan, _PREP_ATTR, prep)
+        setattr(plan, _PREP_ATTR,
+                prep if prep.plan is not plan else dataclasses.replace(prep, plan=None))
     except AttributeError:
         pass
     return prep

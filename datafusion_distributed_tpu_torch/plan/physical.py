@@ -68,6 +68,14 @@ class ExecContext:
     # same list in each of them; runtime/mesh_executor.py); empty when one
     # task runs alone
     peers: list = dc_field(default_factory=list)
+    # per-node metrics (node_id, metric name, 0-d device tensor), recorded
+    # only when the caller keeps them (`execute_plan(metrics_store=...)`):
+    # they ride the run's one flag transfer to the host
+    metrics: Optional[list] = None
+
+    def record_metric(self, node: "ExecutionPlan", name: str, value) -> None:
+        if self.metrics is not None:
+            self.metrics.append((node.node_id, name, value))
 
     def record_overflow(self, node: "ExecutionPlan", flag) -> None:
         self.overflow_flags.append((node.label(), flag))
@@ -159,7 +167,12 @@ class ExecutionPlan:
 
     # -- execution ----------------------------------------------------------
     def execute(self, ctx: ExecContext) -> Table:
-        return self._execute(ctx)
+        """Run this operator; records the per-node output_rows metric when
+        the run keeps metrics (the DataFusion baseline metric set
+        analogue)."""
+        out = self._execute(ctx)
+        ctx.record_metric(self, "output_rows", out.num_rows)
+        return out
 
     def _execute(self, ctx: ExecContext) -> Table:
         raise NotImplementedError
@@ -618,6 +631,8 @@ def execute_plan(
     task: Optional[DistributedTaskContext] = None,
     config: Optional[dict] = None,
     check_overflow: bool = True,
+    metrics_store=None,
+    task_label: Optional[str] = None,
 ) -> Table:
     """Run a single-task plan eagerly: host-load the leaves, execute the
     operators, then fetch every capacity and precision flag in ONE transfer
@@ -628,7 +643,13 @@ def execute_plan(
     The plan runs in its prepared form (plan/fingerprint.py, memoized on
     the plan object): numeric comparison literals hoisted into host
     parameter vectors, bound for the run. The hoisted plan reuses the
-    original's leaves and node ids."""
+    original's leaves and node ids.
+
+    The output's live-row count rides the same transfer and is kept on
+    the output (`ops.table.host_rows`). With ``metrics_store`` every
+    node's output_rows rides it too and is inserted under
+    ``task_label`` (runtime/metrics.py MetricsStore protocol), keyed by
+    the submitted plan's node ids."""
     from datafusion_distributed_tpu_torch.plan.fingerprint import (
         bound_params,
         prepare_plan,
@@ -642,6 +663,8 @@ def execute_plan(
         for leaf in collect_leaves(exec_target) if hasattr(leaf, "load")
     }
     ctx = ExecContext(task=task, inputs=inputs, config=config or {})
+    if metrics_store is not None and ctx.config.get("collect_metrics", True):
+        ctx.metrics = []
     with bound_params(prep.param_arrays()):
         out = exec_target.execute(ctx)
     cap_flags = [f for name, f in ctx.overflow_flags
@@ -652,7 +675,28 @@ def execute_plan(
     none = torch.zeros((), dtype=torch.bool, device=dev)
     any_overflow = torch.stack(cap_flags).any() if cap_flags else none
     any_precision = torch.stack(prec_flags).any() if prec_flags else none
-    flags = torch.stack([any_overflow, any_precision]).cpu()  # one fetch
+    metric_vals = [v for _, _, v in ctx.metrics or ()]
+    fetched = torch.stack(
+        [x.to(torch.int64) for x in
+         [any_overflow, any_precision, out.num_rows] + metric_vals]
+    ).tolist()  # the run's one device-to-host transfer
+    flags = fetched[:2]
+    out._host_rows = fetched[2]
+    if metrics_store is not None:
+        # positions -> THIS submission's node ids (the hoisted plan's
+        # pre-order traversal equals the submitted plan's)
+        pos_of = {
+            n.node_id: i
+            for i, n in enumerate(exec_target.collect(lambda _n: True))
+        }
+        nodes = plan.collect(lambda _n: True)
+        node_metrics: dict = {}
+        for (nid, name, _), v in zip(ctx.metrics or (), fetched[3:]):
+            pos = pos_of.get(nid, -1)
+            if 0 <= pos < len(nodes):
+                node_metrics.setdefault(nodes[pos].node_id, {})[name] = v
+        metrics_store.insert(task_label or f"task{task.task_index}",
+                             node_metrics)
     if check_overflow and bool(flags[0]):
         raise RuntimeError(
             f"hash table overflow in plan (nodes: "

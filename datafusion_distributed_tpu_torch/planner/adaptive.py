@@ -1,0 +1,269 @@
+"""Adaptive (dynamic) planning: size stages from runtime statistics.
+
+The reference's `dynamic_task_count` mode re-runs boundary injection during
+execution: each stage ships immediately, `SamplerExec` streams LoadInfo
+(rows/bytes ready + velocity, NDV%, null%) back to the coordinator, and the
+next stage's task count comes from the cost model over those sampled stats
+(`src/coordinator/prepare_dynamic_plan.rs`,
+`src/execution_plans/sampler.rs`).
+
+TPU adaptation: the host-runtime coordinator materializes stage outputs
+between meshes anyway, so runtime statistics are EXACT there — after a
+producer stage lands, the consumer subtree's capacities (hash slots, join
+fan-out, shuffle buckets) are re-sized from the observed LoadInfo before it
+executes. That converts the static path's overflow-retry into a single
+forward pass (pending -> ready with real statistics), and shrinks padded
+capacities, which is pure device-time savings. `SamplerExec` still exists
+for the in-mesh path, recording rows/bytes as traced metrics.
+
+Port of the reference `planner/adaptive.py`: the per-column sample of a
+table on the card comes to the host in one transfer (ops/table.py
+`host_prefix`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from datafusion_distributed_tpu_torch.ops.table import (
+    Table,
+    host_prefix,
+    host_rows,
+    read_rows,
+    round_up_pow2,
+)
+from datafusion_distributed_tpu_torch.plan.joins import HashJoinExec
+from datafusion_distributed_tpu_torch.plan.physical import (
+    ExecContext,
+    ExecutionPlan,
+    HashAggregateExec,
+)
+from datafusion_distributed_tpu_torch.planner.statistics import row_width
+
+
+@dataclass
+class LoadInfo:
+    """Observed stage-output statistics (the worker.proto LoadInfo analogue:
+    rows/bytes ready plus per-column NDV and null fractions, and the
+    rows/bytes-per-second velocity the reference's SamplerExec streams,
+    `sampler.rs:30-42`)."""
+
+    rows: int
+    bytes: int
+    ndv: dict = field(default_factory=dict)  # column -> distinct estimate
+    null_frac: dict = field(default_factory=dict)  # column -> null fraction
+    rows_per_s: float = 0.0
+    bytes_per_s: float = 0.0
+    #: producer-coverage extrapolation factor for PARTIAL-sample freezes
+    #: (total/done). Applied once to the group-key TUPLE product in
+    #: resize_for_inputs — per-column application would compound it.
+    ndv_scale: float = 1.0
+
+
+class ColumnStreamSampler:
+    """Incremental per-column NDV/null sampler over IN-FLIGHT stage output
+    (chunks on the streaming plane, task outputs on the bulk plane) — the
+    mid-stage half of the reference's SamplerExec: statistics exist while
+    the stage is still producing, so the consumer's sizing decision
+    (partial-sample freeze) can use real column shapes instead of
+    post-materialization measurement."""
+
+    def __init__(self, sample_limit: int = 100_000):
+        import time
+
+        self.sample_limit = sample_limit
+        self.seen: dict = {}
+        self.nulls: dict = {}
+        self.sampled = 0
+        self.rows = 0
+        self._t0 = time.perf_counter()
+
+    def observe(self, table: Table) -> None:
+        from datafusion_distributed_tpu_torch.schema import DataType
+
+        n = host_rows(table)
+        self.rows += n
+        if self.sampled >= self.sample_limit or n == 0:
+            return
+        take = min(n, self.sample_limit - self.sampled)
+        host = host_prefix(table, take)  # one transfer for every column
+        for name, col, (vals, mask) in zip(table.names, table.columns, host):
+            if mask is not None:
+                self.nulls[name] = self.nulls.get(name, 0) + int(
+                    (~mask).sum()
+                )
+                vals = vals[mask]
+            s = self.seen.setdefault(name, set())
+            if col.dtype == DataType.STRING and col.dictionary is not None:
+                # distinct VALUES, not dictionary codes: in-flight chunks
+                # from different producers carry different dictionaries
+                # (unified only later, at concat) — their code spaces
+                # overlap, and a code-based union would under-count NDV
+                # badly enough to size consumers into guaranteed overflow
+                decoded = col.dictionary.decode(vals.astype(np.int64))
+                s.update(v for v in decoded.tolist() if v is not None)
+            else:
+                s.update(np.unique(vals).tolist())
+        self.sampled += take
+
+    def load_info(self, rows: int, width: int,
+                  ndv_scale: float = 1.0) -> LoadInfo:
+        """``ndv_scale`` records the producer-coverage factor (total/done)
+        of a PARTIAL-sample freeze. Observed per-column NDVs stay RAW; the
+        scale is applied ONCE to the group-key TUPLE estimate by
+        resize_for_inputs — shuffle outputs are hash-partitioned by that
+        tuple, so unseen producers contribute DISJOINT tuples and the
+        observed count understates the total by the coverage factor
+        (q11 at SF0.1: 815 distinct seen in 2/8 producers vs 3,940 true —
+        2048 slots sized from the raw count overflowed on every retry).
+        Scaling each column independently would compound the factor across
+        multi-key groups (coverage^n_keys) and inflate non-key columns."""
+        import time
+
+        elapsed = max(time.perf_counter() - self._t0, 1e-9)
+        return LoadInfo(
+            rows=rows,
+            bytes=rows * width,
+            ndv={k: len(v) for k, v in self.seen.items()},
+            null_frac={
+                k: self.nulls.get(k, 0) / max(self.sampled, 1)
+                for k in self.seen
+            },
+            rows_per_s=self.rows / elapsed,
+            bytes_per_s=self.rows * width / elapsed,
+            ndv_scale=max(ndv_scale, 1.0),
+        )
+
+
+def collect_load_info(tables: list[Table], sample_limit: int = 100_000) -> LoadInfo:
+    """Exact rows/bytes; NDV/null%% from a bounded sample (the reference
+    samples 20%% and short-circuits, `prepare_dynamic_plan.rs:206-331`).
+    One sampling implementation serves both the post-materialization path
+    (here) and the mid-stream path (`ColumnStreamSampler` fed by in-flight
+    chunks)."""
+    rows = sum(read_rows(tables))
+    if not tables:
+        return LoadInfo(0, 0)
+    width = row_width(tables[0].schema())
+    sampler = ColumnStreamSampler(sample_limit)
+    for t in tables:
+        sampler.observe(t)
+    return sampler.load_info(rows, width)
+
+
+class SamplerExec(ExecutionPlan):
+    """Pass-through that records rows/bytes as per-node metrics at a stage
+    head (the stand-in for the reference's batch-peeking SamplerExec)."""
+
+    def __init__(self, child: ExecutionPlan):
+        super().__init__()
+        self.child = child
+
+    def children(self):
+        return [self.child]
+
+    def with_new_children(self, children):
+        return SamplerExec(children[0])
+
+    def schema(self):
+        return self.child.schema()
+
+    def output_capacity(self):
+        return self.child.output_capacity()
+
+    def _execute(self, ctx: ExecContext) -> Table:
+        t = self.child.execute(ctx)
+        ctx.record_metric(self, "sampled_rows", t.num_rows)
+        ctx.record_metric(
+            self, "sampled_bytes", t.num_rows * row_width(t.schema())
+        )
+        return t
+
+    def display(self):
+        return "Sampler"
+
+
+def resize_for_inputs(
+    plan: ExecutionPlan,
+    input_info: LoadInfo,
+    skew_headroom: float = 2.0,
+) -> ExecutionPlan:
+    """Re-size capacity knobs of a consumer stage given its actual input
+    statistics (the adaptive `inject_network_boundaries`-with-real-stats
+    analogue). Only nodes BELOW the next exchange boundary are touched."""
+
+    def walk(node: ExecutionPlan) -> ExecutionPlan:
+        if getattr(node, "is_exchange", False):
+            return node  # next stage's problem
+        children = [walk(c) for c in node.children()]
+        node = node.with_new_children(children) if children else node
+        if isinstance(node, HashAggregateExec) and node.group_names:
+            # NDV of a derived/renamed group column isn't in the LoadInfo;
+            # the exact input row count is always a safe upper bound
+            ndv = 1
+            for g in node.group_names:
+                ndv *= max(
+                    input_info.ndv.get(g, max(input_info.rows, 1)), 1
+                )
+            # partial-sample freezes undercount the group tuple by the
+            # producer-coverage factor (hash-partitioned on this tuple →
+            # disjoint across producers); applied ONCE here, not per column
+            ndv *= max(getattr(input_info, "ndv_scale", 1.0), 1.0)
+            ndv = min(int(ndv), max(input_info.rows, 1))
+            node = HashAggregateExec(
+                node.mode, node.group_names, node.aggs, node.child,
+                num_slots=round_up_pow2(
+                    max(int(ndv * skew_headroom), 16)
+                ),
+            )
+        elif isinstance(node, HashJoinExec):
+            # honor the node's expansion_factor: it encodes the planner's
+            # fanout knowledge AND the overflow-retry's 4x widening — with
+            # a bare skew_headroom the retry loop replans wider and this
+            # resize immediately shrinks back to the same overflowing
+            # capacity (observed: q95's order-number self-join never
+            # converged in adaptive mode)
+            from datafusion_distributed_tpu_torch.plan.joins import (
+                _MAX_DERIVED_JOIN_CAPACITY,
+            )
+
+            grow = max(skew_headroom, node.expansion_factor)
+            # same derived-capacity ceiling as the constructor: widened
+            # retry factors must not demand terabyte buffers
+            ceiling = max(
+                _MAX_DERIVED_JOIN_CAPACITY,
+                round_up_pow2(max(int(input_info.rows), 8)),
+            )
+            node = HashJoinExec(
+                node.probe, node.build, node.probe_keys, node.build_keys,
+                node.join_type, node.residual,
+                out_capacity=min(round_up_pow2(
+                    max(int(input_info.rows * grow), 16)
+                ), ceiling),
+                num_slots=node.num_slots,
+                mark_name=node.mark_name,
+                expansion_factor=node.expansion_factor,
+                null_aware=node.null_aware,
+            )
+        return node
+
+    return walk(plan)
+
+
+def insert_samplers(plan: ExecutionPlan) -> ExecutionPlan:
+    """Put a SamplerExec directly under every exchange boundary (the
+    reference inserts them at stage heads, `network_boundary.rs
+    insert_sampler`)."""
+
+    def walk(node: ExecutionPlan) -> ExecutionPlan:
+        children = [walk(c) for c in node.children()]
+        node = node.with_new_children(children) if children else node
+        if getattr(node, "is_exchange", False):
+            inner = node.children()[0]
+            if not isinstance(inner, SamplerExec):
+                node = node.with_new_children([SamplerExec(inner)])
+        return node
+
+    return walk(plan)

@@ -1,51 +1,304 @@
-"""Planner-side adaptivity hooks (port of the planner's part of the
-reference `runtime/adaptivity.py`).
+"""Closed-loop runtime adaptivity: react mid-query when reality diverges
+from the planner's estimate.
 
-The distributed planner notes here what it decided: joins fused into
-multiway stages, the shuffles that fusion deleted, and aggregates planned
-as one global hash table. Each note adds to a process-wide counter of the
-reference's name. The reference also logs an event and exports the
-counters through its telemetry registry; both come with the runtime tiers
-(ROADMAP A.5). Counters are process-wide: read them as deltas.
+The planner predicts (sampled NDV -> predicted exchange bytes) and the
+runtime measures (per-stage rows/bytes spans, predicted-vs-measured
+counters); this module holds the shared policy for the three decision
+points that *react*:
+
+- **skew-aware shuffle splitting** — when one materialized partition
+  exceeds ``skew_split_factor`` x the median, the coordinator splits the
+  hot task into contiguous row-range views so sibling workers share the
+  hot key's rows (grounding: *Chasing Similarity*'s distribution-aware
+  placement). Contiguous sub-ranges preserve the producer-major,
+  within-producer-stable row order of ``_shuffle_regroup``, so results
+  stay byte-identical.
+- **self-correcting partial aggregation** — the pushed-down partial
+  operator is probed on its first task; when the measured reduction
+  ratio exceeds ``partial_agg_bailout_ratio`` (i.e. the sampled-NDV
+  prediction was wrong and the partial barely reduces), remaining tasks
+  swap the partial for a per-row passthrough that emits identical
+  partial-state columns (grounding: *Partial Partial Aggregates*'
+  adaptive bail-out).
+- **mid-query replanning** — when a completed stage's measured output
+  cardinality diverges from ``StageDagNode.est_rows`` by
+  ``replan_cardinality_factor``, the coordinator re-costs the
+  not-yet-dispatched downstream stages and re-orders the ready backlog
+  by corrected bytes (scheduling only — plan structure, and therefore
+  bytes, are untouched), re-verifying affected exchanges first.
+
+Everything here runs on the coordinator host after stage outputs
+materialize — never inside traced code — and none of the knobs are
+trace-relevant (see runtime/worker.py TRACE_RELEVANT_CONFIG_KEYS), so
+toggling them compiles nothing.
 """
 
 from __future__ import annotations
 
-import threading
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+from datafusion_distributed_tpu_torch.runtime.eventlog import log_event
+from datafusion_distributed_tpu_torch.runtime.telemetry import DEFAULT_REGISTRY
 
 __all__ = [
-    "counter",
+    "AdaptivitySettings",
+    "SkewReport",
+    "detect_skew",
+    "split_ranges",
+    "note_skew_split",
+    "note_partial_agg_bailout",
+    "note_replan",
     "note_multiway_fusion",
+    "note_multiway_bailout",
     "note_global_agg_selected",
+    "counter",
 ]
 
-_COUNTERS = {
-    "dftpu_joins_fused": 0,
-    "dftpu_exchanges_deleted": 0,
-    "dftpu_global_agg_selected": 0,
-}
-_LOCK = threading.Lock()
+
+@dataclass(frozen=True)
+class AdaptivitySettings:
+    """Runtime-adaptivity knobs, parsed from coordinator config options
+    (set via ``SET skew_split_factor = ...`` etc.). A value of 0 disables
+    that adaptation path; defaults keep every path armed but inert on
+    small inputs (``skew_split_min_rows`` floors the split trigger so
+    unit-test-sized partitions never split)."""
+
+    skew_split_factor: float = 4.0
+    skew_split_min_rows: int = 1024
+    partial_agg_bailout_ratio: float = 0.95
+    replan_cardinality_factor: float = 8.0
+
+    @classmethod
+    def from_options(cls, options) -> "AdaptivitySettings":
+        def _num(key, default, cast):
+            try:
+                v = cast(options.get(key, default))
+            except (TypeError, ValueError):
+                return default
+            return v if v >= 0 else default
+
+        options = options or {}
+        return cls(
+            skew_split_factor=_num("skew_split_factor", 4.0, float),
+            skew_split_min_rows=_num("skew_split_min_rows", 1024, int),
+            partial_agg_bailout_ratio=_num(
+                "partial_agg_bailout_ratio", 0.95, float
+            ),
+            replan_cardinality_factor=_num(
+                "replan_cardinality_factor", 8.0, float
+            ),
+        )
+
+    @property
+    def skew_enabled(self) -> bool:
+        return self.skew_split_factor > 0
+
+    @property
+    def bailout_enabled(self) -> bool:
+        return self.partial_agg_bailout_ratio > 0
+
+    @property
+    def replan_enabled(self) -> bool:
+        return self.replan_cardinality_factor > 0
 
 
-def _count(name: str, amount: int = 1) -> None:
-    with _LOCK:
-        _COUNTERS[name] += int(amount)
+@dataclass(frozen=True)
+class SkewReport:
+    """One hot partition: ``rows`` is ``ratio`` x the median."""
+
+    partition: int
+    rows: int
+    median: float
+    ratio: float
+
+
+def detect_skew(
+    counts: Sequence[int], factor: float, min_rows: int
+) -> Optional[SkewReport]:
+    """The single hottest partition iff it exceeds ``factor`` x the
+    median row count AND carries at least ``min_rows`` rows. One report
+    per call: splitting the hottest task first is the biggest win, and
+    the next dispatch re-detects if a second partition still qualifies."""
+    if factor <= 0 or len(counts) < 2:
+        return None
+    ordered = sorted(int(c) for c in counts)
+    mid = len(ordered) // 2
+    median = (
+        float(ordered[mid])
+        if len(ordered) % 2
+        else (ordered[mid - 1] + ordered[mid]) / 2.0
+    )
+    hot = max(range(len(counts)), key=lambda i: int(counts[i]))
+    rows = int(counts[hot])
+    if rows < max(int(min_rows), 1):
+        return None
+    # an all-hot input (median ~ max) is load, not skew
+    if median > 0 and rows / median < factor:
+        return None
+    if median <= 0 and rows < max(int(min_rows), 1):
+        return None
+    return SkewReport(
+        partition=hot,
+        rows=rows,
+        median=median,
+        ratio=rows / median if median > 0 else float("inf"),
+    )
+
+
+def split_ranges(rows: int, parts: int) -> list:
+    """``parts`` contiguous ``(start, count)`` ranges covering
+    ``[0, rows)``, each non-empty, remainder spread over the leading
+    ranges. Contiguity is what keeps the split byte-identical: the
+    concatenation of the sub-ranges IS the original task's row order."""
+    parts = max(1, min(int(parts), max(int(rows), 1)))
+    base, extra = divmod(int(rows), parts)
+    out, start = [], 0
+    for i in range(parts):
+        count = base + (1 if i < extra else 0)
+        out.append((start, count))
+        start += count
+    return out
+
+
+def _count(name: str, help_text: str, amount: int = 1) -> None:
+    # telemetry must never fail a query: swallow registry clashes the
+    # same way runtime/coordinator.py does for its exchange counters
+    try:
+        DEFAULT_REGISTRY.counter(name, help_text).inc(amount)
+    except Exception:
+        pass
+
+
+# eager family registration: scrapes and the telemetry goldens see the
+# three adaptivity counters at 0 before any adaptation ever fires (the
+# note_* helpers then inc the same families)
+_count("dftpu_skew_splits",
+       "hot shuffle partitions split into row-range sub-tasks", 0)
+_count("dftpu_partial_agg_bailouts",
+       "pushed-down partial aggregations bailed out to passthrough", 0)
+_count("dftpu_replans",
+       "mid-query re-cost/re-order passes over undispatched stages", 0)
+_count("dftpu_joins_fused",
+       "binary hash joins fused into multiway join stages", 0)
+_count("dftpu_exchanges_deleted",
+       "shuffle exchanges deleted by multiway join fusion", 0)
+_count("dftpu_global_agg_selected",
+       "aggregations planned as one global hash table (high NDV)", 0)
+_count("dftpu_multiway_bailouts",
+       "fused multiway joins bailed back to their binary chains", 0)
 
 
 def counter(name: str) -> int:
-    """The current value of one of the planner's counters."""
-    with _LOCK:
-        return _COUNTERS[name]
+    """The current value of one of the counters above (process-wide: read
+    them as deltas)."""
+    return int(DEFAULT_REGISTRY.counter(name, "").value())
+
+
+def note_skew_split(
+    query_id, stage_id, partition: int, rows: int, subtasks: int,
+    median: float,
+) -> None:
+    _count("dftpu_skew_splits",
+           "hot shuffle partitions split into row-range sub-tasks")
+    try:
+        log_event(
+            "skew_split",
+            query_id=query_id,
+            stage_id=int(stage_id),
+            partition=int(partition),
+            rows=int(rows),
+            subtasks=int(subtasks),
+            median_rows=float(median),
+        )
+    except Exception:
+        pass
+
+
+def note_partial_agg_bailout(
+    query_id, stage_id, rows_in: int, rows_out: int, ratio: float,
+    predicted_rows: int,
+) -> None:
+    _count("dftpu_partial_agg_bailouts",
+           "pushed-down partial aggregations bailed out to passthrough")
+    try:
+        log_event(
+            "partial_agg_bailout",
+            query_id=query_id,
+            stage_id=int(stage_id),
+            rows_in=int(rows_in),
+            rows_out=int(rows_out),
+            ratio=round(float(ratio), 4),
+            predicted_rows=int(predicted_rows),
+        )
+    except Exception:
+        pass
 
 
 def note_multiway_fusion(joins_fused: int, exchanges_deleted: int) -> None:
-    """A fusion pass collapsed ``joins_fused`` binary joins into multiway
-    stages and deleted ``exchanges_deleted`` intermediate shuffles."""
-    _count("dftpu_joins_fused", joins_fused)
-    _count("dftpu_exchanges_deleted", exchanges_deleted)
+    """Planner-side (no query id yet): a fusion pass collapsed
+    ``joins_fused`` binary joins into multiway stages and deleted
+    ``exchanges_deleted`` intermediate shuffles."""
+    _count("dftpu_joins_fused",
+           "binary hash joins fused into multiway join stages",
+           int(joins_fused))
+    _count("dftpu_exchanges_deleted",
+           "shuffle exchanges deleted by multiway join fusion",
+           int(exchanges_deleted))
+    try:
+        log_event(
+            "multiway_fusion",
+            joins_fused=int(joins_fused),
+            exchanges_deleted=int(exchanges_deleted),
+        )
+    except Exception:
+        pass
+
+
+def note_multiway_bailout(
+    query_id, steps: int, measured_rows: int, num_slots: int,
+) -> None:
+    """A fused multiway join was swapped back to its binary chain because
+    a measured build side outgrew the captured table sizing."""
+    _count("dftpu_multiway_bailouts",
+           "fused multiway joins bailed back to their binary chains")
+    try:
+        log_event(
+            "multiway_bailout",
+            query_id=query_id,
+            steps=int(steps),
+            measured_rows=int(measured_rows),
+            num_slots=int(num_slots),
+        )
+    except Exception:
+        pass
 
 
 def note_global_agg_selected() -> None:
-    """An aggregate was planned as one shared global hash table instead of
-    partial + merge (sampled NDV too high for partial states to shrink)."""
-    _count("dftpu_global_agg_selected")
+    """Planner-side: sampled NDV was high enough that the aggregate was
+    planned as one shared global hash table instead of partial+merge."""
+    _count("dftpu_global_agg_selected",
+           "aggregations planned as one global hash table (high NDV)")
+    try:
+        log_event("global_agg_selected")
+    except Exception:
+        pass
+
+
+def note_replan(
+    query_id, stage_id, measured_rows: int, est_rows: int,
+    rescaled_stages: int,
+) -> None:
+    _count("dftpu_replans",
+           "mid-query re-cost/re-order passes over undispatched stages")
+    try:
+        log_event(
+            "replan",
+            query_id=query_id,
+            stage_id=int(stage_id),
+            measured_rows=int(measured_rows),
+            est_rows=int(est_rows),
+            rescaled_stages=int(rescaled_stages),
+        )
+    except Exception:
+        pass

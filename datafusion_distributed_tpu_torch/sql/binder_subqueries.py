@@ -65,8 +65,25 @@ class ScalarSubqueryExpr(pe.PhysicalExpr):
         )
 
     def output_field(self, schema):
+        if self.logical is None:  # a constant decoded off the wire
+            return Field("__scalar_subquery", self.resolved[1], True)
         f = self.logical.schema().fields[0]
         return Field("__scalar_subquery", f.dtype, True)
+
+    @classmethod
+    def resolved_constant(cls, value, dtype) -> "ScalarSubqueryExpr":
+        """A subquery already executed, as the coordinator's plan codec
+        ships it: its value and dtype, fingerprinted like the original
+        (plan/fingerprint.py "subqlit"), so a worker's decoded plan keeps
+        the coordinator's fingerprint."""
+        from datafusion_distributed_tpu_torch.sql.planner import (
+            _make_scalar_eval,
+        )
+
+        e = cls(None)
+        e.evaluate = _make_scalar_eval(value, dtype)
+        e.resolved = (value, dtype)
+        return e
 
     def display(self):
         return "(scalar subquery)"

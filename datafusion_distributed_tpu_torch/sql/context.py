@@ -137,15 +137,21 @@ class Catalog:
 class SessionConfig:
     planner: PlannerConfig = None  # type: ignore[assignment]
     overflow_retries: int = 3
-    # `SET distributed.<key> = <value>` values are kept for the later
-    # slices that read them; nothing in the single-node path does
+    # `SET distributed.<key> = <value>`: the staged planner reads the
+    # planning knobs, the coordinator the runtime ones
+    # (runtime/coordinator.py FAULT_TOLERANCE_DEFAULTS)
     distributed_options: dict = None  # type: ignore[assignment]
+    # user headers forwarded verbatim to workers (auth etc.; the
+    # passthrough_headers analogue)
+    passthrough_headers: dict = None  # type: ignore[assignment]
 
     def __post_init__(self):
         if self.planner is None:
             self.planner = PlannerConfig()
         if self.distributed_options is None:
             self.distributed_options = {}
+        if self.passthrough_headers is None:
+            self.passthrough_headers = {}
 
     def set_option(self, name: str, value) -> None:
         scope, _, key = name.partition(".")
@@ -373,14 +379,18 @@ class DataFrame:
     # -- the staged (distributed) plan ---------------------------------------
     def distributed_plan(self, num_tasks: int = 8, config=None,
                          planner_config: Optional[PlannerConfig] = None,
-                         executing: bool = False):
+                         executing: bool = False, coordinator=None):
         """The staged plan for ``num_tasks`` tasks, verified and cached per
         session. ``config`` (a DistributedConfig) defaults to the session's
         `SET distributed.*` options. ``executing`` marks the plan that
         `collect_distributed_table` runs: its scalar subqueries run through
         the same staged path, it is verified for a program over
         ``num_tasks`` tasks, and it is cached apart from the plan that
-        EXPLAIN renders (the reference's mesh and mesh-less entries)."""
+        EXPLAIN renders (the reference's mesh and mesh-less entries).
+        With ``coordinator`` (`collect_coordinated_table`) the scalar
+        subqueries run through that coordinator instead: f32 sums are only
+        bitwise-reproducible under an identical task split (TPC-H q15
+        compares them for equality)."""
         from datafusion_distributed_tpu_torch.plan.verify import (
             enforce_verification,
         )
@@ -413,7 +423,8 @@ class DataFrame:
             mesh_axis_size=cfg.num_tasks if executing else None,
             context="distributed plan",
         )
-        key = ("dist", cfg_key, self._pcfg_key(pcfg), executing)
+        key = ("dist", cfg_key, self._pcfg_key(pcfg), executing,
+               coordinator is not None)
         plan = self._plan_cache_get(key)
         if plan is not None:
             enforce_verification(plan, **verify_kw)
@@ -422,6 +433,12 @@ class DataFrame:
         if executing:
             def subquery_executor(p):
                 return execute_tasks(distribute_plan(p, cfg), cfg.num_tasks)
+        elif coordinator is not None:
+            # plans shipped to workers must be self-contained, and the
+            # subquery runs through the same distributed path as the
+            # outer query
+            def subquery_executor(p):
+                return coordinator.execute(distribute_plan(p, cfg))
 
         planner = PhysicalPlanner(self.ctx.catalog, pcfg, subquery_executor)
         plan = distribute_plan(planner.plan(self.logical), cfg)
@@ -472,6 +489,93 @@ class DataFrame:
         return table_to_arrow(
             self._strip_quals(self.collect_distributed_table(num_tasks))
         )
+
+    def collect_coordinated_table(
+        self,
+        coordinator=None,
+        num_workers: int = 2,
+        num_tasks: int = 4,
+        adaptive: bool = False,
+    ) -> Table:
+        """Execute through the in-process Coordinator/Worker runtime
+        (runtime/coordinator.py) instead of the one-process task executor.
+        With no ``coordinator`` an in-memory cluster of ``num_workers`` is
+        spun up — the reference's InMemoryChannelResolver rung its whole
+        TPC suite runs on. ``adaptive=True`` uses the AdaptiveCoordinator.
+        Every stage task runs on the session's device. Overflow -> re-plan
+        with widened capacities, like `collect_table`. The result cache
+        (`SET distributed.result_cache`) is not ported (ROADMAP A.5)."""
+        from datafusion_distributed_tpu_torch.runtime.coordinator import (
+            AdaptiveCoordinator,
+            Coordinator,
+            InMemoryCluster,
+        )
+
+        if self.ctx.config.distributed_options.get("result_cache"):
+            raise NotImplementedError(
+                "the result cache (distributed.result_cache) is not "
+                "ported: ROADMAP A.5"
+            )
+        if coordinator is None:
+            cluster = InMemoryCluster(num_workers)
+            cls = AdaptiveCoordinator if adaptive else Coordinator
+            coordinator = cls(
+                resolver=cluster, channels=cluster,
+                config_options=self.ctx.config.distributed_snapshot(),
+                passthrough_headers=dict(self.ctx.config.passthrough_headers),
+            )
+        pcfg = self.ctx.config.planner
+        dcfg = self._seeded_host_config(num_tasks)
+        last_err: Optional[Exception] = None
+        adaptive_coord = hasattr(coordinator, "pin_overflow_headroom")
+        try:
+            for attempt in range(self.ctx.config.overflow_retries + 1):
+                if adaptive_coord and attempt:
+                    # widen-and-pin for the retry: subquery successes
+                    # through the same coordinator must not reset the
+                    # widened headroom mid-attempt
+                    coordinator.pin_overflow_headroom(attempt)
+                try:
+                    plan = self.distributed_plan(
+                        num_tasks, dcfg, pcfg, coordinator=coordinator
+                    )
+                    _overflow_retry_guard(plan, attempt, last_err)
+                    out = coordinator.execute(plan)
+                    self.last_retry_count = attempt
+                    return out
+                except RuntimeError as e:
+                    if isinstance(e, OverflowRetryAbandoned):
+                        raise
+                    if "overflow" not in str(e):
+                        raise
+                    last_err = e
+                    pcfg, dcfg = _widen_for_overflow(
+                        pcfg, dcfg, e,
+                        force_all=attempt
+                        >= self.ctx.config.overflow_retries - 1,
+                    )
+            raise last_err  # type: ignore[misc]
+        finally:
+            if adaptive_coord:
+                coordinator.release_overflow_headroom()
+
+    def collect_coordinated(self, **kw):
+        """`collect_coordinated_table` -> pyarrow Table."""
+        from datafusion_distributed_tpu_torch.io.parquet import table_to_arrow
+
+        return table_to_arrow(
+            self._strip_quals(self.collect_coordinated_table(**kw))
+        )
+
+    def _seeded_host_config(self, num_tasks: int):
+        """Like _seeded_distributed_config, but for the coordinator tier,
+        where task counts are real scheduling units: bytes-based sizing is
+        on by default (SET distributed.size_tasks_to_data=false opts
+        out)."""
+        cfg = self._seeded_distributed_config(num_tasks)
+        if "size_tasks_to_data" not in self.ctx.config.distributed_options:
+            cfg = replace(cfg, size_tasks_to_data=True)
+        return cfg
 
     def _seeded_distributed_config(self, num_tasks: int):
         """DistributedConfig honoring the session's `SET distributed.*`
@@ -653,6 +757,18 @@ class SessionContext:
             raise ValueError("no SQL statements in input")
         return result
 
+    def last_trace(self):
+        """The reference's Chrome trace of the last traced query: not
+        ported (ROADMAP A.5)."""
+        raise NotImplementedError(
+            "ctx.last_trace() is not ported: ROADMAP A.5")
+
+    def last_trace_profile(self) -> str:
+        """The reference's text profile of the last traced query: not
+        ported (ROADMAP A.5)."""
+        raise NotImplementedError(
+            "ctx.last_trace_profile() is not ported: ROADMAP A.5")
+
     def prepare(self, template: str) -> "PreparedStatement":
         """Prepared-statement API: ``ctx.prepare("... where x < $1")`` -> a
         PreparedStatement whose ``execute(params)`` bindings share one
@@ -817,6 +933,22 @@ class PreparedStatement:
     def execute(self, params=None, **kw):
         """Single-process execution -> pyarrow Table."""
         return self.to_df(params, **kw).collect()
+
+    def execute_coordinated(self, params=None, coordinator=None,
+                            num_workers: int = 2, num_tasks: int = 4,
+                            **kw):
+        """Coordinator/worker execution -> pyarrow Table."""
+        return self.to_df(params, **kw).collect_coordinated(
+            coordinator=coordinator, num_workers=num_workers,
+            num_tasks=num_tasks,
+        )
+
+    def submit(self, session, params=None, priority: int = 0, **kw):
+        """Submitting to a serving session is ROADMAP A.5."""
+        raise NotImplementedError(
+            "PreparedStatement.submit (the serving tier) is not ported: "
+            "ROADMAP A.5"
+        )
 
     def warm(self, params=None, **kw) -> "PreparedStatement":
         """Run the first execution now. -> self, for chaining."""

@@ -1,7 +1,9 @@
 """On the card: each CUDA hash-table kernel equals its plain PyTorch version
 bit for bit (chip_smoke.py repeats this at main-path shapes), and the
 exchange data plane (parallel/exchange.py) gives every consumer task the
-same table on the card as on the CPU, byte for byte.
+same table on the card as on the CPU, byte for byte. The coordinator's
+regroup does too, a coordinated query copies no column data to the host,
+and the kernels' launch counters stay exact under threads.
 
 This file imports neither jax nor the JAX package, so it also runs where
 they are absent, as on a machine with the card:
@@ -307,3 +309,116 @@ def test_data_plane_cuda_equals_cpu(dev, name, num_tasks):
             assert (ca.validity is None) == (cb.validity is None)
             if cb.validity is not None:
                 assert torch.equal(ca.validity.cpu(), cb.validity)
+
+
+def _live_bytes(table) -> list:
+    """Each column's live rows (and validity) as host bytes."""
+    n = int(table.num_rows)
+    out = []
+    for c in table.columns:
+        out.append(c.data[:n].cpu().numpy().tobytes())
+        out.append(None if c.validity is None
+                   else c.validity[:n].cpu().numpy().tobytes())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_copy, exact",
+                         [(True, False), (True, True), (False, False)])
+def test_regroup_cuda_equals_cpu(dev, zero_copy, exact):
+    """The coordinator's shuffle regroup on the card equals the CPU's byte
+    for byte (live rows, row counts, capacities), on the view plane and
+    on the copying plane."""
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        _shuffle_regroup,
+    )
+
+    got = _shuffle_regroup(_exchange_tables(dev, 4, 5), ["k", "s"], 3, 64,
+                           zero_copy=zero_copy, exact=exact)
+    ref = _shuffle_regroup(_exchange_tables("cpu", 4, 5), ["k", "s"], 3, 64,
+                           zero_copy=zero_copy, exact=exact)
+    copying = _shuffle_regroup(_exchange_tables("cpu", 4, 5), ["k", "s"], 3,
+                               64, zero_copy=False)
+    assert len(got) == len(ref) == 3
+    for a, b, c in zip(got, ref, copying):
+        assert a.device.type == "cuda"
+        assert a.names == b.names and a.capacity == b.capacity
+        assert int(a.num_rows) == int(b.num_rows) == int(c.num_rows)
+        assert _live_bytes(a) == _live_bytes(b) == _live_bytes(c)
+
+
+@pytest.mark.cuda
+def test_coordinated_query_moves_no_column_data_to_the_host(dev):
+    """A coordinated TPC-H query on the card copies no column data to the
+    host on the in-process planes: with the static coordinator its
+    device-to-host bytes stay far below the tables' bytes (row counts and
+    flags only; the adaptive coordinator also copies its column sampler's
+    bounded sample). Static and adaptive, it equals the CPU's result."""
+    import json
+    import tempfile
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from datafusion_distributed_tpu_torch.data import tpchgen
+    from datafusion_distributed_tpu_torch.sql.context import SessionContext
+
+    sql = (Path(__file__).resolve().parent.parent / "benchmarks" / "queries"
+           / "tpch" / "q3.sql").read_text()
+    gpu, cpu = SessionContext(device="cuda"), SessionContext(device="cpu")
+    for ctx in (gpu, cpu):
+        tpchgen.register_tpch(ctx, 0.01, 7)
+    table_bytes = sum(
+        c.data.nbytes for t in gpu.catalog.tables.values()
+        for c in getattr(t, "columns", ()))
+    for adaptive in (False, True):
+        gpu.sql(sql).collect_coordinated_table(num_workers=4, num_tasks=4,
+                                               adaptive=adaptive)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = gpu.sql(sql).collect_coordinated_table(
+                num_workers=4, num_tasks=4, adaptive=adaptive)
+            torch.cuda.synchronize()
+        path = Path(tempfile.mkdtemp()) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        d2h = sum(int(e.get("args", {}).get("bytes", 0)) for e in events
+                  if e.get("cat") == "gpu_memcpy"
+                  and "DtoH" in e.get("name", ""))
+        assert out.device.type == "cuda"
+        assert adaptive or d2h < table_bytes / 20, (d2h, table_bytes)
+        ref = cpu.sql(sql).collect_coordinated_table(
+            num_workers=4, num_tasks=4, adaptive=adaptive)
+        a, b = out.to_numpy(), ref.to_numpy()
+        assert list(a) == list(b)
+        for k in a:
+            if a[k].dtype.kind == "f":
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-4)
+            else:
+                assert a[k].tolist() == b[k].tolist(), k
+
+
+@pytest.mark.cuda
+def test_launch_counts_exact_under_threads(dev):
+    """Kernel 1 launched from 8 threads at once: the launch counter and
+    the per-shape count are exact (the coordinator runs tasks on
+    threads)."""
+    import threading
+
+    _rng, keys, slot0, live, h = _inputs(dev, n=4096, h=1 << 12)
+    per_thread = 25
+    hk.reset_launch_counts()
+    start = threading.Barrier(8)
+
+    def run():
+        start.wait()
+        for _ in range(per_thread):
+            hk.build_group_ids(keys, slot0, live, h)
+
+    threads = [threading.Thread(target=run) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["build_group_ids"] == 8 * per_thread
+    assert hk.BUILD_SHAPES == {(4096, 2, h): 8 * per_thread}

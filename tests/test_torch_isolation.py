@@ -1,8 +1,10 @@
 """The port stands alone: it imports neither jax nor the reference package,
 runs a TPC-H query, a window query, a prepared-statement binding, a
-ClickBench query, a one-task staged plan with a fused multiway join and the
-same plan over four tasks (runtime/mesh_executor.py, its exchanges) on the
-CPU when asked to, and refuses to start without a CUDA device otherwise."""
+ClickBench query, a one-task staged plan with a fused multiway join, the
+same plan over four tasks (runtime/mesh_executor.py, its exchanges) and
+through the coordinator over four in-memory workers, static and adaptive
+(runtime/coordinator.py and the runtime modules it loads), on the CPU when
+asked to, and refuses to start without a CUDA device otherwise."""
 
 import os
 import re
@@ -60,6 +62,18 @@ _SCRIPT = textwrap.dedent("""
     assert four["n"].tobytes() == staged["n"].tobytes()
     assert "datafusion_distributed_tpu_torch.runtime.mesh_executor" in \
         sys.modules
+    for adaptive in (False, True):
+        coord = ctx.sql(star).collect_coordinated_table(
+            num_workers=4, num_tasks=4, adaptive=adaptive).to_numpy()
+        assert coord["n"].tobytes() == staged["n"].tobytes()
+    import importlib
+    for m in ("errors", "leakcheck", "eventlog", "telemetry", "tracing",
+              "metrics", "health", "codec", "worker", "streams", "peer",
+              "adaptivity", "coordinator"):
+        importlib.import_module("datafusion_distributed_tpu_torch.runtime."
+                                + m)
+    importlib.import_module("datafusion_distributed_tpu_torch.planner."
+                            "adaptive")
     assert "verification:" in ctx.sql("EXPLAIN VERIFY " + star)
     loaded = sorted(m for m in sys.modules
                     if m == "datafusion_distributed_tpu"
