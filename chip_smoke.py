@@ -45,16 +45,32 @@ Phases, each of which must pass:
    against "cpu" (a CPU subprocess that runs meanwhile).
 10. coordinator — the 22 queries, S1 and S2 through
    collect_coordinated_table(num_tasks=4) over InMemoryCluster(4), with
-   Coordinator and AdaptiveCoordinator, twice each: byte-identical runs,
-   each equal to single-node (warm seconds against single-node and
+   Coordinator at SF 1 and AdaptiveCoordinator at SF 0.1, twice each:
+   byte-identical runs, each equal to single-node (warm seconds against single-node and
    against collect_distributed_table(4), sync calls, device-to-host bytes,
    peak memory, retries and the plane of every exchange, per query); q3,
    q5, q18 and q21 under each data-plane knob at SF 0.1 (on the bulk
-   plane q21 does not fit the card at SF 1), byte-identical; kernels 1
+   plane q21 does not fit the card at SF 1), byte-identical; the
+   device-to-host copies of q2 and q3 by Python call stack, on a session
+   whose planner statistics are cold and again once they are cached;
+   kernels 1
    and 2 at every shape the coordinated runs logged, against their plain
    versions; at SF 0.01 both coordinators on "cuda" against "cpu" (a CPU
    subprocess that runs meanwhile).
-11. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
+11. serving — TPC-H SF 1 through ServingSession over InMemoryCluster(4)
+   at 4 tasks: each query served alone (admission estimate, measured
+   peak staged bytes, allocator peak); a closed loop of 8 clients (client
+   0 q21, the others q1 and q6, 2 queries each) serialized, FIFO and fair
+   share (queries/s, cheap and heavy p50/p99, queue wait, peaks), every
+   result byte-identical to the sequential coordinated run; the result
+   cache off and on over 32 seeded Poisson arrivals of q1 and three q6
+   variants (hit rate, p99; a hit is the cold run's table); a prepared
+   q6 through PreparedStatement.submit; q18 and q21 under a worker memory
+   budget below their peak (spill count and bytes, byte-identical); q3
+   killed at its root stage and recover()ed from its checkpoints; kernels
+   1 and 2 at every logged shape; at SF 0.01 five served queries on
+   "cuda" against "cpu" (a CPU subprocess that runs meanwhile).
+12. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
    import): the `hits` table at its published 99,997,497 rows, seed 3, all
    43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
    kernels 1 and 2 at every shape that run gave them (group builds on
@@ -1569,12 +1585,17 @@ COORD_KNOBS = {
     "stage_parallelism=1": {"stage_parallelism": 1},
 }
 COORD_KERNELS = ("build_group_ids", "multiway_probe")
-#: queries the adaptive coordinator runs at a smaller scale, and why: its
-#: sizing gives each of the 4 concurrent tasks of q21's join stage the
-#: capacities of the whole stage's rows (the reference's resize_for_inputs
-#: from the stage's merged LoadInfo), which at SF 1 peaks past the card's
-#: 80 GB (80.84 GB when it failed); 4 workers share one card here
-COORD_ADAPTIVE_CUT = {"q21": 0.1}
+#: the scale of the adaptive coordinator's pass, and why: its sizing gives
+#: each of the 4 concurrent tasks of q21's join stage the capacities of the
+#: whole stage's rows (the reference's resize_for_inputs from the stage's
+#: merged LoadInfo), which at SF 1 peaks past the card's 80 GB (80.84 GB
+#: when it failed; 4 workers share one card here); and the whole pass runs
+#: at this scale to leave the run's time to the serving phase
+COORD_ADAPTIVE_SF = 0.1
+#: the queries whose device-to-host copies are traced to their Python
+#: call stacks (the copies of ~5 MB a query that static coordinated runs
+#: of these showed)
+COORD_D2H_TRACED = ("q2", "q3")
 COORD_CPU_TIMEOUT_S = 600
 
 
@@ -1681,6 +1702,83 @@ def _log_d2h_event() -> None:
                 f"{[a for a in dir(e) if not a.startswith('_')]}")
 
 
+def _sync_stacks(fn) -> tuple:
+    """(fn(), where its synchronizing calls come from): the call runs under
+    PyTorch's sync debug mode, and each warning's Python stack is taken
+    where it is raised (in the thread that made the call), grouped by the
+    port's and this script's innermost frames. A device-to-host copy is
+    such a call. (The profiler's op events, with_stack=True, carried no
+    Python frames for these copies on the card.) -> (result,
+    [{"frames", "syncs"}]), most first."""
+    import threading
+    import traceback
+    import warnings
+
+    import torch
+
+    def ours(frames) -> tuple:
+        return tuple(
+            f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in frames
+            if ("datafusion_distributed_tpu_torch" in f.filename
+                or "chip_smoke" in f.filename) and f.name != "hook")[-6:]
+
+    lock = threading.Lock()
+    syncs: dict = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        key = ours(traceback.extract_stack())
+        with lock:
+            syncs[key] = syncs.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [{"frames": list(k), "syncs": v} for k, v in
+                 sorted(syncs.items(), key=lambda kv: -kv[1])]
+
+
+class _NdvSamples:
+    """Counts the planner statistics' host samples while active: each
+    column whose distinct count `Catalog.column_ndv` computes (not cached)
+    copies a strided sample of up to 2^20 values (and its null mask) to
+    the host. -> ``samples``: [(table, column, bytes)]."""
+
+    def __enter__(self):
+        from datafusion_distributed_tpu_torch.sql import context
+
+        self.catalog = context.Catalog
+        self.original = original = context.Catalog.column_ndv
+        self.samples: list = []
+        samples = self.samples
+
+        def column_ndv(cat, table, column):
+            t = cat.tables.get(table.lower())
+            cold = (table.lower(), column) not in cat._ndv_cache
+            if cold and t is not None and column in t:
+                total = int(t.num_rows)
+                n = min(total, 1 << 20)
+                stride = max(1, total // max(n, 1))
+                rows = len(range(0, total, stride)[:n])
+                col = t.column(column)
+                nbytes = rows * col.data.element_size() + (
+                    rows if col.validity is not None else 0)
+                samples.append((table, column, nbytes))
+            return original(cat, table, column)
+
+        self.catalog.column_ndv = column_ndv
+        return self
+
+    def __exit__(self, *exc):
+        self.catalog.column_ndv = self.original
+
+
 def coord_cpu_worker(sf: float, out_path: str) -> int:
     """The CPU's coordinated results of the 24 queries at SF ``sf``,
     static and adaptive, pickled: the coordinator phase holds the card's
@@ -1703,9 +1801,10 @@ def coord_cpu_worker(sf: float, out_path: str) -> int:
 
 
 def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
-    """1. The 22 queries, S1 and S2 through collect_coordinated_table(
+    """0. q2 and q3's device-to-host copies by call stack (COORD_D2H_TRACED).
+    1. The 22 queries, S1 and S2 through collect_coordinated_table(
     num_tasks=4) over InMemoryCluster(4), with Coordinator and then
-    AdaptiveCoordinator, twice each: the runs byte-identical, each equal to
+    AdaptiveCoordinator (at SF COORD_ADAPTIVE_SF), twice each: the runs byte-identical, each equal to
     the same session's collect_table (sorted rows where ORDER BY leaves
     ties). Kernel launches are counted from 0 over each coordinator's
     second run. Per query: warm seconds against single-node and against
@@ -1736,17 +1835,38 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
          str(check_sf), "--out", str(cpu_out)], stdout=subprocess.DEVNULL)
 
     ctx = _session("cuda", sf, seed)
-    cut = {q: _session("cuda", at, seed)
-           for q, at in COORD_ADAPTIVE_CUT.items()}
+    cut = _session("cuda", COORD_ADAPTIVE_SF, seed)
     cluster = InMemoryCluster(COORD_WORKERS)
     per_query: dict = {q: {} for q, _ in queries}
 
     def session(q, adaptive):
-        return cut[q] if adaptive and q in cut else ctx
+        return cut if adaptive else ctx
 
     runs: dict = {}
     by_mode: dict = {}
     _log_d2h_event()
+    # what copies ~5 MB to the host in the first static run of q2 and q3:
+    # each query on a fresh session (cold planner statistics, as in the
+    # measured run below), its synchronizing calls' stacks, the
+    # statistics' samples, then the device-to-host bytes (the profiler's
+    # CUDA memcpy activity) with cold statistics and once they are cached
+    d2h: dict = {}
+    for q, sql in _queries(COORD_D2H_TRACED):
+        fresh = _session("cuda", sf, seed)
+        with _NdvSamples() as ndv:
+            _out, sync_stacks = _sync_stacks(
+                lambda: _coordinated(fresh, sql, False, cluster)[0])
+        _out, cold = _measured(lambda: _coordinated(
+            _session("cuda", sf, seed), sql, False, cluster)[0])
+        _out, warm = _measured(lambda: _coordinated(
+            fresh, sql, False, cluster)[0])
+        d2h[q] = {"sync_stacks": sync_stacks, "ndv_samples": ndv.samples,
+                  "ndv_sample_bytes": sum(b for _t, _c, b in ndv.samples),
+                  "cold_d2h_bytes": cold["d2h_bytes"],
+                  "warm_d2h_bytes": warm["d2h_bytes"]}
+        log(f"[coordinator] {q} device-to-host copies by call stack: "
+            f"{d2h[q]}")
+        del fresh
     for mode, adaptive in (("static", False), ("adaptive", True)):
         # run 1, measured: sync calls and device-to-host copies
         first: dict = {}
@@ -1795,9 +1915,8 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
         per_query[q].update({f"single_{k}": v for k, v in meas.items()})
         for mode in ("static", "adaptive"):
             base = single
-            if mode == "adaptive" and q in cut:
-                base = _run(cut[q], sql)
-                per_query[q]["adaptive_sf"] = COORD_ADAPTIVE_CUT[q]
+            if mode == "adaptive":
+                base = _run(cut, sql)
             diff, tied = _close_or_ties(runs[mode][q], base, rtol)
             check(diff == "", f"{q}: {mode} coordinated and single-node "
                   f"results differ in {diff}")
@@ -1863,7 +1982,8 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
         return sum(v[key] for v in per_query.values())
 
     return {
-        "queries": per_query, "ties": ties, "knobs": knobs,
+        "queries": per_query, "ties": ties, "knobs": knobs, "d2h": d2h,
+        "adaptive_sf": COORD_ADAPTIVE_SF,
         "launches": by_mode["static"]["launches"],
         "adaptive_launches": by_mode["adaptive"]["launches"],
         "build_shapes": by_mode["static"]["build_shapes"],
@@ -1887,7 +2007,518 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: ClickBench in x64 mode, in a subprocess
+# phase 11: the serving tier
+# ---------------------------------------------------------------------------
+
+SERVING_WORKERS = 4
+SERVING_TASKS = 4
+#: the closed loop (the JAX package's serving bench, bench.py): 8 clients,
+#: 2 queries each; client 0 runs the heavy query, the others alternate
+#: the cheap ones
+SERVING_CLIENTS = 8
+SERVING_ITERS = 2
+SERVING_HEAVY = "q21"
+SERVING_CHEAP = ("q1", "q6")
+SERVING_ARMS = {
+    "serialized": {"max_concurrent_queries": 1, "fair_share": True},
+    "fifo": {"max_concurrent_queries": SERVING_CLIENTS, "fair_share": False},
+    "fair_share": {"max_concurrent_queries": SERVING_CLIENTS,
+                   "fair_share": True},
+}
+#: the result-cache arms: open-loop Poisson arrivals of q1 and three q6
+#: discount variants, the same seeded workload with the cache off and on
+SERVING_BURST_QUERIES = 32
+SERVING_BURST_QPS = 10.0
+SERVING_BURST_SEED = 11
+SERVING_Q6_BINDINGS = ({"qty": 24, "lo": 0.05, "hi": 0.07},
+                       {"qty": 30, "lo": 0.02, "hi": 0.09},
+                       {"qty": 10, "lo": 0.04, "hi": 0.06})
+SERVING_BUDGET_QUERIES = ("q18", "q21")
+SERVING_SOLO = ("q1", "q6", "q21", "q3", "q18")
+SERVING_CHECK_QUERIES = ("q1", "q3", "q6", "q18", "q21")
+#: a handle that does not resolve within this many seconds fails the phase
+SERVING_TIMEOUT_S = 300
+SERVING_CPU_TIMEOUT_S = 600
+
+
+def _pct_ms(walls, q: float):
+    """The q-th percentile of wall seconds in ms (serving.percentile_ms's
+    index rule, unrounded); None if empty."""
+    if not walls:
+        return None
+    v = sorted(walls)
+    return v[min(int(q * len(v)), len(v) - 1)] * 1e3
+
+
+def _serving_leaks(cluster, what: str) -> None:
+    """Every worker's store and task registry empty, no spill file."""
+    for w in cluster.workers.values():
+        st = w.table_store.stats()
+        check(not w.table_store.tables and len(w.registry) == 0
+              and st["spill_files"] == 0,
+              f"{what}: worker {w.url} kept {st['entries']} staged "
+              f"tables, {len(w.registry)} tasks, {st['spill_files']} "
+              "spill files")
+
+
+def _reset_staged_peaks(cluster) -> None:
+    for w in cluster.workers.values():
+        w.table_store.reset_peak()
+
+
+def _staged_peaks(cluster) -> dict:
+    peaks = [w.table_store.stats()["peak_nbytes"]
+             for w in cluster.workers.values()]
+    return {"max_worker": max(peaks), "sum_workers": sum(peaks)}
+
+
+def _served(h) -> dict:
+    """A resolved handle's table as numpy (a handle that times out or
+    failed raises here, failing the phase)."""
+    import torch
+
+    table = h.result_table(timeout=SERVING_TIMEOUT_S)
+    check(table.device.type == "cuda",
+          f"a served query ran on {table.device}")
+    out = table.to_numpy()
+    torch.cuda.synchronize()
+    return out
+
+
+def _closed_loop(ctx, cluster, sqls: dict, arm: dict, seed: int) -> dict:
+    """One closed-loop arm: SERVING_CLIENTS threads, each submitting its
+    workload one query at a time and waiting for each result. -> the
+    arm's numbers and its (query, handle, table) records."""
+    import threading
+
+    import torch
+
+    from datafusion_distributed_tpu_torch.runtime.serving import (
+        ServingSession,
+    )
+
+    def workload(ci):
+        if ci == 0:
+            return [SERVING_HEAVY] * SERVING_ITERS
+        return [SERVING_CHEAP[(ci + i) % 2] for i in range(SERVING_ITERS)]
+
+    records: list = []
+    errors: list = []
+    lock = threading.Lock()
+    _reset_staged_peaks(cluster)
+    torch.cuda.reset_peak_memory_stats()
+    srv = ServingSession(ctx, cluster=cluster, num_tasks=SERVING_TASKS,
+                         seed=seed, **arm)
+
+    def client(ci):
+        try:
+            for q in workload(ci):
+                h = srv.submit(sqls[q])
+                table = h.result_table(timeout=SERVING_TIMEOUT_S)
+                with lock:
+                    records.append((ci, q, h, table))
+        except BaseException as e:  # noqa: BLE001 - checked below
+            with lock:
+                errors.append(f"client {ci}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(ci,), daemon=True)
+               for ci in range(SERVING_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVING_TIMEOUT_S * SERVING_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = srv.stats()
+    srv.close(timeout=SERVING_TIMEOUT_S)
+    check(not errors, f"closed loop {arm}: {errors}")
+    check(not any(t.is_alive() for t in threads),
+          f"closed loop {arm}: a client hung")
+    n = SERVING_CLIENTS * SERVING_ITERS
+    check(len(records) == n, f"closed loop {arm}: {len(records)} of {n}")
+    cheap = [h.finished_s - h.submitted_s for ci, _q, h, _t in records
+             if ci != 0]
+    heavy = [h.finished_s - h.submitted_s for ci, _q, h, _t in records
+             if ci == 0]
+    waits = [h.queue_wait_s() for _ci, _q, h, _t in records]
+    return {
+        "records": records,
+        "wall_s": wall, "queries": n, "qps": n / wall,
+        "cheap_p50_ms": _pct_ms(cheap, 0.50),
+        "cheap_p99_ms": _pct_ms(cheap, 0.99),
+        "heavy_p50_ms": _pct_ms(heavy, 0.50),
+        "heavy_p99_ms": _pct_ms(heavy, 0.99),
+        "queue_wait_mean_ms": 1e3 * sum(waits) / len(waits),
+        "queue_wait_max_ms": 1e3 * max(waits),
+        "peak_staged_bytes": _staged_peaks(cluster),
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "scheduler_peak_in_flight": stats["scheduler"]["peak_in_flight"],
+    }
+
+
+def _burst(ctx, cluster, mix: list, cache_on: bool) -> dict:
+    """The open-loop arm: SERVING_BURST_QUERIES Poisson arrivals (seeded)
+    of ``mix``, the result cache off or on. -> numbers, and the variant
+    index and table of every submission in arrival order."""
+    import random
+
+    import torch
+
+    from datafusion_distributed_tpu_torch.runtime.serving import (
+        ServingSession,
+    )
+
+    opts = ctx.config.distributed_options
+    opts["result_cache"] = cache_on
+    rng = random.Random(SERVING_BURST_SEED)
+    workload = [rng.randrange(len(mix)) for _ in range(SERVING_BURST_QUERIES)]
+    srv = ServingSession(ctx, cluster=cluster, num_tasks=SERVING_TASKS,
+                         max_concurrent_queries=SERVING_CLIENTS,
+                         fair_share=True)
+    handles = []
+    t0 = time.perf_counter()
+    try:
+        for i in workload:
+            handles.append((i, srv.submit(mix[i])))
+            time.sleep(rng.expovariate(SERVING_BURST_QPS))
+        tables = [(i, h.result_table(timeout=SERVING_TIMEOUT_S))
+                  for i, h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rc = (srv.stats().get("result_cache") or {}) if cache_on else {}
+    finally:
+        srv.close(timeout=SERVING_TIMEOUT_S)
+        opts.pop("result_cache", None)
+    walls = [h.finished_s - h.submitted_s for _i, h in handles]
+    return {
+        "tables": tables,
+        "wall_s": wall, "queries": len(handles),
+        "p50_ms": _pct_ms(walls, 0.50), "p99_ms": _pct_ms(walls, 0.99),
+        "hit_rate": rc.get("hit_rate"), "hits": rc.get("hits"),
+        "misses": rc.get("misses"), "fills": rc.get("fills"),
+        "cache_hits_fast_path": sum(h._cache_hit for _i, h in handles),
+    }
+
+
+def serving_cpu_worker(sf: float, out_path: str) -> int:
+    """The CPU's served results of SERVING_CHECK_QUERIES at SF ``sf``,
+    submitted at once to one ServingSession over InMemoryCluster(4),
+    pickled: the serving phase holds the card's against them."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.serving import (
+        ServingSession,
+    )
+
+    torch.set_num_threads(4)
+    ctx = _session("cpu", sf, SEED)
+    sqls = dict(_queries(SERVING_CHECK_QUERIES))
+    with ServingSession(ctx, cluster=InMemoryCluster(SERVING_WORKERS),
+                        num_tasks=SERVING_TASKS) as srv:
+        handles = {q: srv.submit(s) for q, s in sqls.items()}
+        out = {q: h.result_table(timeout=SERVING_TIMEOUT_S).to_numpy()
+               for q, h in handles.items()}
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def phase_serving(sf: float, check_sf: float, seed: int) -> dict:
+    """The serving tier on the card: TPC-H SF ``sf`` through
+    ServingSession(ctx, cluster=InMemoryCluster(4), num_tasks=4).
+
+    1. Each query of SERVING_SOLO through
+    collect_coordinated_table(num_tasks=4) (the byte-identity baseline),
+    then served alone: its admission estimate, measured peak staged bytes
+    and the allocator's peak.
+    2. The closed loop in three arms (serialized, FIFO, fair share):
+    queries/s, p50 and p99 of the cheap and the heavy queries, queue wait,
+    peak staged bytes, peak device memory; every result byte-identical to
+    its baseline; no staged slice left. Launches are counted from 0 over
+    the fair-share arm.
+    3. The result cache: the same seeded open-loop workload with the
+    cache off and on (hit rate, p50, p99); a hit returns the cold run's
+    table itself; every result byte-identical to the cache-off run of its
+    variant. A prepared q6 through PreparedStatement.submit, three
+    bindings, each equal to its execute().
+    4. q18 and q21 under a worker memory budget of half the smaller of
+    their unconstrained peak staged bytes: spill engages (count, bytes),
+    results byte-identical, no spill file and no staged slice left.
+    5. q3 killed at its root stage with a CheckpointStore, then recover()
+    on a fresh ServingSession over the same workers: stages restore, the
+    result equals q3's, the store drains to 0 staged bytes.
+    6. Kernels 1 and 2 at every build and probe shape the phase logged,
+    bit for bit against their plain versions.
+    7. At SF ``check_sf`` SERVING_CHECK_QUERIES served on the card against
+    the CPU (a subprocess that runs meanwhile)."""
+    cpu_out = Path(tempfile.mkdtemp()) / "serving_cpu.pkl"
+    cpu_worker = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--serving-cpu-worker", str(check_sf), "--out", str(cpu_out)],
+        stdout=subprocess.DEVNULL)
+    try:
+        return _serving_phase(sf, check_sf, seed, cpu_worker, cpu_out)
+    finally:
+        if cpu_worker.poll() is None:
+            cpu_worker.kill()
+            cpu_worker.wait()
+
+
+def _serving_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.runtime import chaos
+    from datafusion_distributed_tpu_torch.runtime.checkpoint import (
+        CheckpointStore,
+    )
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.serving import (
+        ServingSession,
+    )
+
+    rtol = precision.test_rtol()
+    t_phase = time.perf_counter()
+    out: dict = {}
+    ctx = _session("cuda", sf, seed)
+    sqls = dict(_queries(sorted(set(SERVING_SOLO) | {"q3"})))
+    hk.reset_launch_counts()
+    shapes_before: dict = {"build": {}, "probe": {}}
+
+    # --- 1. baselines, and each query served alone ------------------------
+    base: dict = {}
+    solo: dict = {}
+    cluster = InMemoryCluster(SERVING_WORKERS)
+    for q in SERVING_SOLO:
+        base[q], _coord, _df = _coordinated(ctx, sqls[q], False, cluster)
+    with ServingSession(ctx, cluster=cluster, num_tasks=SERVING_TASKS,
+                        max_concurrent_queries=1) as srv:
+        for q in SERVING_SOLO:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            h = srv.submit(sqls[q])
+            got = _served(h)
+            solo[q] = {"s": time.perf_counter() - t0,
+                       "est_bytes": h.est_bytes,
+                       "peak_staged_bytes": h.peak_staged_bytes,
+                       "max_memory_allocated_gb":
+                           torch.cuda.max_memory_allocated() / 1e9}
+            check(_identical(got, base[q]),
+                  f"{q}: served alone differs from collect_coordinated_table")
+    _serving_leaks(cluster, "solo")
+    out["solo"] = solo
+    log(f"[serving] solo: {solo} ({_since(t_phase)})")
+
+    # --- 2. closed loop ---------------------------------------------------
+    arms: dict = {}
+    for name, arm in SERVING_ARMS.items():
+        if name == "fair_share":
+            shapes_before = {"build": dict(hk.BUILD_SHAPES),
+                             "probe": dict(hk.PROBE_SHAPES)}
+            hk.reset_launch_counts()
+        r = _closed_loop(ctx, cluster, sqls, arm, seed)
+        if name == "fair_share":
+            out["launches"] = dict(hk.LAUNCHES)
+        for _ci, q, _h, table in r.pop("records"):
+            check(_identical(table.to_numpy(), base[q]),
+                  f"{q} in the {name} arm differs from its sequential run")
+        _serving_leaks(cluster, f"the {name} arm")
+        arms[name] = r
+        log(f"[serving] {name}: {r} ({_since(t_phase)})")
+    out["closed_loop"] = arms
+    for k in ("build_group_ids", "multiway_probe"):
+        check(out["launches"][k] > 0,
+              f"kernel {k} was not launched by the served queries")
+
+    # --- 3. result cache, prepared statements ---------------------------
+    q6 = sqls["q6"]
+    check("between 0.05 and 0.07" in q6, "q6's discount range moved")
+    mix = [sqls["q1"]] + [q6.replace("between 0.05", f"between 0.0{d}")
+                          for d in (4, 5, 6)]
+    burst_off = _burst(ctx, cluster, mix, cache_on=False)
+    burst_on = _burst(ctx, cluster, mix, cache_on=True)
+    cold: dict = {}
+    first_on: dict = {}
+    for i, table in burst_off.pop("tables"):
+        cold.setdefault(i, table.to_numpy())
+        check(_identical(table.to_numpy(), cold[i]),
+              f"variant {i}: two cache-off runs differ")
+    for i, table in burst_on.pop("tables"):
+        first_on.setdefault(i, table)
+        check(table is first_on[i], f"variant {i}: a cache hit did not "
+              "return the cold run's table")
+        check(_identical(table.to_numpy(), cold[i]),
+              f"variant {i}: cached result differs from the cache-off run")
+    variants = [cold[i]["revenue"].tobytes() for i in sorted(cold) if i]
+    check(len(set(variants)) == len(variants),
+          "two q6 discount variants gave the same rows")
+    check(_identical(cold[0], base["q1"]), "q1 in the burst differs")
+    check(burst_on["hits"] and burst_on["hit_rate"] > 0,
+          f"no result-cache hit: {burst_on}")
+    rc = ctx._result_cache
+    if rc is not None:
+        rc.clear()
+    _serving_leaks(cluster, "the result-cache arms")
+    out["cache"] = {"off": burst_off, "on": burst_on}
+    log(f"[serving] result cache off {burst_off}, on {burst_on} "
+        f"({_since(t_phase)})")
+    template = (q6.replace("< 24", "< $qty")
+                .replace("between 0.05 and 0.07", "between $lo and $hi"))
+    stmt = ctx.prepare(template)
+    prepared = []
+    with ServingSession(ctx, cluster=cluster, num_tasks=SERVING_TASKS) as srv:
+        handles = [stmt.submit(srv, b) for b in SERVING_Q6_BINDINGS]
+        for b, h in zip(SERVING_Q6_BINDINGS, handles):
+            got = h.result(timeout=SERVING_TIMEOUT_S)
+            want = stmt.execute(b)
+            diff = _close({c: got.column(c).to_numpy() for c in got.schema.names},
+                          {c: want.column(c).to_numpy()
+                           for c in want.schema.names}, rtol)
+            check(diff == "", f"prepared q6 {b}: submit and execute "
+                  f"differ in {diff}")
+            prepared.append(float(got.column("revenue")[0].as_py()))
+    check(len(set(prepared)) == 3, f"prepared bindings {prepared}")
+    _serving_leaks(cluster, "prepared q6")
+    out["prepared_q6"] = prepared
+
+    # --- 4. a worker memory budget ----------------------------------------
+    budget_cluster = InMemoryCluster(SERVING_WORKERS)
+    peaks = {}
+    for q in SERVING_BUDGET_QUERIES:
+        _reset_staged_peaks(budget_cluster)
+        with ServingSession(ctx, cluster=budget_cluster,
+                            num_tasks=SERVING_TASKS) as srv:
+            check(_identical(_served(srv.submit(sqls[q])), base[q]),
+                  f"{q}: unconstrained served run differs")
+        peaks[q] = _staged_peaks(budget_cluster)["max_worker"]
+    budget = min(peaks.values()) // 2
+    opts = ctx.config.distributed_options
+    opts["worker_memory_budget_bytes"] = budget
+    opts["worker_memory_redline"] = 0  # spill only: no load shedding
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with ServingSession(ctx, cluster=budget_cluster,
+                            num_tasks=SERVING_TASKS) as srv:
+            handles = {q: srv.submit(sqls[q]) for q in SERVING_BUDGET_QUERIES}
+            for q, h in handles.items():
+                check(_identical(_served(h), base[q]),
+                      f"{q} under a {budget} B worker budget differs")
+            mem = srv.stats()["memory"]["workers"]
+    finally:
+        opts.pop("worker_memory_budget_bytes", None)
+        opts.pop("worker_memory_redline", None)
+    spill = {k: sum(w.table_store.stats()[k]
+                    for w in budget_cluster.workers.values())
+             for k in ("spills", "refaults", "spilled_total_bytes",
+                       "refaulted_total_bytes")}
+    check(spill["spills"] > 0, f"a {budget} B budget spilled nothing")
+    for w in budget_cluster.workers.values():
+        w.table_store.set_budget(0)
+    _serving_leaks(budget_cluster, "the budget run")
+    out["budget"] = {"unconstrained_peak_bytes": peaks, "budget_bytes": budget,
+                     "s": time.perf_counter() - t0, **spill,
+                     "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "workers": mem}
+    log(f"[serving] budget: {out['budget']} ({_since(t_phase)})")
+
+    # --- 5. recover -------------------------------------------------------
+    store = CheckpointStore()
+    opts.update(max_task_retries=0, peer_shuffle=False)
+    try:
+        crashing = chaos.wrap_cluster(cluster, chaos.FaultPlan(seed, [
+            chaos.FaultSpec(site="execute", kind="crash", stages=[-1],
+                            rate=1.0, max_total=1)]))
+        srv1 = ServingSession(ctx, cluster=crashing, num_tasks=SERVING_TASKS,
+                              checkpoints=store)
+        h1 = srv1.submit(sqls["q3"])
+        failed = False
+        try:
+            h1.result_table(timeout=SERVING_TIMEOUT_S)
+        except Exception as e:  # noqa: BLE001 - the injected crash
+            failed = "injected worker crash" in str(e)
+        srv1.close(timeout=SERVING_TIMEOUT_S)
+        check(failed, "q3 did not fail at its root stage")
+        saved = store.stats()
+        check(saved["recoverable"] == 1 and saved["stages"] >= 1,
+              f"nothing checkpointed: {saved}")
+        opts.pop("max_task_retries", None)
+        srv2 = ServingSession(ctx, cluster=cluster, num_tasks=SERVING_TASKS,
+                              checkpoints=store)
+        handles = srv2.recover()
+        check(len(handles) == 1, f"recover() gave {len(handles)} handles")
+        got = _served(handles[0])
+        faults = srv2.faults.as_dict()
+        srv2.close(timeout=SERVING_TIMEOUT_S)
+    finally:
+        opts.pop("max_task_retries", None)
+        opts.pop("peer_shuffle", None)
+    check(faults.get("checkpoint_stages_restored", 0) >= 1,
+          f"recover() restored no stage: {faults}")
+    check(_identical(got, base["q3"]), "recovered q3 differs from q3")
+    drained = store.stats()
+    check(drained["staged_bytes"] == 0 and drained["recoverable"] == 0,
+          f"the checkpoint store kept {drained}")
+    _serving_leaks(cluster, "recover")
+    out["recover"] = {"saved": saved, "faults": faults, "drained": drained}
+    log(f"[serving] recover: {out['recover']} ({_since(t_phase)})")
+    del ctx
+    torch.cuda.empty_cache()
+
+    # --- 6. every logged shape against the plain version ----------------
+    builds = dict(shapes_before["build"])
+    for k, c in hk.BUILD_SHAPES.items():
+        builds[k] = builds.get(k, 0) + c
+    probes = dict(shapes_before["probe"])
+    for k, c in hk.PROBE_SHAPES.items():
+        probes[k] = probes.get(k, 0) + c
+    dev = torch.device("cuda")
+    out["kernel_checks"] = {
+        "build_group_ids": build_shape_checks(
+            [[n, lanes, h, c] for (n, lanes, h), c in builds.items()], dev,
+            "serving"),
+        "multiway_probe": probe_shape_checks(
+            [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
+             in probes.items()], dev, "serving"),
+    }
+    out["build_shapes"] = len(builds)
+    out["probe_shapes"] = len(probes)
+    log(f"[serving] {len(builds)} build and {len(probes)} probe shapes "
+        f"checked ({_since(t_phase)})")
+
+    # --- 7. card against CPU ------------------------------------------------
+    gpu = _session("cuda", check_sf, seed)
+    with ServingSession(gpu, cluster=InMemoryCluster(SERVING_WORKERS),
+                        num_tasks=SERVING_TASKS) as srv:
+        handles = {q: srv.submit(s)
+                   for q, s in _queries(SERVING_CHECK_QUERIES)}
+        card = {q: _served(h) for q, h in handles.items()}
+    check(cpu_worker.wait(timeout=SERVING_CPU_TIMEOUT_S) == 0,
+          f"the CPU worker exited {cpu_worker.returncode}")
+    with open(cpu_out, "rb") as f:
+        cpu_results = pickle.load(f)
+    identical = 0
+    for q in SERVING_CHECK_QUERIES:
+        diff = _close(card[q], cpu_results[q], rtol)
+        check(diff == "", f"{q} served: cuda and cpu differ in {diff}")
+        identical += _identical(card[q], cpu_results[q])
+    out["card_cpu_identical"] = identical
+    log(f"[serving] SF {check_sf}: {len(SERVING_CHECK_QUERIES)} served "
+        f"queries equal on cuda and cpu, {identical} byte for byte "
+        f"({_since(t_phase)})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: ClickBench in x64 mode, in a subprocess
 # ---------------------------------------------------------------------------
 
 CLICKBENCH_ROWS = 99_997_497  # ClickBench's `hits` table
@@ -2329,7 +2960,8 @@ REPS = 5  # timed calls per kernel, after one warm-up
 SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
-          "window", "distributed", "tasks", "coordinator", "clickbench")
+          "window", "distributed", "tasks", "coordinator", "serving",
+          "clickbench")
 CLICKBENCH_TIMEOUT_S = 800
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -2348,6 +2980,8 @@ def main(argv=None) -> int:
                     metavar="SF", help=argparse.SUPPRESS)
     ap.add_argument("--coord-cpu-worker", type=float, default=None,
                     metavar="SF", help=argparse.SUPPRESS)
+    ap.add_argument("--serving-cpu-worker", type=float, default=None,
+                    metavar="SF", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2364,6 +2998,8 @@ def main(argv=None) -> int:
         return tasks_cpu_worker(args.tasks_cpu_worker, args.out)
     if args.coord_cpu_worker is not None:
         return coord_cpu_worker(args.coord_cpu_worker, args.out)
+    if args.serving_cpu_worker is not None:
+        return serving_cpu_worker(args.serving_cpu_worker, args.out)
     if args.clickbench_worker:
         try:
             return clickbench_worker(args.out)
@@ -2412,6 +3048,8 @@ def main(argv=None) -> int:
             elif phase == "coordinator":
                 results["coordinator"] = phase_coordinator(
                     SF, CHECK_SF, QUERIES, SEED)
+            elif phase == "serving":
+                results["serving"] = phase_serving(SF, CHECK_SF, SEED)
             else:
                 results["clickbench"] = phase_clickbench(CLICKBENCH_TIMEOUT_S)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
@@ -2438,11 +3076,12 @@ def main(argv=None) -> int:
              "staged_t1": ("distributed",), "staged_t8": ("tasks",),
              "coordinated": ("coordinator",),
              "coordinated_adaptive": ("coordinator",),
+             "serving": ("serving",),
              "clickbench_x64": ("clickbench",),
              "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
                     for phase in ("distributed", "tasks", "coordinator",
-                                  "clickbench")]
+                                  "serving", "clickbench")]
     shape_checks.append(results.get("clickbench", {}).get("t8", {})
                         .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
@@ -2512,6 +3151,22 @@ def main(argv=None) -> int:
         d = results["coordinator"]
         print(json.dumps({"coordinator": {
             **d["summary"], "peak_gb": d["peak_gb"], "ties": d["ties"],
+            "card_cpu_identical": d["card_cpu_identical"]}}))
+    if "serving" in results:
+        d = results["serving"]
+        print(json.dumps({"serving": {
+            "closed_loop": {arm: {k: v for k, v in r.items()
+                                  if k != "peak_staged_bytes"}
+                            for arm, r in d["closed_loop"].items()},
+            "cache": {arm: {k: r[k] for k in ("p50_ms", "p99_ms",
+                                              "hit_rate", "wall_s")}
+                      for arm, r in d["cache"].items()},
+            "budget": {k: d["budget"][k] for k in (
+                "budget_bytes", "spills", "spilled_total_bytes",
+                "refaults", "s")},
+            "recover_restored":
+                d["recover"]["faults"].get("checkpoint_stages_restored"),
+            "launches": d["launches"],
             "card_cpu_identical": d["card_cpu_identical"]}}))
     if "clickbench" in results:
         cb = results["clickbench"]

@@ -527,3 +527,19 @@ def prepare_plan(plan) -> PreparedPlan:
     except AttributeError:
         pass
     return prep
+
+
+def result_cache_key(plan, extra=()) -> Optional[tuple]:
+    """Whole-result cache key for a STAGED plan (runtime/
+    result_cache.py): (post-hoist structural fingerprint, hoisted
+    int/float literal vectors) + ``extra`` (the session appends its
+    PlannerConfig snapshot, catalog generation, and task profile).
+    Literal variants of one template share the structural fingerprint
+    and differ only in the parameter vectors — each variant keys its
+    own entry with its own result. None when the plan has no content
+    address (Unfingerprintable nodes): such plans are never cached."""
+    prep = prepare_plan(plan)
+    if prep.fingerprint is None:
+        return None
+    return ("rc", prep.fingerprint, prep.int_params,
+            prep.float_params) + tuple(extra)

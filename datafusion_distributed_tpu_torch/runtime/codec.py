@@ -14,8 +14,9 @@ analogue, `src/protobuf/user_codec.rs`).
 Port of the reference `runtime/codec.py`. In process, staged tables stay on
 the device they were made on and are shared by reference; only
 `encode_table`/`encode_table_adaptive` (Arrow IPC, for bytes that leave the
-process) copy columns to the host. The store does not spill: an enforced
-worker memory budget raises NotImplementedError (ROADMAP A.5).
+process) copy columns to the host — and the spill segment
+(runtime/spill.py), which an enforced worker memory budget writes the
+coldest staged entries to.
 """
 
 from __future__ import annotations
@@ -77,22 +78,50 @@ def _table_nbytes(table) -> int:
     return table_nbytes(table)
 
 
+def _spill_event(name: str, tid: str, nbytes: int) -> None:
+    """Structured spill/refault trace event (runtime/eventlog.py) —
+    best-effort: observability must never fail the staging path."""
+    try:
+        from datafusion_distributed_tpu_torch.runtime.eventlog import log_event
+
+        log_event(name, table_id=tid, nbytes=int(nbytes))
+    except Exception:
+        pass
+
+
 class _EntryMeta:
     """Accounting record of one store entry. ``base`` is None for an entry
     that OWNS its buffers (counted once in the store's byte total) and the
     owning entry's id for a view/alias (shares buffers, counted zero);
-    ``refs`` counts the aliases of an owning entry; ``owner_query`` is the
-    query id staging attribution captured at insert."""
+    ``refs`` counts the aliases of an owning entry. ``spilled`` holds the
+    entry's on-disk SpillSlot while its buffers live in the host spill
+    segment (runtime/spill.py) instead of memory; ``owner_query`` is the
+    query id staging attribution captured at insert (the serving tier's
+    estimate-vs-measured loop reads per-query peaks from it)."""
 
-    __slots__ = ("nbytes", "base", "refs", "owner_query")
+    __slots__ = ("nbytes", "base", "refs", "spilled", "owner_query")
 
     def __init__(self, nbytes: int, base: Optional[str] = None,
                  owner_query: Optional[str] = None):
         self.nbytes = int(nbytes)
         self.base = base
         self.refs = 0
+        self.spilled = None
         self.owner_query = owner_query
 
+
+class _SpilledSentinel:
+    """Placeholder value a spilled entry's table id maps to: the entry is
+    LIVE (it still counts as staged, releases normally, leaks if leaked)
+    but its buffers are on disk until `get` refaults them."""
+
+    __slots__ = ()
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return "<spilled>"
+
+
+_SPILLED = _SpilledSentinel()
 
 #: staging-attribution context (thread-local): while set, owned bytes
 #: inserted into ANY TableStore on this thread are attributed to the
@@ -208,7 +237,7 @@ class TableStore:
       while aliases remain promotes an alias (refcounted release, never a
       copy).
     - ``put_view``/``get_slice`` expose row-range VIEWS of a staged entry
-      (numpy views of the same buffers via ops.table.slice_view) so
+      (views of the same buffers via ops.table.slice_view) so
       per-destination slices and chunk streams reference one staged buffer.
     - Thread-safe: serving-tier threads and stage-DAG fan-out threads
       mutate one worker store concurrently; every mutation (including the
@@ -218,9 +247,17 @@ class TableStore:
       service's actual-staged-bytes surface, and the recorded entry sizes
       (`entry_nbytes`) are what dispatch encode spans attribute, so store
       accounting and trace bytes can never disagree.
-    - Not budget-enforced: the reference spills past a worker memory
-      budget (runtime/spill.py); here a budget raises NotImplementedError
-      (ROADMAP A.5)."""
+    - Budget-ENFORCED: when ``budget_bytes`` is set (constructor,
+      `set_budget`, the `DFTPU_WORKER_MEM_BUDGET` env, or the
+      `distributed.worker_memory_budget_bytes` knob shipped with task
+      configs), staging past the budget spills the coldest unreferenced
+      owned entries to a host-disk segment (runtime/spill.py) and `get`
+      refaults them transparently — byte-exact, original capacity
+      preserved. Entries pinned by views/aliases are unspillable (their
+      buffers are shared); `under_pressure()` reports residency still
+      over budget after spilling, which is what the stream planes'
+      producer backpressure keys on. Spill/refault file I/O always runs
+      OUTSIDE the store lock."""
 
     def __init__(self, budget_bytes: Optional[int] = None) -> None:
         self._lock = threading.RLock()
@@ -234,12 +271,23 @@ class TableStore:
         self.peak_nbytes = 0  # guarded-by: _lock
         self.put_count = 0  # guarded-by: _lock
         self.dedup_hits = 0  # guarded-by: _lock
+        # -- enforced memory budget (0 = unlimited) --------------------------
         if budget_bytes is None:
             import os
 
-            budget_bytes = os.environ.get("DFTPU_WORKER_MEM_BUDGET", "0")
-        self.set_budget(budget_bytes)
-        # -- per-query staging attribution (logical demand) ------------------
+            try:
+                budget_bytes = int(float(
+                    os.environ.get("DFTPU_WORKER_MEM_BUDGET", "0")
+                ))
+            except (TypeError, ValueError):
+                budget_bytes = 0
+        self.budget_bytes = max(int(budget_bytes or 0), 0)  # guarded-by: _lock
+        self._spill = None  # SpillManager, lazy  # guarded-by: _lock
+        self._spilling: set = set()  # tids mid-spill  # guarded-by: _lock
+        self.spilled_nbytes = 0  # live bytes in the segment  # guarded-by: _lock
+        self.spill_count = 0  # guarded-by: _lock
+        self.refault_count = 0  # guarded-by: _lock
+        # -- per-query staging attribution (logical demand, spill-blind) ----
         self._query_bytes: dict[str, int] = {}  # guarded-by: _lock; per-query: bounded 512
         self._query_peak: dict[str, int] = {}  # guarded-by: _lock; per-query: bounded 512
 
@@ -271,9 +319,9 @@ class TableStore:
         return tid
 
     def _attr_add_locked(self, meta: _EntryMeta) -> None:
-        """Charge an OWNING insert's logical bytes to its query
-        (attribution measures staging DEMAND, which is what the
-        admission re-cost loop needs). Bounded: a
+        """Charge an OWNING insert's logical bytes to its query (spill-
+        blind: attribution measures staging DEMAND, which is what the
+        admission re-cost loop needs, not residency). Bounded: a
         long-lived worker sheds the oldest query's attribution instead
         of growing per-query dicts forever (sweep_query_attribution is
         the cooperative path)."""
@@ -312,10 +360,21 @@ class TableStore:
             if b is not None:
                 b.refs = max(b.refs - 1, 0)
             return
-        self._owned_nbytes -= meta.nbytes
-        self._attr_sub_locked(meta)
-        if table is not None and self._by_identity.get(id(table)) == tid:
-            del self._by_identity[id(table)]
+        if meta.spilled is not None:
+            # spilled owner: its bytes live in the segment, not the
+            # resident total — release the disk slot instead (unlink,
+            # idempotent, O(1): not a registered blocking call). A view
+            # registered against it in put_view's unlocked window still
+            # promotes below: the view holds its own pre-spill buffers.
+            self.spilled_nbytes -= meta.nbytes
+            self._attr_sub_locked(meta)
+            if self._spill is not None:
+                self._spill.release(meta.spilled)
+        else:
+            self._owned_nbytes -= meta.nbytes
+            self._attr_sub_locked(meta)
+            if table is not None and self._by_identity.get(id(table)) == tid:
+                del self._by_identity[id(table)]
         if meta.refs > 0:
             # views/aliases still reference the buffers: promote the first
             # one to owner so shared staged bytes stay accounted until the
@@ -363,6 +422,7 @@ class TableStore:
                                     nbytes=self._meta[canon].nbytes)
             else:
                 self._insert_locked(tid, table)
+        self.enforce_budget()
         return tid
 
     def put_as(self, tid: str, table: Table) -> str:  # acquires: store-entry (managed)
@@ -370,6 +430,7 @@ class TableStore:
         shipping side minted the id and the plan references it — and the
         checkpoint store's accounted staging surface)."""
         self.tables[tid] = table
+        self.enforce_budget()
         return tid
 
     def put_view(self, base_tid: str, table: Optional[Table] = None,  # acquires: store-entry (managed)
@@ -378,9 +439,11 @@ class TableStore:
         shares the base buffers (zero owned bytes; the base stays pinned by
         refcount until the last view drops). ``table`` may be a view the
         caller already built over the entry's buffers; otherwise rows
-        [lo, lo+count) are sliced here via `get_slice`."""
+        [lo, lo+count) are sliced here via `get_slice`. The base resolves
+        BEFORE the lock is taken: a spilled base refaults in `get`, whose
+        file I/O must never run under the store lock."""
         if table is None:
-            base_table = self.get(base_tid)
+            base_table = self.get(base_tid)  # refaults a spilled base
             if count is None:
                 count = int(base_table.num_rows) - lo
             table = self.get_slice(base_tid, lo, count)
@@ -390,6 +453,11 @@ class TableStore:
                 raise CodecError(
                     f"table {base_tid} not in shipment store"
                 )
+            # the base may have (re-)spilled inside the unlocked window
+            # above: registering the view is still correct — the view
+            # holds its own (pre-spill) buffers, and the spilled-owner
+            # release path promotes surviving views exactly like the
+            # resident path, so nothing leaks accounting either way
             tid = uuid.uuid4().hex
             self.put_count += 1
             self._insert_locked(tid, table, base=canon)
@@ -399,24 +467,167 @@ class TableStore:
         with self._lock:
             if not dict.__contains__(self.tables, tid):
                 raise CodecError(f"table {tid} not in shipment store")
-            return dict.__getitem__(self.tables, tid)
+            val = dict.__getitem__(self.tables, tid)
+            m = self._meta.get(tid)
+            if m is not None:
+                # LRU touch: budget victim selection walks _meta in
+                # order, so a re-read entry moves to the hot end
+                self._meta[tid] = self._meta.pop(tid)
+            if val is not _SPILLED or m is None:
+                return val
+            slot = m.spilled
+        return self._refault(tid, slot)
+
+    def _refault(self, tid: str, slot) -> Table:
+        """Restore a spilled entry's buffers from the segment (file read
+        OUTSIDE the lock) and re-install them; a raced second refault or
+        a raced release both resolve to one consistent winner."""
+        from datafusion_distributed_tpu_torch.runtime.spill import SpillError
+
+        try:
+            table = self._spill_manager().read_spill(slot)
+        except SpillError:
+            # a raced WINNER may have refaulted + released (unlinked)
+            # the slot between our locked read and this open: re-check
+            # under the lock and serve the winner's resident table — the
+            # entry is live and recoverable, never an error. A vanished
+            # ENTRY (raced remove) keeps the not-in-store contract.
+            with self._lock:
+                m = self._meta.get(tid)
+                if m is None:
+                    raise CodecError(
+                        f"table {tid} not in shipment store"
+                    )
+                if dict.__contains__(self.tables, tid):
+                    cur = dict.__getitem__(self.tables, tid)
+                    if cur is not _SPILLED:
+                        return cur
+                new_slot = m.spilled
+            if new_slot is not None and new_slot is not slot:
+                # re-spilled under a fresh slot mid-race: read that one
+                return self._refault(tid, new_slot)
+            raise
+        release_slot = None
+        with self._lock:
+            m = self._meta.get(tid)
+            if m is None or m.spilled is not slot:
+                # released (return the content that was live at call
+                # time) or already refaulted by a sibling (serve theirs)
+                if m is not None and dict.__contains__(self.tables, tid):
+                    cur = dict.__getitem__(self.tables, tid)
+                    if cur is not _SPILLED:
+                        table = cur
+            else:
+                dict.__setitem__(self.tables, tid, table)
+                m.spilled = None
+                self._owned_nbytes += m.nbytes
+                self.peak_nbytes = max(self.peak_nbytes, self._owned_nbytes)
+                self.spilled_nbytes -= m.nbytes
+                self.refault_count += 1
+                self._by_identity.setdefault(id(table), tid)
+                release_slot = slot
+        if release_slot is not None:
+            self._spill.release(release_slot)
+            _spill_event("store_refault", tid,
+                         self.entry_nbytes(tid))
+            # the refault may push residency back over budget: rebalance
+            # by spilling colder entries (never this one — it is now the
+            # hottest by LRU order)
+            self.enforce_budget()
+        return table
+
+    # -- enforced memory budget ---------------------------------------------
+    def _spill_manager(self):
+        with self._lock:
+            if self._spill is None:
+                from datafusion_distributed_tpu_torch.runtime.spill import (
+                    SpillManager,
+                )
+
+                self._spill = SpillManager()
+            return self._spill
 
     def set_budget(self, budget_bytes) -> None:
-        """An enforced byte budget needs spilling, which this port does not
-        have yet: 0/None is accepted, anything else raises."""
+        """Set/replace the enforced byte budget (0/None = unlimited) and
+        rebalance immediately — the chaos `kind="oom"` collapse path."""
         try:
             b = max(int(float(budget_bytes or 0)), 0)
         except (TypeError, ValueError):
             return
-        if b:
-            raise NotImplementedError(
-                "a worker memory budget (TableStore spilling, "
-                "worker_memory_budget_bytes) is not ported: ROADMAP A.5"
-            )
+        with self._lock:
+            self.budget_bytes = b
+        self.enforce_budget()
 
     def under_pressure(self) -> bool:
-        """Never: without a budget there is no producer backpressure."""
-        return False
+        """Residency still over budget AFTER spilling (every remaining
+        entry is pinned by refs or mid-spill): the producer-backpressure
+        signal the stream planes consult."""
+        with self._lock:
+            return bool(self.budget_bytes) and (
+                self._owned_nbytes > self.budget_bytes
+            )
+
+    def enforce_budget(self) -> int:
+        """Spill coldest unreferenced owned entries until resident owned
+        bytes fit the budget; -> bytes spilled. Victims are chosen under
+        the lock; the file WRITE runs outside it, then the
+        entry swaps to the spilled sentinel if it is still live and
+        unchanged. No-op without a budget. A disk failure degrades to an
+        unenforced budget — never a failed staging."""
+        from datafusion_distributed_tpu_torch.runtime.spill import SpillError
+
+        spilled_total = 0
+        while True:
+            with self._lock:
+                if not self.budget_bytes or (
+                    self._owned_nbytes <= self.budget_bytes
+                ):
+                    break
+                victim = next(
+                    (t for t, m in self._meta.items()
+                     if m.base is None and m.spilled is None
+                     and m.refs == 0 and t not in self._spilling
+                     and dict.get(self.tables, t) is not None),
+                    None,
+                )
+                if victim is None:
+                    break  # everything left is pinned: backpressure takes over
+                self._spilling.add(victim)
+                table = dict.__getitem__(self.tables, victim)
+                nbytes = self._meta[victim].nbytes
+            try:
+                slot = self._spill_manager().write_spill(table, nbytes)
+            except SpillError:
+                with self._lock:
+                    self._spilling.discard(victim)
+                break  # disk trouble: leave resident, stop trying
+            with self._lock:
+                self._spilling.discard(victim)
+                m = self._meta.get(victim)
+                live = (
+                    m is not None and m.base is None
+                    and m.spilled is None
+                    and dict.get(self.tables, victim) is table
+                )
+                if not live or m.refs > 0:
+                    # released/replaced/aliased while the write ran: the
+                    # slot is orphaned — drop it (release is idempotent)
+                    release_orphan = slot
+                else:
+                    release_orphan = None
+                    dict.__setitem__(self.tables, victim, _SPILLED)
+                    m.spilled = slot
+                    self._owned_nbytes -= m.nbytes
+                    self.spilled_nbytes += m.nbytes
+                    self.spill_count += 1
+                    spilled_total += m.nbytes
+                    if self._by_identity.get(id(table)) == victim:
+                        del self._by_identity[id(table)]
+            if release_orphan is not None:
+                self._spill.release(release_orphan)
+            else:
+                _spill_event("store_spill", victim, nbytes)
+        return spilled_total
 
     def reset_peak(self) -> int:
         """Reset the high-water mark to the CURRENT residency and return
@@ -430,7 +641,7 @@ class TableStore:
     # -- per-query staging attribution ---------------------------------------
     def query_peak_nbytes(self, query_id: str) -> int:
         """Peak logical bytes this query ever had staged here (demand,
-        ) — the measured side of the admission re-cost loop."""
+        spill-blind) — the measured side of the admission re-cost loop."""
         with self._lock:
             return self._query_peak.get(query_id, 0)
 
@@ -482,7 +693,25 @@ class TableStore:
                 "peak_nbytes": self.peak_nbytes,
                 "puts": self.put_count,
                 "dedup_hits": self.dedup_hits,
+                "budget_bytes": self.budget_bytes,
+                "spilled_nbytes": self.spilled_nbytes,
+                "spills": self.spill_count,
+                "refaults": self.refault_count,
             }
+            spill = self._spill
+        # the spill manager's lock nests AFTER the store lock everywhere
+        # else; reading its counters outside ours keeps the static
+        # order graph a tree
+        if spill is not None:
+            ss = spill.stats()
+            out["spill_files"] = ss["spill_files"]
+            out["spilled_total_bytes"] = ss["spill_bytes"]
+            out["refaulted_total_bytes"] = ss["refault_bytes"]
+        else:
+            out["spill_files"] = 0
+            out["spilled_total_bytes"] = 0
+            out["refaulted_total_bytes"] = 0
+        return out
 
     def telemetry_families(self) -> list:
         """Typed-registry adapter (runtime/telemetry.py): the staged-byte
@@ -511,6 +740,23 @@ class TableStore:
             family("dftpu_store_dedup_hits", "counter",
                    "Identity-dedup hits (zero-byte aliases).",
                    [({}, s["dedup_hits"])]),
+            family("dftpu_store_budget_bytes", "gauge",
+                   "Enforced worker memory budget (0 = unlimited).",
+                   [({}, s["budget_bytes"])]),
+            family("dftpu_store_spilled_bytes", "gauge",
+                   "Live staged bytes resident in the host spill "
+                   "segment instead of memory.",
+                   [({}, s["spilled_nbytes"])]),
+            family("dftpu_store_spills", "counter",
+                   "Entries ever spilled to the host segment.",
+                   [({}, s["spills"])]),
+            family("dftpu_store_refaults", "counter",
+                   "Spilled entries refaulted back on get().",
+                   [({}, s["refaults"])]),
+            family("dftpu_store_spill_files", "gauge",
+                   "Spill files currently on disk (0 once drained — "
+                   "the zero-leak gate's file half).",
+                   [({}, s["spill_files"])]),
         ]
 
 

@@ -21,11 +21,12 @@ Port of the reference `runtime/coordinator.py`, in-process tier. Stage
 outputs stay on the device they were made on: the regroups, range slices,
 modulo slices and chunk views below run there (the reference moves every
 producer's rows through numpy), and each table's live-row count is read to
-the host once (ops/table.py `host_rows`, `read_rows`). Left out, each
-refusing rather than falling back (ROADMAP A.5): hedging, checkpoints, the
-result cache, `DynamicCluster` and the departed-peer healing, mesh-worker
-span dispatch, the serving pool (`stage_pool`), worker memory budgets and
-the shm data plane.
+the host once (ops/table.py `host_rows`, `read_rows`). The serving tier's
+hooks are ported: the global stage pool (`stage_pool`), query checkpoints
+(`checkpoints`), the sub-plan cache (`result_cache`) and the enforced
+worker memory budget. Left out, each refusing rather than falling back:
+hedging, `DynamicCluster` and the departed-peer healing (ROADMAP A.5.2),
+the shm data plane (A.5.3) and mesh-worker span dispatch (A.4).
 """
 
 from __future__ import annotations
@@ -124,7 +125,8 @@ SCHEDULER_DEFAULTS = {
 #: the materialized plane by construction (same chunk order, same
 #: capacity arithmetic). Engages only under the stage-DAG scheduler
 #: (stage_parallelism > 1 — `= 1` keeps the documented pre-scheduler
-#: materialized behavior).
+#: materialized behavior) and only without a checkpointer (checkpoints
+#: snapshot materialized frontiers).
 PIPELINE_DEFAULTS = {
     "pipelined_shuffle": True,
 }
@@ -195,17 +197,15 @@ class InMemoryCluster(WorkerResolver, ChannelResolver):
 
 
 class DynamicCluster(WorkerResolver, ChannelResolver):
-    """Epoch-versioned mutable membership: not ported (ROADMAP A.5)."""
+    """Epoch-versioned mutable membership: not ported (ROADMAP A.5.2)."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DynamicCluster (elastic membership and the departed-peer "
-            "healing) is not ported: ROADMAP A.5"
-        )
+        raise _refuse("DynamicCluster (elastic membership and the "
+                      "departed-peer healing)", "A.5.2")
 
 
-def _refuse(feature: str) -> NotImplementedError:
-    return NotImplementedError(f"{feature} is not ported: ROADMAP A.5")
+def _refuse(feature: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{feature} is not ported: ROADMAP {item}")
 
 
 def _plan_device(plan: ExecutionPlan):
@@ -252,8 +252,12 @@ class Coordinator:
     # renders them as a critical-path summary whose overlap factor
     # (sum stage wall / query wall) proves inter-stage overlap
     stage_metrics: MetricsStore = field(default_factory=MetricsStore)
-    # the serving tier's global stage pool (runtime/serving.py): not
-    # ported, refused at execute (ROADMAP A.5)
+    # -- multi-query serving hooks (runtime/serving.py) ---------------------
+    # external stage scheduler: an object with submit(fn, cost_hint=0) ->
+    # concurrent.futures.Future. When set, stage jobs (and the root stage)
+    # run on the GLOBAL cross-query pool under its fair-share policy
+    # instead of a per-query ThreadPoolExecutor — the generalization of
+    # the per-query stage-DAG scheduler to the whole serving tier
     stage_pool: "object" = None
     # pre-installed per-query cancel event: lets an async QueryHandle
     # cancel a query BEFORE and DURING execute() without racing the
@@ -269,9 +273,17 @@ class Coordinator:
     # `self._tracer` for the execute's duration (NULL_TRACER when
     # `SET distributed.tracing` is off — the always-cheap-when-off path)
     trace_store: "object" = None
-    # checkpoints and the cross-query result cache: not ported, refused
-    # at execute when set (ROADMAP A.5)
+    # per-query checkpoint facade (runtime/checkpoint.py
+    # QueryCheckpointer): when set, every materialized (MemoryScan)
+    # exchange boundary snapshots its consumer slices on completion and
+    # restores them — fingerprint-validated — on a resumed execute
     checkpoints: "object" = None
+    # cross-query result/sub-plan cache (runtime/result_cache.py
+    # ResultCache): when set, materialized exchange boundaries save
+    # their frontier under the subtree's pre-hoist fingerprint and a
+    # LATER query sharing that prefix restores it instead of
+    # re-executing the producer stage (checkpoint restore, which is
+    # intra-query and validates against worker slices, wins first)
     result_cache: "object" = None
     # measured peak staged bytes attributed to this coordinator's
     # executes across the workers' TableStores (harvested by
@@ -336,6 +348,11 @@ class Coordinator:
         # every stage runs on the device of the plan's leaf tables; an
         # empty slice made here takes that device too
         self._device = _plan_device(plan)
+        # push the enforced worker memory budget (when configured) to the
+        # in-process workers BEFORE the first dispatch: dispatch encodes
+        # stage slices into the destination store ahead of set_plan, so
+        # the budget must be live by then
+        self._apply_worker_budgets()
         if self.latency is None:
             self.latency = LatencySketch()
         if self.expected_version is not None:
@@ -388,6 +405,23 @@ class Coordinator:
         # release inside the pull retry loops) lands before the query
         # resolves and the leak gates observe a quiesced store
         self._stream_feeds: list = []
+        # one `query_resumed` event per execute, on the first restore
+        self._resume_traced = False
+        if self.checkpoints is not None:
+            # stamp this execute in the checkpoint session and
+            # fingerprint the pristine exchange subtrees (restore keys)
+            try:
+                self.checkpoints.begin_execute(plan)
+            except Exception:
+                self.checkpoints = None  # never fail the query for it
+        if self.result_cache is not None:
+            # stamp this execute's pre-hoist exchange fingerprints so
+            # boundaries can restore frontiers a PRIOR query produced
+            # (cross-query sub-plan sharing, runtime/result_cache.py)
+            try:
+                self.result_cache.begin_query(query_id, plan)
+            except Exception:
+                self.result_cache = None  # never fail the query for it
         # pin this query's spans against the shared store's LRU for as
         # long as it runs (runtime/metrics.py begin/finish_query)
         self.stage_metrics.begin_query(query_id)
@@ -398,12 +432,24 @@ class Coordinator:
             tracer.trace.root_id = qspan.span_id
         try:
             resolved = self._materialize_exchanges(plan, query_id)
-            # the root stage: a single consumer task
-            r_sub = r_t0 = _time.monotonic()
-            out = self._run_stage_task(
-                resolved, query_id, stage_id=-1, task_number=0,
-                task_count=1,
-            )
+            # the root stage: a single consumer task — routed through the
+            # global serving pool when one is installed, so even a
+            # single-stage query's heavy consumer competes under the
+            # fair-share policy instead of bypassing it on this thread
+            r_sub = _time.monotonic()
+            if self.stage_pool is not None:
+                fut = self.stage_pool.submit(
+                    lambda: (_time.monotonic(), self._run_stage_task(
+                        resolved, query_id, -1, 0, 1
+                    ))
+                )
+                r_t0, out = fut.result()
+            else:
+                r_t0 = r_sub
+                out = self._run_stage_task(
+                    resolved, query_id, stage_id=-1, task_number=0,
+                    task_count=1,
+                )
             r_t1 = _time.monotonic()
             self.stage_metrics.record_stage_span(
                 query_id, -1, r_sub, r_t0, r_t1, plane="root"
@@ -445,24 +491,31 @@ class Coordinator:
         """The reference's default-off tiers this port does not have yet:
         switching one on raises instead of silently taking another path."""
         opts = self.config_options
-        if self.stage_pool is not None:
-            raise _refuse("the serving tier's stage pool (stage_pool)")
-        if self.checkpoints is not None:
-            raise _refuse("query checkpoints (checkpoints)")
-        if self.result_cache is not None:
-            raise _refuse("the cross-query result cache (result_cache)")
-        if parse_bool_knob(opts.get("result_cache", False)):
-            raise _refuse("the result cache (distributed.result_cache)")
         if parse_bool_knob(opts.get("hedging", False)):
-            raise _refuse("straggler hedging (distributed.hedging)")
+            raise _refuse("straggler hedging (distributed.hedging)", "A.5.2")
         if str(opts.get("data_plane", "auto")).lower() == "shm":
-            raise _refuse("the shm data plane (data_plane = shm)")
-        budget = opts.get("worker_memory_budget_bytes")
-        if budget is not None and float(budget or 0) > 0:
-            raise _refuse(
-                "a worker memory budget (TableStore spilling, "
-                "worker_memory_budget_bytes)"
-            )
+            raise _refuse("the shm data plane (data_plane = shm)", "A.5.3")
+
+    def _apply_worker_budgets(self) -> None:
+        """Apply `distributed.worker_memory_budget_bytes` (when present
+        in the session config) to every reachable in-process worker
+        store. Best-effort and idempotent; absent knob leaves env-set
+        budgets untouched."""
+        budget = self.config_options.get("worker_memory_budget_bytes")
+        if budget is None:
+            return
+        try:
+            urls = self.resolver.get_urls()
+        except Exception:
+            return
+        for url in urls:
+            try:
+                store = getattr(self.channels.get_worker(url),
+                                "table_store", None)
+                if store is not None and hasattr(store, "set_budget"):
+                    store.set_budget(budget)
+            except Exception:
+                pass  # a departed worker
 
     def _store_pressure_probe(self):
         """Producer-backpressure probe over the live workers' stores
@@ -549,6 +602,13 @@ class Coordinator:
                 pass  # departed worker: its attribution died with it
         if peak > self.staged_peak_bytes:
             self.staged_peak_bytes = peak
+        if self.result_cache is not None:
+            # shed this execute's sub-plan fingerprint map (the cached
+            # frontiers themselves stay — they are the cross-query point)
+            try:
+                self.result_cache.end_query(query_id)
+            except Exception:
+                pass
         # list() snapshots are taken in C (no GIL release) so sweeping one
         # query never races another in-flight query's inserts
         for key in [k for k in list(self.metrics) if k.query_id == query_id]:
@@ -603,7 +663,7 @@ class Coordinator:
         """
         par = self._stage_parallelism()
         dag = None
-        if par > 1:
+        if par > 1 or self.stage_pool is not None:
             from datafusion_distributed_tpu_torch.planner.distributed import (
                 build_stage_dag,
             )
@@ -616,8 +676,12 @@ class Coordinator:
             self._stage_span_hints = {
                 sid: n.span_attrs() for sid, n in dag.nodes.items()
             }
-        if dag is None or len(dag.nodes) <= 1:
-            # a single stage gains nothing from the DAG scheduler
+        if dag is None or (
+            len(dag.nodes) <= 1 and self.stage_pool is None
+        ):
+            # a global serving pool routes even single-stage plans through
+            # the DAG path so every stage competes under the fair-share
+            # policy; without one a single stage gains nothing from it
             with tr.span("schedule", "schedule", mode="sequential"):
                 return self._materialize_exchanges_sequential(
                     plan, query_id
@@ -808,23 +872,51 @@ class Coordinator:
                     return scan, submit_s, t0, None
                 return scan, submit_s, t0, _time.monotonic()
 
-            # the stage jobs' executor: a per-query bounded pool (the serving
-            # tier's global pool is ROADMAP A.5)
-            pool = cf.ThreadPoolExecutor(
-                max_workers=parallelism, thread_name_prefix="dftpu-stage"
-            )
+            # the stage jobs' executor: a per-query bounded pool, or — under
+            # the serving tier — the GLOBAL cross-query scheduler installed
+            # as `stage_pool`, whose fair-share policy decides which
+            # query's ready stage gets the next slot (runtime/serving.py).
+            # Either way this thread keeps all DAG bookkeeping; only the
+            # job placement policy changes.
+            ext = self.stage_pool
+            pool = None
+            if ext is None:
+                pool = cf.ThreadPoolExecutor(
+                    max_workers=parallelism, thread_name_prefix="dftpu-stage"
+                )
             try:
                 futs: dict = {}
+                # ready-but-unsubmitted stage ids: with the EXTERNAL pool
+                # the per-query `stage_parallelism` budget still bounds
+                # THIS query's in-flight stages (every in-flight stage
+                # holds its producer outputs); the global pool's slots
+                # bound the tier, not the query. The internal pool needs
+                # no backlog: max_workers IS the bound.
+                backlog: list = []
 
                 def submit(sid: int) -> None:
                     node = nodes[sid]
-                    fut = pool.submit(job, node.exchange, _time.monotonic())
+                    sub_t = _time.monotonic()
+                    if ext is not None:
+                        fut = ext.submit(
+                            lambda e=node.exchange, t=sub_t: job(e, t),
+                            cost_hint=node.est_bytes,
+                        )
+                    else:
+                        fut = pool.submit(job, node.exchange, sub_t)
                     futs[fut] = sid
+
+                def enqueue(sid: int) -> None:
+                    if ext is not None and len(futs) >= parallelism:
+                        backlog.append(sid)
+                    else:
+                        submit(sid)
 
                 for sid in sorted(
                     s for s, deps in waiting.items() if not deps
                 ):
-                    submit(sid)
+                    enqueue(sid)
+                replan_active = False
                 while futs:
                     done, _ = cf.wait(
                         list(futs), return_when=cf.FIRST_COMPLETED
@@ -848,21 +940,37 @@ class Coordinator:
                                                     t1)
                         # closed-loop re-cost: a stage whose measured output
                         # cardinality diverged far from its estimate rescales
-                        # the not-yet-submitted downstream estimates (which
-                        # the serving tier's pool would read; scheduling only
-                        # — plan structure and results are untouched)
-                        self._maybe_replan(
+                        # the not-yet-submitted downstream frontier, so the
+                        # backlog promotion below dispatches cheapest-first
+                        # on CORRECTED bytes (scheduling only — plan
+                        # structure and results are untouched)
+                        if self._maybe_replan(
                             query_id, sid, nodes, scan,
                             set(futs.values()) | set(resolved),
-                        )
+                        ):
+                            replan_active = True
                         for c in sorted(consumers.get(sid, ())):
                             waiting[c].discard(sid)
                             if not waiting[c] and first_error is None and (
                                 not self._cancelled()
                             ):
-                                submit(c)
+                                enqueue(c)
+                    # freed budget: promote backlogged ready stages (in
+                    # deterministic stage-id order; after a replan, in
+                    # deterministic corrected-cost order)
+                    if backlog and first_error is None and (
+                        not self._cancelled()
+                    ):
+                        if replan_active:
+                            backlog.sort(key=lambda s: (
+                                int(nodes[s].est_bytes or 0), s))
+                        else:
+                            backlog.sort()
+                        while backlog and len(futs) < parallelism:
+                            submit(backlog.pop(0))
             finally:
-                pool.shutdown(wait=True)
+                if pool is not None:
+                    pool.shutdown(wait=True)
             if first_error is not None:
                 # raised from a local that the traceback's frame holds:
                 # drop the local, or exception, traceback and frame form a
@@ -967,9 +1075,149 @@ class Coordinator:
                      parent=tr.reserved_id(("stage", stage_id)),
                      stage=stage_id, exchange=type(plan).__name__,
                      producer_tasks=t_prod):
-            return self._materialize_exchange_body(
+            restored = self._restore_stage_checkpoint(
+                plan, producer, query_id, stage_id
+            )
+            if restored is not None:
+                return restored
+            restored = self._restore_subplan_cache(
+                plan, producer, query_id, stage_id
+            )
+            if restored is not None:
+                return restored
+            scan = self._materialize_exchange_body(
                 plan, producer, query_id, stage_id, t_prod
             )
+            self._save_stage_checkpoint(query_id, stage_id, t_prod, scan)
+            self._save_subplan_cache(query_id, stage_id, t_prod, scan)
+            return scan
+
+    # -- query checkpoint/resume (runtime/checkpoint.py) ---------------------
+    def _checkpoint_eligible(self) -> bool:
+        """Whether this coordinator's stage lattices are deterministic
+        enough to snapshot/restore (the AdaptiveCoordinator re-derives
+        consumer counts from runtime LoadInfo and opts out)."""
+        return True
+
+    def _restore_stage_checkpoint(self, plan, producer, query_id: str,
+                                  stage_id: int):
+        """Consumer-side scan rebuilt from a valid stage checkpoint, or
+        None (no checkpointer / miss / fingerprint mismatch / staged-
+        slice loss — the latter two re-execute the stage, whose own
+        producers still restore from THEIR checkpoints: the partially-
+        lost-frontier heal)."""
+        ck = self.checkpoints
+        if ck is None or not self._checkpoint_eligible():
+            return None
+        hit, reason = ck.restore(stage_id)
+        if hit is None:
+            if reason == "fp_mismatch":
+                self.faults.bump("checkpoint_fp_mismatch")
+                self._event("checkpoint_fp_mismatch", stage=stage_id)
+            elif reason == "slice_lost":
+                self.faults.bump("checkpoint_slices_lost")
+                self._event("checkpoint_slices_lost", stage=stage_id)
+            return None
+        slices, replicated, pinned, _t_prod = hit
+        scan = MemoryScanExec(slices, producer.schema(), pinned=pinned,
+                              replicated=replicated)
+        self.faults.bump("checkpoint_stages_restored")
+        if not self._resume_traced:
+            # first restored stage of this execute: the query is resuming
+            self._resume_traced = True
+            self.faults.bump("queries_resumed")
+            self._event("query_resumed", stage=stage_id)
+        self.stream_metrics[(query_id, stage_id)] = {
+            "plane": "checkpoint",
+            "coordinator_bytes": 0,
+            "partitions": len(slices),
+        }
+        self._seed_consumer_scan(plan, scan)
+        return scan
+
+    def _save_stage_checkpoint(self, query_id: str, stage_id: int,
+                               t_prod: int, scan) -> None:
+        """Snapshot a just-materialized boundary. Only MemoryScan results
+        checkpoint — a peer-plane boundary's data never materialized on
+        the coordinator (its producers re-ship through the peer-heal
+        path instead)."""
+        ck = self.checkpoints
+        if ck is None or not self._checkpoint_eligible():
+            return
+        if type(scan) is not MemoryScanExec:
+            return
+        if getattr(scan, "bailout_raw_rows", False):
+            # a bailed-out boundary carries raw rows at a widened
+            # capacity; a restore could not re-derive the consumer-side
+            # merge widening (the annotation dies with the scan), so
+            # this stage re-executes instead of restoring
+            return
+        staged = ck.save(stage_id, list(scan.tasks), scan.replicated,
+                         scan.pinned, t_prod)
+        if staged is not None:
+            self.faults.bump("checkpoint_stages_saved")
+            self._event(
+                "checkpoint_saved", stage=stage_id,
+                slices=len(scan.tasks), bytes=staged,
+            )
+
+    # -- cross-query sub-plan cache (runtime/result_cache.py) -----------------
+    def _restore_subplan_cache(self, plan, producer, query_id: str,
+                               stage_id: int):
+        """Consumer-side scan rebuilt from a frontier a PRIOR query
+        cached under this exchange subtree's pre-hoist fingerprint, or
+        None. Slices come from the cache's own store (never a worker),
+        so a restore is correct under any membership churn. Shares the
+        checkpoint tier's eligibility gate: an adaptive coordinator's
+        runtime-derived lattices opt out of both."""
+        rc = self.result_cache
+        if rc is None or not self._checkpoint_eligible():
+            return None
+        try:
+            hit = rc.restore_subplan(query_id, stage_id)
+        except Exception:
+            return None  # cache trouble must never fail the query
+        if hit is None:
+            return None
+        slices, replicated, pinned, _t_prod = hit
+        scan = MemoryScanExec(slices, producer.schema(), pinned=pinned,
+                              replicated=replicated)
+        self.faults.bump("subplan_cache_stages_restored")
+        self._event("subplan_cache_restored", stage=stage_id,
+                    slices=len(slices))
+        self.stream_metrics[(query_id, stage_id)] = {
+            "plane": "result-cache",
+            "coordinator_bytes": 0,
+            "partitions": len(slices),
+        }
+        self._seed_consumer_scan(plan, scan)
+        return scan
+
+    def _save_subplan_cache(self, query_id: str, stage_id: int,
+                            t_prod: int, scan) -> None:
+        """Offer a just-materialized boundary to the cross-query cache.
+        Same guards as `_save_stage_checkpoint`: only MemoryScan
+        results (a peer-plane boundary never materialized here) and
+        never a bailed-out boundary (its widened-capacity annotation
+        dies with the scan)."""
+        rc = self.result_cache
+        if rc is None or not self._checkpoint_eligible():
+            return
+        if type(scan) is not MemoryScanExec:
+            return
+        if getattr(scan, "bailout_raw_rows", False):
+            return
+        try:
+            staged = rc.save_subplan(
+                query_id, stage_id, list(scan.tasks), scan.replicated,
+                scan.pinned, t_prod,
+            )
+        except Exception:
+            return
+        if staged is not None:
+            self._event("subplan_cache_saved", stage=stage_id,
+                        slices=len(scan.tasks), bytes=staged)
+
 
     def _materialize_exchange_body(
         self, plan: ExecutionPlan, producer: ExecutionPlan, query_id: str,
@@ -1454,7 +1702,9 @@ class Coordinator:
         shuffle's partition slices into a live PartitionFeed and release
         the consumer stage at first slice. Requires the stage-DAG
         scheduler (`stage_parallelism > 1` — `= 1` is the documented
-        materialized pre-scheduler behavior, the byte-identity baseline)."""
+        materialized pre-scheduler behavior, the byte-identity baseline)
+        and no checkpointer (checkpoints snapshot MATERIALIZED
+        MemoryScan frontiers; a live feed has nothing restorable)."""
         import os as _os
 
         from datafusion_distributed_tpu_torch.ops.table import parse_bool_knob
@@ -1472,6 +1722,8 @@ class Coordinator:
         except Exception:
             enabled = bool(v)
         if not enabled:
+            return False
+        if self.checkpoints is not None:
             return False
         return self._stage_parallelism() > 1
 
@@ -3392,7 +3644,7 @@ def _shuffle_regroup(
     order, so both paths give the same bytes. The reference builds that
     path's hash and CSR buckets in its native host library (native/), which
     this port does not carry: bytes only leave the device with the wire
-    transports (ROADMAP A.5)."""
+    transports (ROADMAP A.5.3)."""
     if zero_copy:
         return _shuffle_regroup_views(
             outputs, key_names, num_tasks, per_dest_capacity, exact

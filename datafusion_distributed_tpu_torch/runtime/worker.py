@@ -17,7 +17,7 @@ device its tables live on, eagerly; the reference's stage-shared compile
 cache has no counterpart here (nothing is compiled). Outputs, partition
 slices and chunks stay on that device: slices and chunks are row-range
 views (ops/table.py `slice_view`). The gRPC wrapper, the shm plane and the
-wire codecs are ROADMAP A.5.
+wire codecs are ROADMAP A.5.3.
 """
 
 from __future__ import annotations
@@ -391,8 +391,8 @@ class Worker:
                 raise
         if headers:
             validate_passthrough_headers(headers)
-        # an enforced worker memory budget rides the task config; the
-        # store refuses one (spilling is ROADMAP A.5)
+        # an enforced worker memory budget rides the task config: the
+        # store spills past it (runtime/spill.py)
         if config and "worker_memory_budget_bytes" in config:
             self.table_store.set_budget(config["worker_memory_budget_bytes"])
         # cross-wire trace context (runtime/tracing.py): when the

@@ -21,9 +21,13 @@ The distributed planner is ported: ``df.distributed_plan(T)`` and
 ``df.explain_verify()`` and ``EXPLAIN VERIFY <query>`` render it with the
 verifier's diagnostics, and ``df.collect_distributed_table(1)`` runs the
 one-task staged plan (fused multiway joins included) on the session's
-device. Running T > 1 tasks, and the coordinated, serving, tracing and
-result-cache entry points of the reference, wait for later slices
-(ROADMAP A.2-A.5).
+device; ``df.collect_distributed_table(T)`` runs it over T tasks.
+``df.collect_coordinated_table(num_tasks=T)`` runs it through the
+coordinator/worker runtime, consulting the whole-result cache first when
+``SET distributed.result_cache`` is on (``ctx.result_cache()``); the
+serving tier (runtime/serving.py `ServingSession`) submits queries from
+many clients at once. ``ctx.last_trace()`` waits for a later slice
+(ROADMAP A.5.4).
 """
 
 from __future__ import annotations
@@ -175,6 +179,69 @@ class SessionConfig:
                         f"invalid verify_plans mode {value!r} (expected "
                         f"one of {MODES})"
                     )
+            elif key == "max_concurrent_queries":
+                # serving-tier admission knobs (runtime/serving.py) are
+                # validated at SET time: a bad value must fail the SET,
+                # not wedge admission decisions mid-serve
+                value = int(value)
+                if value < 1:
+                    raise ValueError(
+                        "max_concurrent_queries must be >= 1"
+                    )
+            elif key == "admission_budget_bytes":
+                value = float(value)
+                if value < 0:
+                    raise ValueError(
+                        "admission_budget_bytes must be >= 0 (0 = "
+                        "unlimited)"
+                    )
+            elif key == "worker_memory_budget_bytes":
+                # enforced per-worker staging budget (runtime/codec.py
+                # TableStore + runtime/spill.py): validated at SET time
+                # like the admission knobs; 0 = unlimited
+                value = float(value)
+                if value < 0:
+                    raise ValueError(
+                        "worker_memory_budget_bytes must be >= 0 (0 = "
+                        "unlimited)"
+                    )
+            elif key == "worker_memory_redline":
+                # red-line shedding factor (runtime/serving.py): resident
+                # bytes over budget x factor preempt the lowest-priority
+                # running query; 0 disables shedding
+                value = float(value)
+                if value != 0 and value < 1.0:
+                    raise ValueError(
+                        "worker_memory_redline must be 0 (shedding off) "
+                        "or >= 1.0 (a red-line below the budget would "
+                        "shed before spill/backpressure even engage)"
+                    )
+            elif key == "checkpoint_budget_bytes":
+                # CheckpointStore byte cap (runtime/checkpoint.py):
+                # oldest recoverable checkpoints evict past it
+                value = float(value)
+                if value < 0:
+                    raise ValueError(
+                        "checkpoint_budget_bytes must be >= 0 (0 = "
+                        "uncapped)"
+                    )
+            elif key == "result_cache_budget_bytes":
+                # ResultCache byte budget (runtime/result_cache.py):
+                # cold entries past it SPILL (SpillManager) instead of
+                # evicting, and refault byte-exactly on the next hit
+                value = float(value)
+                if value < 0:
+                    raise ValueError(
+                        "result_cache_budget_bytes must be >= 0 (0 = "
+                        "unlimited)"
+                    )
+            elif key == "serving_stage_slots":
+                value = int(value)
+                if value < 0:
+                    raise ValueError(
+                        "serving_stage_slots must be >= 0 (0 = auto: "
+                        "the worker count)"
+                    )
             elif key in ("fair_share", "zero_copy", "hedging",
                          "checkpointing", "pipelined_shuffle",
                          "partial_agg_pushdown", "multiway_join",
@@ -185,6 +252,19 @@ class SessionConfig:
                 )
 
                 value = parse_bool_knob(value)
+            elif key == "slo_p99_ms":
+                # SLO targets (runtime/telemetry.py SloTracker, read
+                # live by the serving tier's stats surface): validated at
+                # SET time like the other serving knobs
+                value = float(value)
+                if value <= 0:
+                    raise ValueError("slo_p99_ms must be > 0")
+            elif key == "slo_error_rate":
+                value = float(value)
+                if not 0.0 <= value <= 1.0:
+                    raise ValueError(
+                        "slo_error_rate must be in [0, 1]"
+                    )
             self.distributed_options[key] = value
         elif scope == "planner":
             if not hasattr(self.planner, key):
@@ -490,6 +570,32 @@ class DataFrame:
             self._strip_quals(self.collect_distributed_table(num_tasks))
         )
 
+    def _result_cache_key(self, num_tasks: int):
+        """Whole-result cache key for this query at the session's live
+        configuration (plan/fingerprint.py result_cache_key): the
+        post-hoist staged-plan fingerprint + literal parameter vectors,
+        extended with the full PlannerConfig snapshot, the catalog
+        generation, and the task profile (f32 sums are only bitwise-
+        reproducible under an identical task split, so a profile change
+        must miss). None when caching cannot apply (unfingerprintable
+        plan)."""
+        from datafusion_distributed_tpu_torch.plan.fingerprint import (
+            result_cache_key,
+        )
+
+        try:
+            plan = self.distributed_plan(
+                num_tasks, self._seeded_host_config(num_tasks),
+                self.ctx.config.planner,
+            )
+            return result_cache_key(plan, extra=(
+                self._pcfg_key(self.ctx.config.planner),
+                self.ctx.catalog.generation,
+                int(num_tasks),
+            ))
+        except Exception:
+            return None
+
     def collect_coordinated_table(
         self,
         coordinator=None,
@@ -503,19 +609,45 @@ class DataFrame:
         spun up — the reference's InMemoryChannelResolver rung its whole
         TPC suite runs on. ``adaptive=True`` uses the AdaptiveCoordinator.
         Every stage task runs on the session's device. Overflow -> re-plan
-        with widened capacities, like `collect_table`. The result cache
-        (`SET distributed.result_cache`) is not ported (ROADMAP A.5)."""
+        with widened capacities, like `collect_table`.
+
+        With `SET distributed.result_cache` on, the whole-result cache is
+        consulted FIRST (runtime/result_cache.py): a hit returns the staged
+        result by reference — no cluster, no coordinator, no execution.
+        Concurrent submissions of one key single-flight: one executes, the
+        rest block for its fill."""
+        rc = self.ctx.result_cache()
+        key = self._result_cache_key(num_tasks) if rc is not None else None
+        if key is None:
+            return self._collect_coordinated_uncached(
+                coordinator, num_workers, num_tasks, adaptive
+            )
+        state, cached = rc.begin(key)
+        if state == "hit":
+            return cached
+        try:
+            out = self._collect_coordinated_uncached(
+                coordinator, num_workers, num_tasks, adaptive
+            )
+        except BaseException:
+            rc.fail(key)
+            raise
+        rc.fill(key, out)
+        return out
+
+    def _collect_coordinated_uncached(
+        self,
+        coordinator=None,
+        num_workers: int = 2,
+        num_tasks: int = 4,
+        adaptive: bool = False,
+    ) -> Table:
         from datafusion_distributed_tpu_torch.runtime.coordinator import (
             AdaptiveCoordinator,
             Coordinator,
             InMemoryCluster,
         )
 
-        if self.ctx.config.distributed_options.get("result_cache"):
-            raise NotImplementedError(
-                "the result cache (distributed.result_cache) is not "
-                "ported: ROADMAP A.5"
-            )
         if coordinator is None:
             cluster = InMemoryCluster(num_workers)
             cls = AdaptiveCoordinator if adaptive else Coordinator
@@ -524,6 +656,11 @@ class DataFrame:
                 config_options=self.ctx.config.distributed_snapshot(),
                 passthrough_headers=dict(self.ctx.config.passthrough_headers),
             )
+        if getattr(coordinator, "result_cache", None) is None:
+            # cross-query sub-plan frontier sharing rides the same
+            # coordinator hook as checkpoint restore (None when the
+            # result_cache knob is off)
+            coordinator.result_cache = self.ctx.result_cache()
         pcfg = self.ctx.config.planner
         dcfg = self._seeded_host_config(num_tasks)
         last_err: Optional[Exception] = None
@@ -667,8 +804,42 @@ class SessionContext:
         # several threads may plan against one session.
         self._plans: dict = {}
         self._plans_lock = threading.Lock()
+        # fingerprint-keyed whole-result + sub-plan cache (runtime/
+        # result_cache.py), created lazily on the first consult with
+        # `SET distributed.result_cache` on; _plans_lock guards creation
+        self._result_cache = None  # guarded-by: _plans_lock
 
     _PLAN_CACHE_ENTRIES = 128
+
+    def result_cache(self):
+        """The session's ResultCache when `SET distributed.result_cache`
+        is on, else None. Every consult reconciles the cache with the
+        live catalog generation (lazy invalidation — covers table
+        registrations that bypassed SessionContext.register_table) and
+        the `result_cache_budget_bytes` knob."""
+        from datafusion_distributed_tpu_torch.ops.table import parse_bool_knob
+
+        opts = self.config.distributed_options
+        try:
+            if not parse_bool_knob(opts.get("result_cache", False)):
+                return None
+        except ValueError:
+            return None
+        rc = self._result_cache
+        if rc is None:
+            from datafusion_distributed_tpu_torch.runtime.result_cache import (
+                ResultCache,
+            )
+
+            with self._plans_lock:
+                rc = self._result_cache
+                if rc is None:
+                    rc = self._result_cache = ResultCache()
+        rc.sync(
+            generation=self.catalog.generation,
+            budget_bytes=opts.get("result_cache_budget_bytes", 0),
+        )
+        return rc
 
     def _plan_cache_get(self, key):
         with self._plans_lock:
@@ -709,6 +880,13 @@ class SessionContext:
                 f"{self.device}"
             )
         self.catalog.register_table(name, table)
+        rc = self._result_cache
+        if rc is not None:
+            # eager half of result-cache invalidation: the generation
+            # bump above makes every cached entry (whole-result AND
+            # sub-plan frontier) stale — drop them NOW so a post-update
+            # query can never be served pre-update rows
+            rc.invalidate_generation(self.catalog.generation)
 
     # -- SQL ------------------------------------------------------------------
     def sql(self, query: str) -> DataFrame:
@@ -759,15 +937,15 @@ class SessionContext:
 
     def last_trace(self):
         """The reference's Chrome trace of the last traced query: not
-        ported (ROADMAP A.5)."""
+        ported (ROADMAP A.5.4)."""
         raise NotImplementedError(
-            "ctx.last_trace() is not ported: ROADMAP A.5")
+            "ctx.last_trace() is not ported: ROADMAP A.5.4")
 
     def last_trace_profile(self) -> str:
         """The reference's text profile of the last traced query: not
-        ported (ROADMAP A.5)."""
+        ported (ROADMAP A.5.4)."""
         raise NotImplementedError(
-            "ctx.last_trace_profile() is not ported: ROADMAP A.5")
+            "ctx.last_trace_profile() is not ported: ROADMAP A.5.4")
 
     def prepare(self, template: str) -> "PreparedStatement":
         """Prepared-statement API: ``ctx.prepare("... where x < $1")`` -> a
@@ -875,9 +1053,9 @@ class PreparedStatement:
     host-side dictionary work).
 
     Placeholders: ``$name`` (bind with a dict / kwargs) or ``$1..$n``
-    (bind with a sequence). `warm()` runs the first execution eagerly.
-    The coordinated and serving bindings of the reference wait for the
-    runtime tiers.
+    (bind with a sequence). `warm()` runs the first execution eagerly;
+    `execute_coordinated` runs a binding through the coordinator, and
+    `submit(serving_session, params)` through the serving tier.
     """
 
     def __init__(self, ctx: "SessionContext", template: str):
@@ -944,11 +1122,10 @@ class PreparedStatement:
         )
 
     def submit(self, session, params=None, priority: int = 0, **kw):
-        """Submitting to a serving session is ROADMAP A.5."""
-        raise NotImplementedError(
-            "PreparedStatement.submit (the serving tier) is not ported: "
-            "ROADMAP A.5"
-        )
+        """Submit a binding to a ServingSession (runtime/serving.py) ->
+        QueryHandle: parse + bind + plan-cache hit, then admission."""
+        return session.submit(self.bind_sql(params, **kw),
+                              priority=priority)
 
     def warm(self, params=None, **kw) -> "PreparedStatement":
         """Run the first execution now. -> self, for chaining."""

@@ -33,7 +33,9 @@ tests/test_tpch_distributed.py sets it), queries from benchmarks/queries/tpch,
   another worker, the same result and FaultCounters in both packages; a
   non-retryable worker error surfaces with the reference's type and
   message;
-- every left-out feature raises NotImplementedError naming ROADMAP A.5.
+- every left-out feature raises NotImplementedError naming its ROADMAP A.5
+  item, and the serving tier's hooks (checkpoints, the result cache, the
+  stage pool, worker memory budgets, `PreparedStatement.submit`) run.
 """
 
 import re
@@ -45,6 +47,7 @@ from datafusion_distributed_tpu.data.tpchgen import gen_tpch
 from datafusion_distributed_tpu.runtime import coordinator as jcoord
 from datafusion_distributed_tpu.runtime import errors as jerrors
 from datafusion_distributed_tpu.sql.context import SessionContext as JContext
+from datafusion_distributed_tpu_torch.runtime import chaos as tchaos
 from datafusion_distributed_tpu_torch.runtime import codec as tcodec
 from datafusion_distributed_tpu_torch.runtime import coordinator as tcoord
 from datafusion_distributed_tpu_torch.runtime import errors as terrors
@@ -250,15 +253,6 @@ def test_non_retryable_error_surfaces_as_the_reference(env):
 
 
 def _left_out_cases():
-    def coord_with(**fields):
-        def run(ctx):
-            cluster = tcoord.InMemoryCluster(2)
-            coord = tcoord.Coordinator(resolver=cluster, channels=cluster,
-                                       **fields)
-            ctx.sql(_sql("q6")).collect_coordinated_table(
-                coordinator=coord, num_tasks=NT)
-        return run
-
     def coord_opts(**opts):
         def run(ctx):
             cluster = tcoord.InMemoryCluster(2)
@@ -269,29 +263,14 @@ def _left_out_cases():
                 coordinator=coord, num_tasks=NT)
         return run
 
-    def session_set(stmt):
-        def run(ctx):
-            ctx.sql(stmt)
-            try:
-                ctx.sql(_sql("q6")).collect_coordinated_table(num_tasks=NT)
-            finally:
-                ctx.config.distributed_options.pop("result_cache", None)
-        return run
-
     return {
         "hedging": coord_opts(hedging=True),
-        "checkpoints": coord_with(checkpoints=object()),
-        "result_cache field": coord_with(result_cache=object()),
-        "SET distributed.result_cache": session_set(
-            "SET distributed.result_cache = true"),
-        "stage_pool": coord_with(stage_pool=object()),
-        "worker_memory_budget_bytes": coord_opts(
-            worker_memory_budget_bytes=1 << 20),
         "data_plane=shm": coord_opts(data_plane="shm"),
         "DynamicCluster": lambda ctx: tcoord.DynamicCluster(2),
-        "TableStore budget": lambda ctx: tcodec.TableStore(budget_bytes=1),
-        "PreparedStatement.submit": lambda ctx: ctx.prepare(
-            _sql("q6").replace("< 24", "< $1")).submit(None, [24]),
+        "chaos MembershipEvent": lambda ctx: tchaos.MembershipEvent(
+            "leave", "mem://worker-0"),
+        "chaos segment_lost": lambda ctx: tchaos.FaultSpec(
+            site="execute", kind="segment_lost"),
         "last_trace": lambda ctx: ctx.last_trace(),
         "last_trace_profile": lambda ctx: ctx.last_trace_profile(),
     }
@@ -302,6 +281,100 @@ def test_left_out_features_refuse(env, case):
     tctx = env[2]
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         _left_out_cases()[case](tctx)
+
+
+def _serving_hook_cases():
+    """The tiers this port refused before the serving tier was ported:
+    each now runs q6 (4 tasks over in-memory workers) to the default
+    coordinated result."""
+    from datafusion_distributed_tpu_torch.runtime import (
+        checkpoint as tckpt,
+        result_cache as trc,
+        serving as tserving,
+    )
+
+    def coord_with(make):
+        def run(ctx):
+            cluster = tcoord.InMemoryCluster(2)
+            coord = tcoord.Coordinator(
+                resolver=cluster, channels=cluster,
+                config_options=ctx.config.distributed_snapshot(),
+                **make(cluster))
+            try:
+                return ctx.sql(_sql("q6")).collect_coordinated_table(
+                    coordinator=coord, num_tasks=NT)
+            finally:
+                pool = getattr(coord.stage_pool, "_sched", None)
+                if pool is not None:
+                    pool.close()
+        return run
+
+    def checkpointer(cluster):
+        store = tckpt.CheckpointStore()
+        return {"checkpoints": tckpt.QueryCheckpointer(
+            store, store.admit("q6"), cluster, cluster)}
+
+    def budget(ctx):
+        cluster = tcoord.InMemoryCluster(2)
+        coord = tcoord.Coordinator(
+            resolver=cluster, channels=cluster,
+            config_options={**ctx.config.distributed_snapshot(),
+                            "worker_memory_budget_bytes": 1 << 12})
+        out = ctx.sql(_sql("q6")).collect_coordinated_table(
+            coordinator=coord, num_tasks=NT)
+        assert all(w.table_store.budget_bytes == 1 << 12
+                   for w in cluster.workers.values())
+        return out
+
+    def session_set(ctx):
+        ctx.sql("SET distributed.result_cache = true")
+        try:
+            first = ctx.sql(_sql("q6")).collect_coordinated_table(
+                num_tasks=NT)
+            again = ctx.sql(_sql("q6")).collect_coordinated_table(
+                num_tasks=NT)
+            assert again is first
+            return again
+        finally:
+            ctx.config.distributed_options.pop("result_cache", None)
+
+    def store_budget(ctx):
+        store = tcodec.TableStore(budget_bytes=1)
+        table = ctx.sql(_sql("q6")).collect_table()
+        tid = store.put(table)
+        assert store.stats()["spills"] == 1
+        out = store.get(tid)
+        store.remove([tid])
+        assert store.stats()["spill_files"] == 0
+        return out
+
+    def submit(ctx):
+        with tserving.ServingSession(ctx, num_workers=2,
+                                     num_tasks=NT) as srv:
+            return ctx.prepare(_sql("q6").replace("< 24", "< $1")).submit(
+                srv, [24]).result_table(timeout=120)
+
+    return {
+        "checkpoints": coord_with(checkpointer),
+        "result_cache field": coord_with(
+            lambda cluster: {"result_cache": trc.ResultCache()}),
+        "SET distributed.result_cache": session_set,
+        "stage_pool": coord_with(lambda cluster: {
+            "stage_pool": tserving._QueryPool(
+                tserving.GlobalStageScheduler(2), "q6")}),
+        "worker_memory_budget_bytes": budget,
+        "TableStore budget": store_budget,
+        "PreparedStatement.submit": submit,
+    }
+
+
+@pytest.mark.parametrize("case", list(_serving_hook_cases()))
+def test_serving_tier_hooks_run(env, case):
+    tctx = env[2]
+    base = tctx.sql(_sql("q6")).collect_coordinated_table(
+        num_workers=WORKERS, num_tasks=NT).to_numpy()
+    got = _serving_hook_cases()[case](tctx).to_numpy()
+    assert_results_equal(base, got, case)
 
 
 def test_prepared_statement_execute_coordinated(env):

@@ -3,7 +3,9 @@ bit for bit (chip_smoke.py repeats this at main-path shapes), and the
 exchange data plane (parallel/exchange.py) gives every consumer task the
 same table on the card as on the CPU, byte for byte. The coordinator's
 regroup does too, a coordinated query copies no column data to the host,
-and the kernels' launch counters stay exact under threads.
+and the kernels' launch counters stay exact under threads. A spilled
+TableStore entry refaults onto the card byte for byte, and two clients of
+one ServingSession get the sequential results.
 
 This file imports neither jax nor the JAX package, so it also runs where
 they are absent, as on a machine with the card:
@@ -422,3 +424,111 @@ def test_launch_counts_exact_under_threads(dev):
     torch.cuda.synchronize()
     assert hk.LAUNCHES["build_group_ids"] == 8 * per_thread
     assert hk.BUILD_SHAPES == {(4096, 2, h): 8 * per_thread}
+
+
+def _spill_table(dev, n=3000, cap=4096):
+    """A card table whose buffers exercise a byte-exact spill round trip:
+    int64 keys, float values with -0.0, NaN, inf and nulls, a dictionary
+    column (one value unused), zeroed padding past ``n`` rows."""
+    from datafusion_distributed_tpu_torch.ops.table import (
+        Column,
+        Dictionary,
+        Table,
+    )
+    from datafusion_distributed_tpu_torch.schema import DataType
+
+    rng = np.random.default_rng(5)
+    v = rng.standard_normal(n)
+    v[:3] = (-0.0, np.nan, np.inf)
+    valid = rng.random(n) > 0.1
+    v[~valid] = 0.0
+    d = Dictionary(np.array(["a", "bb", "ccc", "zz"], dtype=object))
+    cols = (
+        Column.from_numpy(np.arange(n, dtype=np.int64) * 7 - 3,
+                          DataType.INT64, cap, device=dev),
+        Column.from_numpy(v, DataType.FLOAT64, cap, valid, device=dev),
+        Column.from_numpy(rng.integers(0, 3, n).astype(np.int32),
+                          DataType.STRING, cap, dictionary=d, device=dev),
+    )
+    return Table(("k", "v", "s"), cols,
+                 torch.tensor(n, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+def test_spill_round_trip_on_the_card(dev):
+    """A TableStore budget spills a card entry to a host file; `get`
+    refaults it onto the same card, every buffer byte-identical (padding,
+    -0.0, NaN, null masks, dictionary codes and objects), at its padded
+    capacity; the spill file is gone once the entry is released."""
+    from datafusion_distributed_tpu_torch.runtime.codec import TableStore
+
+    store = TableStore()
+    t1, t2 = _spill_table(dev), _spill_table(dev, n=100, cap=128)
+    i1, i2 = store.put(t1), store.put(t2)
+    store.set_budget(store.entry_nbytes(i2) + 1)  # spills t1, the coldest
+    st = store.stats()
+    assert st["spills"] == 1 and st["spill_files"] == 1, st
+    back = store.get(i1)
+    assert back is not t1 and back.device == t1.device
+    assert back.capacity == t1.capacity
+    assert int(back.num_rows) == int(t1.num_rows)
+    for a, b in zip(back.columns, t1.columns):
+        assert a.data.device == b.data.device
+        assert a.data.cpu().numpy().tobytes() == b.data.cpu().numpy().tobytes()
+        assert (a.validity is None) == (b.validity is None)
+        if b.validity is not None:
+            assert torch.equal(a.validity, b.validity)
+        assert a.dictionary is b.dictionary
+    store.remove([i1, i2])
+    st = store.stats()
+    assert st["entries"] == 0 and st["spill_files"] == 0, st
+
+
+@pytest.mark.cuda
+def test_two_client_serving_on_the_card(dev):
+    """Two clients submit TPC-H q3 and q6 to one ServingSession on the
+    card at once: each result stays on the card and is byte-identical to
+    the same session's sequential coordinated run."""
+    import threading
+    from pathlib import Path
+
+    from datafusion_distributed_tpu_torch.data import tpchgen
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.serving import (
+        ServingSession,
+    )
+    from datafusion_distributed_tpu_torch.sql.context import SessionContext
+
+    qdir = Path(__file__).resolve().parent.parent / "benchmarks" / \
+        "queries" / "tpch"
+    sqls = {q: (qdir / f"{q}.sql").read_text() for q in ("q3", "q6")}
+    ctx = SessionContext(device="cuda")
+    tpchgen.register_tpch(ctx, 0.01, 7)
+    base = {q: ctx.sql(s).collect_coordinated_table(
+        num_workers=4, num_tasks=4).to_numpy() for q, s in sqls.items()}
+    got: dict = {}
+    cluster = InMemoryCluster(4)
+    with ServingSession(ctx, cluster=cluster, num_tasks=4) as srv:
+        def client(q):
+            t = srv.submit(sqls[q]).result_table(timeout=300)
+            assert t.device.type == "cuda"
+            got[q] = t.to_numpy()
+
+        threads = [threading.Thread(target=client, args=(q,))
+                   for q in sqls]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    for q in sqls:
+        a, b = got[q], base[q]
+        assert list(a) == list(b), q
+        for k in a:
+            if a[k].dtype == object:
+                assert a[k].tolist() == b[k].tolist(), (q, k)
+            else:
+                assert a[k].tobytes() == b[k].tobytes(), (q, k)
+    for w in cluster.workers.values():
+        assert not w.table_store.tables and len(w.registry) == 0

@@ -3,8 +3,10 @@ runs a TPC-H query, a window query, a prepared-statement binding, a
 ClickBench query, a one-task staged plan with a fused multiway join, the
 same plan over four tasks (runtime/mesh_executor.py, its exchanges) and
 through the coordinator over four in-memory workers, static and adaptive
-(runtime/coordinator.py and the runtime modules it loads), on the CPU when
-asked to, and refuses to start without a CUDA device otherwise."""
+(runtime/coordinator.py and the runtime modules it loads), and through the
+serving tier (runtime/serving.py, with the spill, checkpoint, result-cache
+and chaos modules imported), on the CPU when asked to, and refuses to
+start without a CUDA device otherwise."""
 
 import os
 import re
@@ -66,10 +68,17 @@ _SCRIPT = textwrap.dedent("""
         coord = ctx.sql(star).collect_coordinated_table(
             num_workers=4, num_tasks=4, adaptive=adaptive).to_numpy()
         assert coord["n"].tobytes() == staged["n"].tobytes()
+    from datafusion_distributed_tpu_torch.runtime.serving import (
+        ServingSession,
+    )
+    with ServingSession(ctx, num_workers=2, num_tasks=2) as srv:
+        served = srv.submit(star).result_table(timeout=120).to_numpy()
+    assert served["n"].tobytes() == staged["n"].tobytes()
     import importlib
     for m in ("errors", "leakcheck", "eventlog", "telemetry", "tracing",
               "metrics", "health", "codec", "worker", "streams", "peer",
-              "adaptivity", "coordinator"):
+              "adaptivity", "coordinator", "spill", "checkpoint",
+              "result_cache", "serving", "chaos"):
         importlib.import_module("datafusion_distributed_tpu_torch.runtime."
                                 + m)
     importlib.import_module("datafusion_distributed_tpu_torch.planner."
