@@ -70,7 +70,20 @@ Phases, each of which must pass:
    killed at its root stage and recover()ed from its checkpoints; kernels
    1 and 2 at every logged shape; at SF 0.01 five served queries on
    "cuda" against "cpu" (a CPU subprocess that runs meanwhile).
-12. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
+12. resilience — TPC-H SF 1 through Coordinator over DynamicCluster(4) at
+   4 tasks: q1, q3, q5, q9, q18 and q21 with and without a sticky 2 s
+   straggler on one worker, hedging off and on (warm wall per query, hedge
+   counters, hedges in flight, the latency sketch's p99), each equal to
+   single-node; the 22 queries under a leave, a join and a drain with
+   transport faults, each on a fresh cluster, byte-identical to the
+   no-churn run (fired kinds, re-shipped producers, retries, the drain,
+   the card's allocated bytes before and after); the serving tier's
+   chaos-and-churn mix with hedging on, identical to the sequential runs,
+   read through the ObservabilityService; q3 resumed from checkpoints
+   after a worker holding them left; kernels 1, 2 and 3 at every logged
+   shape; at SF 0.01 churned q3 and hedged q1 on "cuda" against "cpu" (a
+   CPU subprocess that runs meanwhile).
+13. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
    import): the `hits` table at its published 99,997,497 rows, seed 3, all
    43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
    kernels 1 and 2 at every shape that run gave them (group builds on
@@ -84,7 +97,8 @@ Phases, each of which must pass:
 The check phase also runs q22 and q13 over `orders` without the customers
 whose key is divisible by 3, card against CPU (7 and 22 rows at SF 0.01).
 The main phase, the window phase, the one-task staged path, each
-coordinator's second run and the ClickBench run each set the kernels'
+coordinator's second run, the serving tier's fair-share arm, the hedged
+straggler arm's warm run and the ClickBench run each set the kernels'
 launch counts to 0 just before they run and read them just after.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1599,11 +1613,12 @@ COORD_D2H_TRACED = ("q2", "q3")
 COORD_CPU_TIMEOUT_S = 600
 
 
-def _coordinated(ctx, sql: str, adaptive: bool, cluster, opts=None):
+def _coordinated(ctx, sql: str, adaptive: bool, cluster, opts=None,
+                 coord=None):
     """One query through collect_coordinated_table(num_tasks=4) on a fresh
-    Coordinator (or AdaptiveCoordinator) over ``cluster``. -> (result,
-    the coordinator, the DataFrame); every worker's store and task
-    registry must be empty afterwards."""
+    Coordinator (or AdaptiveCoordinator) over ``cluster``, or on ``coord``.
+    -> (result, the coordinator, the DataFrame); every worker's store and
+    task registry must be empty afterwards."""
     import torch
 
     from datafusion_distributed_tpu_torch.runtime.coordinator import (
@@ -1611,10 +1626,11 @@ def _coordinated(ctx, sql: str, adaptive: bool, cluster, opts=None):
         Coordinator,
     )
 
-    cls = AdaptiveCoordinator if adaptive else Coordinator
-    coord = cls(resolver=cluster, channels=cluster,
-                config_options={**ctx.config.distributed_snapshot(),
-                                **(opts or {})})
+    if coord is None:
+        cls = AdaptiveCoordinator if adaptive else Coordinator
+        coord = cls(resolver=cluster, channels=cluster,
+                    config_options={**ctx.config.distributed_snapshot(),
+                                    **(opts or {})})
     df = ctx.sql(sql)
     table = df.collect_coordinated_table(coordinator=coord,
                                          num_tasks=COORD_TASKS)
@@ -2518,7 +2534,503 @@ def _serving_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: ClickBench in x64 mode, in a subprocess
+# phase 12: straggler hedging, elastic membership and the observability
+# service
+# ---------------------------------------------------------------------------
+
+RESILIENCE_WORKERS = 4
+RESILIENCE_TASKS = 4
+RESILIENCE_HEDGE_QUERIES = ("q1", "q3", "q5", "q9", "q18", "q21")
+#: the worker-pinned sticky straggler the hedger exists for
+RESILIENCE_STRAGGLER = {"site": "execute", "kind": "straggler",
+                        "delay_s": 2.0, "rate": 1.0,
+                        "workers": ["mem://worker-1"]}
+RESILIENCE_HEDGE_KNOBS = {"hedging": True, "hedge_floor_s": 0.25,
+                          "hedge_budget": 2}
+#: arm -> (the straggler injected, coordinator options); both hedged arms
+#: take the same knobs, so the no-fault pair shows what hedging costs
+RESILIENCE_ARMS = {
+    "no_fault_off": (False, {}),
+    "no_fault_on": (False, RESILIENCE_HEDGE_KNOBS),
+    "straggler_off": (True, {}),
+    "straggler_on": (True, RESILIENCE_HEDGE_KNOBS),
+}
+#: transport faults beside the membership churn (tests/test_elasticity.py's
+#: heavier sweep), retried up to RESILIENCE_CHURN_RETRIES times
+RESILIENCE_CHURN_FAULTS = (
+    {"site": "execute", "kind": "transport", "rate": 0.1},
+    {"site": "set_plan", "kind": "transport", "rate": 0.05},
+)
+RESILIENCE_CHURN_RETRIES = 8
+#: tests/test_serving.py's chaos-and-churn mix
+RESILIENCE_SERVED = ("q1", "q6", "q3", "q6", "q1", "q3")
+RESILIENCE_CPU_TIMEOUT_S = 600
+#: the membership kinds the churn schedule fires when a query makes enough
+#: calls (a query of few stages ends before the join's or the drain's turn)
+CHURN_KINDS = ["membership_drain", "membership_join", "membership_leave"]
+
+
+def _churn_schedule(chaos, urls):
+    """tests/test_elasticity.py's schedule: a leave at the first execute, a
+    join at the fifth set_plan, a drain at the fourth execute."""
+    return [
+        chaos.MembershipEvent("leave", urls[1], site="execute", nth_call=0),
+        chaos.MembershipEvent("join", "mem://joiner-0", site="set_plan",
+                              nth_call=4),
+        chaos.MembershipEvent("drain", urls[2], site="execute", nth_call=3),
+    ]
+
+
+def _churned(ctx, sql: str, seed: int) -> dict:
+    """``sql`` over a fresh DynamicCluster(4) under the churn schedule and
+    transport faults. -> the result, the fired kinds, the counters, the
+    drain verdict; no surviving worker may keep a staged slice or task."""
+    from datafusion_distributed_tpu_torch.runtime import chaos
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        DynamicCluster,
+    )
+
+    cluster = DynamicCluster(RESILIENCE_WORKERS)
+    urls = cluster.get_urls()
+    plan = chaos.FaultPlan(seed, [
+        chaos.FaultSpec(**s) for s in RESILIENCE_CHURN_FAULTS],
+        membership=_churn_schedule(chaos, urls))
+    out, coord, _df = _coordinated(
+        ctx, sql, False, chaos.wrap_cluster(cluster, plan),
+        {"max_task_retries": RESILIENCE_CHURN_RETRIES})
+    faults = coord.faults.as_dict()
+    fired = sorted(f["kind"] for f in plan.fired)
+    drained = ("membership_drain" not in fired
+               or cluster.wait_drained(urls[2], timeout_s=10.0))
+    return {"result": out, "drained": drained,
+            "kinds": sorted({k for k in fired if k.startswith("membership")}),
+            "fired": fired,
+            "reshipped": faults.get("peer_producers_reshipped", 0),
+            "refreshed": faults.get("peer_producers_refreshed", 0),
+            "retries": faults.get("task_retries", 0),
+            "leaked": sum(len(w.table_store.tables) + len(w.registry)
+                          for w in cluster.workers.values())}
+
+
+def _hedge_arm(ctx, seed: int, straggler: bool, opts: dict):
+    """One coordinator over DynamicCluster(4), with the sticky straggler on
+    worker-1 or not: its latency sketch, hedge budget and breakers carry
+    from query to query, as a long-lived coordinator's do. -> a function
+    running one query on it -> its result."""
+    from datafusion_distributed_tpu_torch.runtime import chaos
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator,
+        DynamicCluster,
+    )
+
+    cluster = DynamicCluster(RESILIENCE_WORKERS)
+    if straggler:
+        cluster = chaos.wrap_cluster(cluster, chaos.FaultPlan(
+            seed, [chaos.FaultSpec(**RESILIENCE_STRAGGLER)]))
+    coord = Coordinator(resolver=cluster, channels=cluster, config_options={
+        **ctx.config.distributed_snapshot(), **opts})
+
+    def run(sql: str) -> dict:
+        return _coordinated(ctx, sql, False, cluster, coord=coord)[0]
+
+    run.coord = coord
+    return run
+
+
+def _fanned_session(device: str, sf: float, seed: int):
+    """A session whose stages fan out over every task at a small scale
+    (`bytes_per_task = 1`), so churn and the straggler reach them."""
+    ctx = _session(device, sf, seed)
+    ctx.config.distributed_options["bytes_per_task"] = 1
+    return ctx
+
+
+def resilience_cpu_worker(sf: float, out_path: str) -> int:
+    """The CPU's side of the resilience phase's card-against-CPU check at
+    SF ``sf``: q3 under the churn schedule (with its fired membership
+    kinds) and q1 in the hedged straggler arm (with its hedges issued),
+    pickled."""
+    import torch
+
+    torch.set_num_threads(4)
+    ctx = _fanned_session("cpu", sf, SEED)
+    sqls = dict(_queries(("q1", "q3")))
+    churn = _churned(ctx, sqls["q3"], SEED)
+    hedged = _hedge_arm(ctx, SEED, True, RESILIENCE_HEDGE_KNOBS)
+    out = {"q3": (churn["result"], churn["kinds"]),
+           "q1": (hedged(sqls["q1"]),
+                  hedged.coord.faults.get("hedges_issued"))}
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def _tracked_live() -> int:
+    """Resources the leak checker (runtime/leakcheck.py) still tracks:
+    staged slices, spill slots, checkpoint slices, stream pullers."""
+    from datafusion_distributed_tpu_torch.runtime import leakcheck
+
+    return len(leakcheck.live())
+
+
+def _drain_shapes(hk, acc: dict) -> None:
+    """Add the kernels' logged shapes to ``acc`` and set the counts to 0."""
+    for name, shapes in (("build", hk.BUILD_SHAPES), ("probe", hk.PROBE_SHAPES),
+                         ("agg", hk.AGG_SHAPES)):
+        for k, c in shapes.items():
+            acc[name][k] = acc[name].get(k, 0) + c
+    hk.reset_launch_counts()
+
+
+def agg_shape_checks(agg_shapes, dev, tag: str) -> dict:
+    """Kernel 3 at every shape a run logged ((rows, int32 lanes, slots,
+    ops) -> launches), on seeded keys and values drawn on the card, bit for
+    bit and round for round against its plain version."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.ops.hash import hash_columns
+
+    aggs = {}
+    for (n, lanes, slots, ops), _count in agg_shapes.items():
+        gen = _device_rng(f"{tag} agg {n} {lanes} {slots} {ops}", dev)
+        ndv = max(1, int(0.45 * slots))
+        vals = _ints(gen, (ndv, lanes), dev)
+        keys = vals[torch.randint(0, ndv, (n,), generator=gen, device=dev)]
+        s0 = (hash_columns([keys[:, i] for i in range(lanes)],
+                           [None] * lanes) & (slots - 1)).to(torch.int32)
+        live = torch.rand(n, generator=gen, device=dev) < 0.9
+        values = _ints(gen, (n, len(ops)), dev, -1000, 1000)
+        got = hk.group_aggregate(keys, s0, live, values, slots, ops)
+        ref = hk.group_aggregate_plain(keys, s0, live, values, slots, ops)
+        err = max_abs_err(zip(got[:5], ref[:5]))
+        case = {"rounds": int(got[5]), "max_abs_err": err,
+                "overflow": bool(got[4])}
+        check(err == 0 and case["rounds"] == int(ref[5]),
+              f"group_aggregate rows={n} lanes={lanes} slots={slots} "
+              f"ops={ops}: kernel != plain ({case})")
+        aggs[f"{n}x{lanes}/{slots}/{','.join(ops)}"] = case
+        log(f"[{tag}] group_aggregate rows={n} lanes={lanes} slots={slots} "
+            f"ops={ops}: {case}")
+        del keys, s0, live, values, got, ref
+    torch.cuda.synchronize()
+    return aggs
+
+
+def phase_resilience(sf: float, check_sf: float, seed: int) -> dict:
+    """Straggler hedging, elastic membership with departed-peer healing and
+    the observability service on the card, TPC-H SF ``sf`` through
+    Coordinator over DynamicCluster(4) at 4 tasks.
+
+    1. Hedging: RESILIENCE_HEDGE_QUERIES in four arms (no fault or a
+    sticky 2 s straggler on worker-1; hedging off or on with a 0.25 s floor
+    and a budget of 2), each cold then warm on one coordinator and cluster:
+    warm wall per query, the hedge counters, the most hedges in flight (at
+    most the budget), the latency sketch's p99 beside the warm run's task
+    walls; every result equal to single-node. Launches are counted from 0 over the
+    hedged straggler arm's warm run.
+    2. Churn: the 22 queries, each over a fresh DynamicCluster(4) under a
+    leave, a join and a drain with transport faults: byte-identical to the
+    same session's no-churn coordinated run, the drained worker removed,
+    no staged slice left, the card's allocated bytes before the query and
+    after its cluster is released.
+    3. Serving: tests/test_serving.py's chaos-and-churn mix through
+    ServingSession(max_concurrent_queries=6) with hedging on: identical to
+    the sequential runs, the per-query chaos state swept, no slice left;
+    the ObservabilityService's membership, robustness and data-plane
+    totals.
+    4. q3 checkpointed, a worker holding its slices removed, resumed.
+    5. At SF ``check_sf`` q3 churned and q1 hedged against the CPU (a
+    subprocess that runs meanwhile).
+    6. Kernels 1, 2 and 3 at every shape the phase logged, bit for bit
+    against their plain versions."""
+    cpu_out = Path(tempfile.mkdtemp()) / "resilience_cpu.pkl"
+    cpu_worker = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--resilience-cpu-worker", str(check_sf), "--out", str(cpu_out)],
+        stdout=subprocess.DEVNULL)
+    try:
+        return _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out)
+    finally:
+        if cpu_worker.poll() is None:
+            cpu_worker.kill()
+            cpu_worker.wait()
+
+
+def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
+    import gc
+
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.runtime import chaos, leakcheck
+    from datafusion_distributed_tpu_torch.runtime.checkpoint import (
+        CheckpointStore,
+        QueryCheckpointer,
+    )
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator,
+        DynamicCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.observability import (
+        ObservabilityService,
+    )
+    from datafusion_distributed_tpu_torch.runtime.serving import (
+        ServingSession,
+    )
+
+    rtol = precision.test_rtol()
+    t_phase = time.perf_counter()
+    out: dict = {}
+    ctx = _session("cuda", sf, seed)
+    sqls = dict(_queries(QUERIES))
+    shapes: dict = {"build": {}, "probe": {}, "agg": {}}
+    hk.reset_launch_counts()
+    # every tracked acquisition from here on is checked for its release
+    leakcheck.install()
+    leakcheck.reset()
+
+    # --- 1. hedging ---------------------------------------------------------
+    single = {q: _run(ctx, sqls[q]) for q in RESILIENCE_HEDGE_QUERIES}
+    arms: dict = {}
+    plain: dict = {}
+    for name, (straggler, opts) in RESILIENCE_ARMS.items():
+        arm = _hedge_arm(ctx, seed, straggler, opts)
+        coord = arm.coord
+        walls = {}
+        for run in ("cold", "warm"):
+            if name == "straggler_on" and run == "warm":
+                _drain_shapes(hk, shapes)
+            if run == "warm":
+                coord.metrics.clear()  # the warm run's task walls below
+            for q in RESILIENCE_HEDGE_QUERIES:
+                t0 = time.perf_counter()
+                got = arm(sqls[q])
+                walls.setdefault(run, {})[q] = time.perf_counter() - t0
+                diff, _tied = _close_or_ties(got, single[q], rtol)
+                check(diff == "", f"{q} in the {name} arm ({run}) differs "
+                      f"from single-node in {diff}")
+                if name == "no_fault_off" and run == "warm":
+                    plain[q] = got
+            if name == "straggler_on" and run == "warm":
+                out["launches"] = dict(hk.LAUNCHES)
+                _drain_shapes(hk, shapes)
+        counters = {k: coord.faults.get(k)
+                    for k in ("hedges_issued", "hedges_won", "hedges_lost",
+                              "hedges_abandoned", "hedge_budget_denied")}
+        peak = coord.hedges.peak_in_flight if coord.hedges is not None else 0
+        task_walls = sorted(m["elapsed_s"] for m in coord.metrics.values()
+                            if m.get("elapsed_s") is not None)
+        arms[name] = {
+            "warm_s": walls["warm"], "cold_s": walls["cold"],
+            "warm_sum_s": sum(walls["warm"].values()), **counters,
+            "peak_hedges_in_flight": peak,
+            "sketch_p99_s": coord.latency.percentile(0.99),
+            "task_wall_s": {"tasks": len(task_walls),
+                            "median": task_walls[len(task_walls) // 2],
+                            "max": task_walls[-1]},
+        }
+        if opts.get("hedging"):
+            check(peak <= opts["hedge_budget"],
+                  f"{name}: {peak} hedges in flight, budget "
+                  f"{opts['hedge_budget']}")
+        del arm, coord
+        arms[name]["tracked_live"] = _tracked_live()
+        check(arms[name]["tracked_live"] == 0,
+              f"{name}: the leak checker tracks "
+              f"{arms[name]['tracked_live']} live resources")
+        log(f"[resilience] hedging {name}: {arms[name]} ({_since(t_phase)})")
+    check(arms["straggler_on"]["hedges_won"] >= 1,
+          "no hedge won against the straggler")
+    for k in ("build_group_ids", "multiway_probe"):
+        check(out["launches"][k] > 0,
+              f"kernel {k} was not launched by the hedged straggler arm")
+    out["hedging"] = arms
+
+    # --- 2. churn -------------------------------------------------------------
+    churn: dict = {}
+    for q in QUERIES:
+        base = plain.get(q)
+        if base is None:
+            base = _coordinated(ctx, sqls[q], False,
+                                DynamicCluster(RESILIENCE_WORKERS))[0]
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = _churned(ctx, sqls[q], seed)
+        wall = time.perf_counter() - t0
+        got = r.pop("result")
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        check(_identical(got, base),
+              f"{q} under membership churn differs from its no-churn run")
+        check("membership_leave" in r["kinds"],
+              f"{q}: the leave at the first execute never fired")
+        check(r["drained"], f"{q}: the draining worker never drained")
+        check(r["leaked"] == 0, f"{q}: {r['leaked']} staged tables or tasks "
+              "left on the surviving workers")
+        r["tracked_live"] = _tracked_live()
+        check(r["tracked_live"] == 0, f"{q}: the leak checker tracks "
+              f"{r['tracked_live']} live resources after the churned run")
+        churn[q] = {**r, "s": wall, "allocated_before": before,
+                    "allocated_after": after}
+        log(f"[resilience] churn {q}: {churn[q]} ({_since(t_phase)})")
+    out["churn"] = churn
+    out["churn_all_kinds"] = [q for q, r in churn.items()
+                              if r["kinds"] == CHURN_KINDS]
+    out["churn_allocated_differs"] = [
+        q for q, r in churn.items()
+        if r["allocated_after"] != r["allocated_before"]]
+
+    # --- 3. serving under chaos and churn ---------------------------------
+    served_base = {q: plain.get(q) for q in set(RESILIENCE_SERVED)}
+    served_base["q6"] = _coordinated(ctx, sqls["q6"], False,
+                                     DynamicCluster(RESILIENCE_WORKERS))[0]
+    cluster = DynamicCluster(RESILIENCE_WORKERS)
+    urls = cluster.get_urls()
+    plan = chaos.FaultPlan(seed, [
+        chaos.FaultSpec(site="execute", kind="transport", rate=0.1),
+        chaos.FaultSpec(site="set_plan", kind="transport", rate=0.05),
+    ], membership=[
+        chaos.MembershipEvent("leave", urls[3], site="execute", nth_call=5),
+        chaos.MembershipEvent("join", "mem://joiner-srv", site="set_plan",
+                              nth_call=12),
+    ], query_scoped=True)
+    opts = ctx.config.distributed_options
+    opts.update(max_task_retries=RESILIENCE_CHURN_RETRIES,
+                **RESILIENCE_HEDGE_KNOBS)
+    t0 = time.perf_counter()
+    try:
+        with ServingSession(ctx, cluster=chaos.wrap_cluster(cluster, plan),
+                            num_tasks=RESILIENCE_TASKS,
+                            max_concurrent_queries=6) as srv:
+            handles = [srv.submit(sqls[q]) for q in RESILIENCE_SERVED]
+            for q, h in zip(RESILIENCE_SERVED, handles):
+                check(_identical(_served(h), served_base[q]),
+                      f"{q} served under chaos and churn differs from its "
+                      "sequential run")
+            obs = ObservabilityService(cluster, cluster, health=srv.health,
+                                       fault_counters=srv.faults,
+                                       serving=srv)
+            served = {
+                "s": time.perf_counter() - t0,
+                "membership": obs.get_membership(),
+                "robustness": obs.get_robustness(),
+                "data_plane": {k: v for k, v in obs.get_data_plane().items()
+                               if k != "workers"},
+                "hedging": srv.stats()["hedging"],
+            }
+    finally:
+        for k in ("max_task_retries", *RESILIENCE_HEDGE_KNOBS):
+            opts.pop(k, None)
+    kinds = {f["kind"] for f in plan.fired}
+    check({"membership_leave", "membership_join"} <= kinds,
+          f"the served mix fired {sorted(kinds)}")
+    check(not plan._calls, "the served mix left per-query chaos state")
+    _serving_leaks(cluster, "the served chaos-and-churn mix")
+    served["tracked_live"] = _tracked_live()
+    served["tracked_leaked"] = len(leakcheck.leaks())
+    check(served["tracked_live"] == served["tracked_leaked"] == 0,
+          f"the served mix left {served['tracked_live']} tracked resources "
+          f"live, {served['tracked_leaked']} flagged at query end")
+    out["served"] = served
+    log(f"[resilience] served under chaos and churn: {served} "
+        f"({_since(t_phase)})")
+
+    # --- 4. checkpoint resume after churn -----------------------------------
+    cluster = DynamicCluster(RESILIENCE_WORKERS)
+    store = CheckpointStore()
+    rid = store.admit(sqls["q3"])
+    crashing = chaos.wrap_cluster(cluster, chaos.FaultPlan(seed, [
+        chaos.FaultSpec(site="execute", kind="crash", stages=[-1],
+                        rate=1.0)]))
+    c1 = Coordinator(resolver=crashing, channels=crashing, config_options={
+        **ctx.config.distributed_snapshot(), "peer_shuffle": False,
+        "max_task_retries": 0})
+    c1.checkpoints = QueryCheckpointer(store, rid, crashing, crashing)
+    failed = False
+    try:
+        ctx.sql(sqls["q3"]).collect_coordinated_table(
+            coordinator=c1, num_tasks=RESILIENCE_TASKS)
+    except Exception as e:  # noqa: BLE001 - the injected crash
+        failed = "injected worker crash" in str(e)
+    check(failed, "q3 did not fail at its root stage")
+    held = sorted({url for ck in store._records[rid].stages.values()
+                   for url, _t, _n in ck.slices})
+    check(bool(held), "no checkpointed slice to lose")
+    cluster.remove_worker(held[0])
+    c2 = Coordinator(resolver=cluster, channels=cluster, config_options={
+        **ctx.config.distributed_snapshot(), "peer_shuffle": False})
+    c2.checkpoints = QueryCheckpointer(store, rid, cluster, cluster)
+    got = ctx.sql(sqls["q3"]).collect_coordinated_table(
+        coordinator=c2, num_tasks=RESILIENCE_TASKS).to_numpy()
+    faults = c2.faults.as_dict()
+    check(_identical(got, plain["q3"]), "resumed q3 differs from q3")
+    check(faults.get("checkpoint_slices_lost", 0) >= 1,
+          f"the departed worker's slices were not counted lost: {faults}")
+    store.release(rid, cluster)
+    _serving_leaks(cluster, "the resumed q3")
+    check(_tracked_live() == 0, "the resumed q3 left tracked resources")
+    out["resume"] = {"removed": held[0], **{
+        k: faults.get(k, 0) for k in (
+            "checkpoint_stages_restored", "checkpoint_slices_lost",
+            "queries_resumed")}}
+    log(f"[resilience] resume after churn: {out['resume']} "
+        f"({_since(t_phase)})")
+    del ctx, c1, c2, crashing, cluster, store, plain, single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 5. card against CPU -----------------------------------------------
+    gpu = _fanned_session("cuda", check_sf, seed)
+    small = dict(_queries(("q1", "q3")))
+    card_churn = _churned(gpu, small["q3"], seed)
+    arm = _hedge_arm(gpu, seed, True, RESILIENCE_HEDGE_KNOBS)
+    card_hedged = arm(small["q1"])
+    check(cpu_worker.wait(timeout=RESILIENCE_CPU_TIMEOUT_S) == 0,
+          f"the CPU worker exited {cpu_worker.returncode}")
+    with open(cpu_out, "rb") as f:
+        cpu_results = pickle.load(f)
+    diff = _close(card_churn["result"], cpu_results["q3"][0], rtol)
+    check(diff == "", f"churned q3: cuda and cpu differ in {diff}")
+    check(card_churn["kinds"] == cpu_results["q3"][1] == CHURN_KINDS,
+          f"churned q3 fired {card_churn['kinds']} on the card, "
+          f"{cpu_results['q3'][1]} on the CPU")
+    diff = _close(card_hedged, cpu_results["q1"][0], rtol)
+    check(diff == "", f"hedged q1: cuda and cpu differ in {diff}")
+    out["card_cpu"] = {
+        "q3_identical": _identical(card_churn["result"],
+                                   cpu_results["q3"][0]),
+        "q1_identical": _identical(card_hedged, cpu_results["q1"][0]),
+        "q1_hedges_issued": [arm.coord.faults.get("hedges_issued"),
+                             cpu_results["q1"][1]]}
+    log(f"[resilience] SF {check_sf}: churned q3 and hedged q1 equal on "
+        f"cuda and cpu {out['card_cpu']} ({_since(t_phase)})")
+    del gpu, arm
+
+    # --- 6. every logged shape against the plain version -------------------
+    _drain_shapes(hk, shapes)
+    dev = torch.device("cuda")
+    out["kernel_checks"] = {
+        "build_group_ids": build_shape_checks(
+            [[n, lanes, h, c] for (n, lanes, h), c
+             in shapes["build"].items()], dev, "resilience"),
+        "multiway_probe": probe_shape_checks(
+            [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
+             in shapes["probe"].items()], dev, "resilience"),
+        "group_aggregate": agg_shape_checks(shapes["agg"], dev,
+                                            "resilience"),
+    }
+    out["shapes"] = {k: len(v) for k, v in shapes.items()}
+    log(f"[resilience] shapes checked: {out['shapes']} ({_since(t_phase)})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: ClickBench in x64 mode, in a subprocess
 # ---------------------------------------------------------------------------
 
 CLICKBENCH_ROWS = 99_997_497  # ClickBench's `hits` table
@@ -2961,7 +3473,7 @@ SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
           "window", "distributed", "tasks", "coordinator", "serving",
-          "clickbench")
+          "resilience", "clickbench")
 CLICKBENCH_TIMEOUT_S = 800
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -2982,6 +3494,8 @@ def main(argv=None) -> int:
                     metavar="SF", help=argparse.SUPPRESS)
     ap.add_argument("--serving-cpu-worker", type=float, default=None,
                     metavar="SF", help=argparse.SUPPRESS)
+    ap.add_argument("--resilience-cpu-worker", type=float, default=None,
+                    metavar="SF", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -3000,6 +3514,8 @@ def main(argv=None) -> int:
         return coord_cpu_worker(args.coord_cpu_worker, args.out)
     if args.serving_cpu_worker is not None:
         return serving_cpu_worker(args.serving_cpu_worker, args.out)
+    if args.resilience_cpu_worker is not None:
+        return resilience_cpu_worker(args.resilience_cpu_worker, args.out)
     if args.clickbench_worker:
         try:
             return clickbench_worker(args.out)
@@ -3050,6 +3566,8 @@ def main(argv=None) -> int:
                     SF, CHECK_SF, QUERIES, SEED)
             elif phase == "serving":
                 results["serving"] = phase_serving(SF, CHECK_SF, SEED)
+            elif phase == "resilience":
+                results["resilience"] = phase_resilience(SF, CHECK_SF, SEED)
             else:
                 results["clickbench"] = phase_clickbench(CLICKBENCH_TIMEOUT_S)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
@@ -3077,11 +3595,12 @@ def main(argv=None) -> int:
              "coordinated": ("coordinator",),
              "coordinated_adaptive": ("coordinator",),
              "serving": ("serving",),
+             "resilience": ("resilience",),
              "clickbench_x64": ("clickbench",),
              "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
                     for phase in ("distributed", "tasks", "coordinator",
-                                  "serving", "clickbench")]
+                                  "serving", "resilience", "clickbench")]
     shape_checks.append(results.get("clickbench", {}).get("t8", {})
                         .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
@@ -3168,6 +3687,21 @@ def main(argv=None) -> int:
                 d["recover"]["faults"].get("checkpoint_stages_restored"),
             "launches": d["launches"],
             "card_cpu_identical": d["card_cpu_identical"]}}))
+    if "resilience" in results:
+        d = results["resilience"]
+        print(json.dumps({"resilience": {
+            "hedging": {arm: {k: v for k, v in r.items() if k != "cold_s"}
+                        for arm, r in d["hedging"].items()},
+            "churn": {q: {k: r[k] for k in (
+                "s", "fired", "reshipped", "refreshed", "retries", "drained",
+                "leaked", "tracked_live", "allocated_before",
+                "allocated_after")}
+                for q, r in d["churn"].items()},
+            "churn_allocated_differs": d["churn_allocated_differs"],
+            "churn_all_kinds": d["churn_all_kinds"],
+            "served": d["served"], "resume": d["resume"],
+            "card_cpu": d["card_cpu"], "shapes": d["shapes"],
+            "launches": d["launches"]}}))
     if "clickbench" in results:
         cb = results["clickbench"]
         print(json.dumps({"clickbench": {

@@ -31,7 +31,8 @@ Builds. A build's round count and overflow flag are 0-d tensors on the
 build's device, and each build adds to that device's ``ROUND_STATS``
 counter (the CUDA kernel on the card, the plain path on the CPU), so a
 build on the card makes no host sync; `round_stats()` reads the counters
-when asked. ``BUILD_SHAPES`` counts the launches of kernel 1 by shape.
+when asked. ``BUILD_SHAPES`` counts the launches of kernel 1 by shape,
+``AGG_SHAPES`` those of kernel 3.
 
 Probe. Kernel 2 walks (row, table) pairs in chunks of two a thread, read
 coalesced, and each thread walks its two chains in lock step, issuing a
@@ -82,6 +83,9 @@ BUILD_SHAPES: dict = {}
 #: probe launches since the last reset, by shape: (rows, tables, lanes,
 #: table slots) -> launches
 PROBE_SHAPES: dict = {}
+#: fused GROUP BY launches since the last reset, by shape: (rows, int32 key
+#: lanes, slots, accumulator ops) -> launches
+AGG_SHAPES: dict = {}
 #: most tables of one probe launch (csrc/probe.cu kMaxTables)
 MAX_TABLES_PER_LAUNCH = 8
 #: most (row, table) pairs of one probe on the card (csrc/probe.cu kMaxPairs)
@@ -143,6 +147,7 @@ def reset_launch_counts() -> None:
             LAUNCHES[k] = 0
         BUILD_SHAPES.clear()
         PROBE_SHAPES.clear()
+        AGG_SHAPES.clear()
     reset_round_stats()
 
 
@@ -602,5 +607,6 @@ def group_aggregate(keys_mat, slot0, live, values, num_slots: int,
             *[_ptr(t) for t in scratch], _stream(keys),
         )
     _check(lib, err, "dftpu_group_aggregate")
-    _count_launch("group_aggregate")
+    _count_launch("group_aggregate", AGG_SHAPES,
+                  (n, lanes, num_slots, tuple(ops)))
     return gid, rep, used, acc, overflow, rounds

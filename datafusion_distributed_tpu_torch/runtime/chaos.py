@@ -1,11 +1,9 @@
 """Deterministic fault injection for the host-runtime tier.
 
 Port of the reference `runtime/chaos.py`. Ported fault kinds: crash,
-transport, delay, straggler, corrupt_plan, oom and skew. Two parts wait
-for the tiers they drive and raise NotImplementedError naming their
-ROADMAP item: membership events (`MembershipEvent`, `apply_membership`;
-they need `DynamicCluster`, ROADMAP A.5.2) and `kind="segment_lost"` (the
-shm plane, ROADMAP A.5.3).
+transport, delay, straggler, corrupt_plan, oom and skew, and the
+membership events. `kind="segment_lost"` waits for the tier it drives and
+raises NotImplementedError naming it (the shm plane, ROADMAP A.5.3).
 
 A seeded `FaultPlan` wraps a cluster's workers (`wrap_cluster` /
 `ChaosWorker`) and injects faults at the coordinator-visible call sites:
@@ -19,6 +17,13 @@ A seeded `FaultPlan` wraps a cluster's workers (`wrap_cluster` /
              delays, applied uniformly to execute_task,
              execute_task_stream, execute_task_partitions and
              transfer_partitions
+
+Membership churn (`MembershipEvent`): seeded `leave`/`join`/`drain`
+events scheduled by site/stage/task like the fault kinds above, applied
+to the wrapped cluster's dynamic-membership surface
+(runtime/coordinator.py `DynamicCluster`) when the triggering call
+arrives — a departed worker's endpoint then fails retryably, exercising
+the coordinator's live re-routing and peer-producer re-ship paths.
 
 PER-CALL decisions are DETERMINISTIC and thread-order independent: each
 (site, stage, task, nth-call) tuple hashes with the seed to a unit float
@@ -135,37 +140,72 @@ class FaultSpec:
         return True
 
 
+#: membership actions a MembershipEvent may name (runtime/coordinator.py
+#: DynamicCluster surface)
+MEMBERSHIP_ACTIONS = ("leave", "join", "drain")
+
+
 @dataclass
 class MembershipEvent:
-    """A scheduled membership mutation of a `DynamicCluster` (the
-    reference's `leave`/`join`/`drain` at the nth matching call): not
-    ported, it raises (ROADMAP A.5.2)."""
+    """One scheduled membership mutation: WHEN a call matching
+    (site, stages, tasks) arrives for the ``nth_call`` time, the target
+    ``url`` leaves / joins / starts draining the wrapped DynamicCluster —
+    the elastic analogue of a FaultSpec, scheduled by site/stage/task like
+    the existing fault kinds. Events fire exactly once. Like capped fault
+    specs, the trigger slot is consumed in call ARRIVAL order, so under a
+    concurrent stage fan-out the triggering (task, worker) may vary across
+    runs while the EVENT SET stays deterministic — assert on results and
+    membership state, not on which call pulled the trigger."""
 
-    action: str
-    url: str
-    site: str = "execute"
+    action: str  # "leave" | "join" | "drain"
+    url: str  # the worker that leaves/joins/drains
+    site: str = "execute"  # triggering call site ("set_plan" | "execute")
+    #: restrict triggering calls to these stage ids; None = any stage
     stages: Optional[Sequence[int]] = None
+    #: restrict triggering calls to these task numbers; None = any task
     tasks: Optional[Sequence[int]] = None
+    #: fire on the nth MATCHING call (0 = the first)
     nth_call: int = 0
+    #: leave only: release the departing worker's registry/store (process
+    #: death); False leaks on purpose (for testing leak detection itself)
     release: bool = True
 
     def __post_init__(self):
-        raise NotImplementedError(
-            "chaos membership events (MembershipEvent) drive DynamicCluster, "
-            "which is not ported: ROADMAP A.5.2"
-        )
+        if self.action not in MEMBERSHIP_ACTIONS:
+            raise ValueError(
+                f"unknown membership action {self.action!r} "
+                f"(expected one of {MEMBERSHIP_ACTIONS})"
+            )
+        if self.site not in SITES:
+            raise ValueError(
+                f"unknown membership trigger site {self.site!r} "
+                f"(expected one of {SITES})"
+            )
+
+    def _matches(self, site: str, stage_id: int, task_number: int) -> bool:
+        if site != self.site:
+            return False
+        if self.stages is not None and stage_id not in self.stages:
+            return False
+        if self.tasks is not None and task_number not in self.tasks:
+            return False
+        return True
 
 
 class FaultPlan:
     """Seeded, thread-safe fault schedule shared by a cluster's
     ChaosWorkers. `fired` records every injected fault (site, url, stage,
     task, kind) — tests assert against it, and a failure report quoting it
-    plus the seed reproduces the schedule."""
+    plus the seed reproduces the schedule. ``membership`` adds scheduled
+    `leave`/`join`/`drain` events applied to the wrapped cluster's
+    dynamic-membership surface at the same call sites."""
 
     def __init__(self, seed: int, specs: Sequence[FaultSpec],
+                 membership: Sequence[MembershipEvent] = (),
                  query_scoped: bool = False):
         self.seed = int(seed)
         self.specs = list(specs)
+        self.membership = list(membership)
         #: per-QUERY call counting (the multi-query serving tier): each
         #: query's (stage, task) call counts start at zero and the hash
         #: input stays query-free, so every concurrent query replays the
@@ -192,6 +232,9 @@ class FaultPlan:
         #: decision per key; True keeps delaying every later matching
         #: call — the sticky-slow-worker fault (kind="straggler")
         self._stragglers: dict[tuple, bool] = {}  # guarded-by: _lock
+        #: event idx -> matching-call count / fired flag
+        self._member_calls: dict[int, int] = {}  # guarded-by: _lock
+        self._member_fired: set = set()  # guarded-by: _lock
 
     _FIRED_CAP = 4096
 
@@ -202,6 +245,34 @@ class FaultPlan:
         self.fired.append(rec)
         if len(self.fired) > self._FIRED_CAP:
             del self.fired[: len(self.fired) - self._FIRED_CAP]
+
+    def membership_due(self, site: str, url: str, key) -> list:
+        """Membership events whose trigger this call just satisfied (each
+        fires once); the caller applies them to the cluster."""
+        if not self.membership:
+            return []
+        stage_id = getattr(key, "stage_id", -1)
+        task_number = getattr(key, "task_number", 0)
+        due = []
+        with self._lock:
+            for i, ev in enumerate(self.membership):
+                if i in self._member_fired:
+                    continue
+                if not ev._matches(site, stage_id, task_number):
+                    continue
+                nth = self._member_calls.get(i, 0)
+                self._member_calls[i] = nth + 1
+                if nth != ev.nth_call:
+                    continue
+                self._member_fired.add(i)
+                self._note_fired_locked({
+                    "site": site, "url": ev.url, "stage_id": stage_id,
+                    "task_number": task_number,
+                    "kind": f"membership_{ev.action}", "nth_call": nth,
+                    "trigger_url": url,
+                })
+                due.append(ev)
+        return due
 
     def _unit(self, spec_idx: int, site: str, stage_id: int,
               task_number: int, nth: int) -> float:
@@ -447,9 +518,26 @@ class ChaosWorker:
     paired with `SET distributed.task_timeout_s` it exercises the
     hung-worker -> TaskTimeoutError conversion."""
 
-    def __init__(self, inner, plan: FaultPlan):
+    def __init__(self, inner, plan: FaultPlan, cluster=None):
         self._inner = inner
         self._plan = plan
+        self._cluster = cluster  # ChaosCluster, for membership events
+
+    def _membership(self, site: str, key) -> None:
+        """Apply any membership events this call triggers, then fail the
+        call if THIS worker is no longer a member: a departed worker's
+        endpoint is dead — staged slices and shipped plans went with it —
+        and the coordinator's retry machinery must re-stage onto
+        survivors."""
+        if self._cluster is None:
+            return
+        for ev in self._plan.membership_due(site, self.url, key):
+            self._cluster.apply_membership(ev)
+        if self._cluster.is_departed(self.url):
+            raise WorkerUnavailableError(
+                f"[chaos] worker left the cluster at {site}",
+                worker_url=self.url, task=key,
+            )
 
     # -- intercepted control plane ------------------------------------------
     def set_plan(self, key, plan_obj, task_count, cancel=None, **kw):
@@ -457,6 +545,7 @@ class ChaosWorker:
         # forwarded: the inner worker surface has no dispatch-cancel
         # parameter — the coordinator only passes it because this proxy
         # declares it
+        self._membership("set_plan", key)
         spec = self._plan.decide("set_plan", self.url, key)
         if spec is not None:
             if spec.kind in ("delay", "straggler"):
@@ -493,6 +582,7 @@ class ChaosWorker:
         store.set_budget(budget)
 
     def _execute_fault(self, key, cancel=None):
+        self._membership("execute", key)
         spec = self._plan.decide("execute", self.url, key)
         if spec is not None:
             if spec.kind in ("delay", "straggler"):
@@ -553,15 +643,22 @@ class ChaosCluster:
     """Resolver+channels facade over a real cluster, handing out
     ChaosWorker proxies. The inner workers' PEER channels stay unwrapped
     (peer pulls model worker<->worker links; this harness injects at the
-    coordinator<->worker boundary). Every other attribute of the inner
-    cluster (`workers`, ...) passes through via `__getattr__`."""
+    coordinator<->worker boundary). Membership events in the FaultPlan
+    are applied through the inner cluster's dynamic-membership surface
+    (DynamicCluster add/remove/drain); the membership API itself —
+    `add_worker`, `drain_worker`, `membership_epoch`,
+    `membership_snapshot`, `workers`, ... — passes through via
+    `__getattr__` so a coordinator sees the chaos-wrapped cluster as the
+    elastic cluster it wraps."""
 
     inner: "object"
     plan: FaultPlan
     _proxies: dict = field(default_factory=dict)  # guarded-by: _proxy_lock
-    # stage fan-out threads resolve workers concurrently: an unlocked
-    # check-then-insert could mint two proxies for one url (splitting the
-    # fault plan's nth-call view of that worker)
+    # stage fan-out threads resolve workers concurrently with chaos
+    # membership events popping proxies from worker-call threads: an
+    # unlocked check-then-insert could mint two proxies for one url
+    # (splitting the fault plan's nth-call view of that worker) or
+    # resurrect a departed worker's proxy mid-pop
     _proxy_lock: threading.Lock = field(default_factory=threading.Lock)
 
     def get_urls(self) -> list[str]:
@@ -571,25 +668,34 @@ class ChaosCluster:
         with self._proxy_lock:
             if url not in self._proxies:
                 self._proxies[url] = ChaosWorker(
-                    self.inner.get_worker(url), self.plan
+                    self.inner.get_worker(url), self.plan, cluster=self
                 )
             return self._proxies[url]
 
+    # -- membership events ----------------------------------------------------
     def apply_membership(self, ev: MembershipEvent) -> None:
-        raise NotImplementedError(
-            "chaos membership events (apply_membership) drive "
-            "DynamicCluster, which is not ported: ROADMAP A.5.2"
-        )
+        if ev.action == "leave":
+            self.inner.remove_worker(ev.url, release=ev.release)
+            with self._proxy_lock:
+                self._proxies.pop(ev.url, None)
+        elif ev.action == "join":
+            self.inner.add_worker(ev.url)
+        else:  # drain
+            self.inner.drain_worker(ev.url)
+
+    def is_departed(self, url: str) -> bool:
+        probe = getattr(self.inner, "is_departed", None)
+        return bool(probe(url)) if callable(probe) else False
 
     def __getattr__(self, name: str):
-        # introspection passthrough (only reached for attributes not
-        # defined on the facade itself)
+        # dynamic-membership + introspection passthrough (only reached for
+        # attributes not defined on the facade itself)
         return getattr(self.inner, name)
 
 
 def wrap_cluster(cluster, plan: FaultPlan) -> ChaosCluster:
-    """Wrap any resolver+channels cluster (InMemoryCluster) in the
-    fault-injection harness."""
+    """Wrap any resolver+channels cluster (InMemoryCluster,
+    DynamicCluster) in the fault-injection harness."""
     return ChaosCluster(cluster, plan)
 
 

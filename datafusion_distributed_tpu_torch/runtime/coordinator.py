@@ -24,9 +24,10 @@ producer's rows through numpy), and each table's live-row count is read to
 the host once (ops/table.py `host_rows`, `read_rows`). The serving tier's
 hooks are ported: the global stage pool (`stage_pool`), query checkpoints
 (`checkpoints`), the sub-plan cache (`result_cache`) and the enforced
-worker memory budget. Left out, each refusing rather than falling back:
-hedging, `DynamicCluster` and the departed-peer healing (ROADMAP A.5.2),
-the shm data plane (A.5.3) and mesh-worker span dispatch (A.4).
+worker memory budget; elastic membership (`DynamicCluster`), the
+departed-peer healing and straggler hedging. Every attempt of a task
+(a hedge included) runs on the device's one current stream. Left out:
+the shm data plane (refused, A.5.3) and mesh-worker span dispatch (A.4).
 """
 
 from __future__ import annotations
@@ -131,10 +132,26 @@ PIPELINE_DEFAULTS = {
     "pipelined_shuffle": True,
 }
 
+#: straggler-hedging knobs (`SET distributed.hedging` etc.): when a
+#: task's attempt outlives max(sketch-p<hedge_quantile>, hedge_floor_s)
+#: the coordinator speculatively re-dispatches it to a different healthy
+#: worker; first completed attempt wins, the loser is cancelled and its
+#: staged slices released. hedge_budget bounds IN-FLIGHT speculative
+#: attempts cluster-wide (runtime/metrics.py HedgeBudget) so a cold
+#: sketch or a uniformly slow stage cannot stampede the cluster with
+#: doubled load. Off by default: hedging burns spare capacity for tail
+#: latency — a serving-tier tradeoff the operator opts into.
+HEDGING_DEFAULTS = {
+    "hedging": False,
+    "hedge_quantile": 0.99,
+    "hedge_floor_s": 0.05,
+    "hedge_budget": 2,
+}
+
 #: single lookup for every `SET distributed.*` knob default the
 #: coordinator reads through _opt_int/_opt_float
 _OPTION_DEFAULTS = {
-    **FAULT_TOLERANCE_DEFAULTS, **SCHEDULER_DEFAULTS,
+    **FAULT_TOLERANCE_DEFAULTS, **SCHEDULER_DEFAULTS, **HEDGING_DEFAULTS,
 }
 
 
@@ -149,6 +166,30 @@ def _terminal(exc: WorkerError) -> WorkerError:
 #: their first failures concurrently, and a lost race would drop a failure
 #: on an orphan tracker (threshold-1 quarantines silently missed)
 _HEALTH_INIT_LOCK = threading.Lock()
+
+#: same role for the lazily-created HedgeBudget: two concurrent tasks
+#: each minting a budget would double the in-flight bound
+_HEDGE_INIT_LOCK = threading.Lock()
+
+
+class _EitherSet:
+    """Duck-typed cancel handle merging two events: ``is_set()`` when
+    EITHER is. Lets a hedge attempt hand workers/chaos ONE pollable
+    object combining the per-query cancel (a sibling failed / the caller
+    cancelled) with the attempt's private loser-cancel (it lost the
+    hedge race). Members may be None or nested _EitherSets."""
+
+    __slots__ = ("_a", "_b")
+
+    def __init__(self, a, b):
+        self._a = a
+        self._b = b
+
+    def is_set(self) -> bool:
+        return (self._a is not None and self._a.is_set()) or (
+            self._b is not None and self._b.is_set()
+        )
+
 
 class _RetryState:
     """Per-task retry bookkeeping: attempt count + the urls of workers
@@ -197,11 +238,172 @@ class InMemoryCluster(WorkerResolver, ChannelResolver):
 
 
 class DynamicCluster(WorkerResolver, ChannelResolver):
-    """Epoch-versioned mutable membership: not ported (ROADMAP A.5.2)."""
+    """Epoch-versioned MUTABLE cluster membership (the reference's
+    WorkerResolver as a dynamic layer, SURVEY §1): workers `add_worker`/
+    `remove_worker`/`drain_worker` at any time — including mid-query — and
+    every mutation bumps the monotonically increasing `membership_epoch`
+    the coordinator keys its per-membership caches on.
 
-    def __init__(self, *args, **kwargs):
-        raise _refuse("DynamicCluster (elastic membership and the "
-                      "departed-peer healing)", "A.5.2")
+    Three membership roles:
+
+      active    listed by `get_urls()` — eligible for new task dispatch
+      draining  NOT listed by `get_urls()` (no new tasks) but still
+                resolvable via `get_worker` so in-flight tasks finish and
+                staged peer-producer plans keep serving pulls; removed by
+                `finish_drains()` only once EMPTY (zero registry entries,
+                zero staged TableStore slices)
+      departed  `get_worker` raises the retryable WorkerUnavailableError —
+                the coordinator's retry machinery re-routes/re-stages the
+                affected work onto survivors
+
+    `remove_worker` models an abrupt leave (process death): the worker's
+    registry and shipment store are released, as the dying process would
+    release them — so leak accounting stays exact across churn."""
+
+    def __init__(self, num_workers: int = 0, ttl_seconds: float = 600.0,
+                 worker_factory: Optional[Callable[[str], Worker]] = None):
+        self._lock = threading.RLock()
+        self._epoch = 0  # guarded-by: _lock
+        self._active: dict[str, Worker] = {}  # guarded-by: _lock
+        self._draining: dict[str, Worker] = {}  # guarded-by: _lock
+        self._departed: set[str] = set()  # guarded-by: _lock
+        self._ttl = ttl_seconds
+        self._factory = worker_factory or (
+            lambda url: Worker(url, ttl_seconds)
+        )
+        for i in range(num_workers):
+            self.add_worker(f"mem://worker-{i}")
+
+    # -- resolver surface ---------------------------------------------------
+    @property
+    def membership_epoch(self) -> int:
+        with self._lock:
+            return self._epoch
+
+    def get_urls(self) -> list[str]:
+        with self._lock:
+            return list(self._active.keys())
+
+    def get_worker(self, url: str) -> Worker:
+        with self._lock:
+            w = self._active.get(url) or self._draining.get(url)
+            if w is not None:
+                return w
+        raise WorkerUnavailableError(
+            f"worker {url} is not in the cluster membership"
+            + (" (departed)" if url in self._departed else ""),
+            worker_url=url,
+        )
+
+    # -- membership mutation -------------------------------------------------
+    def add_worker(self, worker) -> Worker:
+        """Add ``worker`` (a Worker instance or a url for the factory).
+        A joining worker is immediately eligible for new dispatches —
+        including later stages of an already-running query."""
+        w = worker if isinstance(worker, Worker) else self._factory(worker)
+        with self._lock:
+            if w.url in self._active or w.url in self._draining:
+                raise ValueError(f"worker {w.url} already in the cluster")
+            # peers resolve each other through the cluster itself, so a
+            # joiner can serve AND issue peer pulls right away
+            w.peer_channels = self
+            self._active[w.url] = w
+            self._departed.discard(w.url)
+            self._epoch += 1
+        return w
+
+    def remove_worker(self, url: str, release: bool = True) -> None:
+        """Abrupt leave: the url stops resolving NOW. ``release`` frees the
+        worker's registry + shipment store the way its dying process would
+        (in-flight coordinator attempts against it fail retryably)."""
+        with self._lock:
+            w = self._active.pop(url, None) or self._draining.pop(url, None)
+            if w is None:
+                raise KeyError(f"worker {url} not in the cluster")
+            self._departed.add(url)
+            self._epoch += 1
+        if release:
+            w.registry.clear()
+            w.table_store.tables.clear()
+
+    def drain_worker(self, url: str) -> None:
+        """Graceful half of leave: accept no NEW tasks (the url drops out
+        of `get_urls()`), keep serving in-flight work and staged peer
+        producers, and become removable only once empty."""
+        with self._lock:
+            w = self._active.pop(url, None)
+            if w is None:
+                if url in self._draining:
+                    return  # already draining
+                raise KeyError(f"worker {url} not in the active membership")
+            self._draining[url] = w
+            self._epoch += 1
+
+    # -- drain accounting ----------------------------------------------------
+    def in_flight(self, url: str) -> int:
+        """Tasks the worker still holds: registry entries (staged or
+        executing) — zero plus an empty shipment store means drained."""
+        with self._lock:
+            w = self._active.get(url) or self._draining.get(url)
+        return 0 if w is None else len(w.registry)
+
+    def is_drained(self, url: str) -> bool:
+        with self._lock:
+            w = self._draining.get(url)
+        return (
+            w is not None
+            and len(w.registry) == 0
+            and not w.table_store.tables
+        )
+
+    def finish_drains(self) -> list[str]:
+        """Remove every draining worker that reached empty; -> the removed
+        urls. A draining worker still holding tasks/slices stays — the
+        'removed only when empty' contract."""
+        removed = []
+        with self._lock:
+            for url, w in list(self._draining.items()):
+                if len(w.registry) == 0 and not w.table_store.tables:
+                    del self._draining[url]
+                    self._departed.add(url)
+                    self._epoch += 1
+                    removed.append(url)
+        return removed
+
+    def wait_drained(self, url: str, timeout_s: float = 10.0,
+                     poll_s: float = 0.01) -> bool:
+        """Block until ``url`` is drained (then remove it) or the timeout
+        elapses; -> whether it drained."""
+        import time as _time
+
+        deadline = _time.monotonic() + timeout_s
+        while _time.monotonic() < deadline:
+            if self.is_drained(url):
+                self.finish_drains()
+                return True
+            _time.sleep(poll_s)
+        return False
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def workers(self) -> dict:
+        """url -> Worker for every member still owning resources (active +
+        draining) — the InMemoryCluster-compatible leak-check surface."""
+        with self._lock:
+            return {**self._active, **self._draining}
+
+    def is_departed(self, url: str) -> bool:
+        with self._lock:
+            return url in self._departed
+
+    def membership_snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "epoch": self._epoch,
+                "active": list(self._active.keys()),
+                "draining": list(self._draining.keys()),
+                "departed": sorted(self._departed),
+            }
 
 
 def _refuse(feature: str, item: str) -> NotImplementedError:
@@ -273,6 +475,11 @@ class Coordinator:
     # `self._tracer` for the execute's duration (NULL_TRACER when
     # `SET distributed.tracing` is off — the always-cheap-when-off path)
     trace_store: "object" = None
+    # in-flight speculative-attempt budget (runtime/metrics.py
+    # HedgeBudget), shared across every per-query coordinator under the
+    # serving tier so the hedge stampede bound is cluster-wide; created
+    # lazily on the first hedge decision otherwise
+    hedges: "object" = None
     # per-query checkpoint facade (runtime/checkpoint.py
     # QueryCheckpointer): when set, every materialized (MemoryScan)
     # exchange boundary snapshots its consumer slices on completion and
@@ -383,8 +590,21 @@ class Coordinator:
         # plane): released at query end — the reference's query-end EOS
         # notifier role (`query_coordinator.rs:188-192`)
         self._peer_shipped: list = []
+        # (query_id, stage_id) -> (prepared producer plan, t_prod, ttl):
+        # the re-ship source when a worker holding a shipped peer-producer
+        # plan departs the membership mid-query (_heal_departed_peers)
+        self._peer_plan_registry: dict = {}  # per-query: swept-by sweep_query
+        # accumulated ACROSS heal passes (healing is incremental — each
+        # failing consumer heals when IT retries, possibly long after the
+        # pass that moved a producer): producer key tuple -> the url now
+        # serving it, and the set of shipped copies whose on-worker plan
+        # pre-dates a spec rewrite and must be refreshed before trusted
+        self._peer_url_map: dict = {}  # per-query: swept-by sweep_query
+        self._peer_stale: set = set()  # per-query: swept-by sweep_query
         import time as _time
         import threading as _threading
+
+        self._peer_heal_lock = _threading.Lock()
 
         # per-query cancel event: the FIRST fatal error sets it, and every
         # dispatch/execute path checks it before doing work — a failed
@@ -399,8 +619,14 @@ class Coordinator:
         # external cancel reaches any execute attempt without being
         # conflated with one attempt's internal teardown.
         self._cancel_event = _threading.Event()
+        # hedge-attempt threads spawned this execute (appends are
+        # GIL-atomic single-op list mutations like _peer_shipped, so no
+        # lock is declared): joined in the finally below so every
+        # loser's cleanup lands before the query resolves — the leak
+        # gates observe a quiesced store, never a racing release
+        self._hedge_threads: list = []
         # pipelined-shuffle feeder threads (one per pipelined boundary;
-        # GIL-atomic single-op appends): joined in the finally
+        # GIL-atomic appends like _hedge_threads): joined in the finally
         # so producer-side cleanup (task invalidation, staged-slice
         # release inside the pull retry loops) lands before the query
         # resolves and the leak gates observe a quiesced store
@@ -463,6 +689,17 @@ class Coordinator:
             self._signal_cancel()
             raise
         finally:
+            # drain hedge attempts FIRST: a loser's thread owns releasing
+            # its staged slices, and the cancel plumbing (interruptible
+            # chaos delays, per-attempt events) makes these joins short on
+            # cancellable surfaces. A loser mid-compute on a surface with
+            # NO cancel parameter (plain in-process Worker) cannot be
+            # interrupted from Python — a final-stage straggler can then
+            # hold query COMPLETION (not the result) until it finishes or
+            # the join budget expires; `task_timeout_s` bounds that wall
+            # when set
+            for t in self._hedge_threads:
+                t.join(timeout=30.0)
             # drain pipelined feeders: on success they already finished
             # (the root stage consumed every partition); on failure the
             # cancel event stops their pullers at the next checkpoint —
@@ -475,6 +712,7 @@ class Coordinator:
             # path — DFTPU301/307); sweep_query re-runs the same helper
             # idempotently for direct _peer_boundary users
             self._release_peer_tasks(query_id)
+            self._drop_heal_state(query_id)
             # close the trace AFTER the peer sweep so last-drop worker
             # spans (peer producers report at query end) still splice
             tracer.end_span(qspan)
@@ -491,8 +729,6 @@ class Coordinator:
         """The reference's default-off tiers this port does not have yet:
         switching one on raises instead of silently taking another path."""
         opts = self.config_options
-        if parse_bool_knob(opts.get("hedging", False)):
-            raise _refuse("straggler hedging (distributed.hedging)", "A.5.2")
         if str(opts.get("data_plane", "auto")).lower() == "shm":
             raise _refuse("the shm data plane (data_plane = shm)", "A.5.3")
 
@@ -617,14 +853,36 @@ class Coordinator:
             k for k in list(self.stream_metrics) if k[0] == query_id
         ]:
             self.stream_metrics.pop(key, None)
-        # peer-plane state: release any still-shipped producer tasks
-        # (re-entrant no-op after execute's finally)
+        # peer-plane state: release any still-shipped producer tasks and
+        # drop the query's re-ship plans and heal bookkeeping (both
+        # re-entrant no-ops after execute's finally)
         self._release_peer_tasks(query_id)
+        self._drop_heal_state(query_id)
         # query end is the leak-harness checkpoint: any tracked resource
         # still attributed to this query is a leak
         from datafusion_distributed_tpu_torch.runtime import leakcheck
 
         leakcheck.sweep_query(query_id)
+
+    def _drop_heal_state(self, query_id: str) -> None:
+        """Drop ``query_id``'s re-ship plans and heal bookkeeping. The
+        retained producer plans pin the device tables their scans hold,
+        so execute's finally drops them as soon as the query's peer
+        producers are released (a reused coordinator would otherwise
+        hold the last query's tables until its next execute)."""
+        plans = getattr(self, "_peer_plan_registry", None)
+        if plans:
+            for k in [k for k in list(plans) if k[0] == query_id]:
+                plans.pop(k, None)
+        heal_lock = getattr(self, "_peer_heal_lock", None)
+        if heal_lock is not None:
+            with self._peer_heal_lock:
+                url_map = getattr(self, "_peer_url_map", None) or {}
+                for k in [k for k in list(url_map) if k[0] == query_id]:
+                    url_map.pop(k, None)
+                stale = getattr(self, "_peer_stale", None) or set()
+                for k in [k for k in list(stale) if k[0] == query_id]:
+                    stale.discard(k)
 
     def _check_worker_versions(self) -> None:
         from datafusion_distributed_tpu_torch.runtime.errors import WorkerError
@@ -1504,6 +1762,12 @@ class Coordinator:
         # idle-TTL default, so ship them with a query-lifetime TTL (the
         # query-end sweep, not the TTI cache, owns their cleanup)
         peer_ttl = float(self.config_options.get("peer_task_ttl", 3600.0))
+        # retained for the membership-churn path: a producer shipped here
+        # whose worker later LEAVES is re-shipped from this prepared plan
+        # onto a survivor (_heal_departed_peers)
+        self._peer_plan_registry[(query_id, stage_id)] = (
+            prepared, t_prod, peer_ttl
+        )
         producers = []  # (key_obj, url)
         for i in range(t_prod):
             worker, key, plan_obj, _store = self._dispatch_task_with_retry(
@@ -1552,6 +1816,160 @@ class Coordinator:
             "partitions": t_cons,
         }
         return scan
+
+    def _heal_departed_peers(self, stage_plan, query_id) -> int:
+        """Membership-churn recovery for the peer data plane: producer
+        tasks whose worker LEFT the membership (neither active nor
+        draining) are re-shipped onto survivors from the prepared plans
+        retained at boundary time, and every pull spec naming them is
+        rewritten to the survivor — so the failing consumer's next attempt
+        pulls from live endpoints.
+
+        The heal is TRANSITIVE: registered peer stages are processed
+        bottom-up (ascending stage id — `_prepare` stamps producers before
+        consumers), so when a re-shipped producer's own plan pulls from an
+        earlier departed producer, it ships with already-healed specs; and
+        a producer still sitting on a LIVE worker whose shipped copy names
+        a departed upstream is REFRESHED in place (same key, same worker —
+        its consumers' specs keep pointing at it). Original scan nodes are
+        mutated (task specialization copies pull lists per dispatch), so
+        every retrying sibling task sees the healed specs; the heal lock
+        serializes concurrent retries, and a second pass finds everything
+        reachable and no-ops. -> producer tasks re-shipped."""
+        from datafusion_distributed_tpu_torch.runtime.codec import (
+            collect_table_ids,
+        )
+        from datafusion_distributed_tpu_torch.runtime.peer import (
+            PeerShuffleScanExec,
+            reroute_pulls,
+        )
+
+        plans = getattr(self, "_peer_plan_registry", None)
+        if not plans:
+            return 0
+
+        def peer_scans(plan):
+            return plan.collect(
+                lambda n: isinstance(n, PeerShuffleScanExec)
+            )
+
+        if getattr(self, "_peer_heal_lock", None) is None:
+            # direct-call safety (tests invoke the heal without execute)
+            self._peer_heal_lock = threading.Lock()
+        healed = 0
+        # the lock guards _peer_url_map and _peer_stale
+        with self._peer_heal_lock:
+            # url_map/stale accumulate ACROSS heal passes for the query
+            # (direct-call safety: tests invoke the heal without execute)
+            url_map = getattr(self, "_peer_url_map", None)
+            if url_map is None:
+                url_map = self._peer_url_map = {}
+            stale = getattr(self, "_peer_stale", None)
+            if stale is None:
+                stale = self._peer_stale = set()
+            reachable = set(self._full_membership_urls())
+            if not url_map and not stale and all(
+                w.url in reachable for w, _ in self._peer_shipped
+            ):
+                # nothing ever moved and every shipped worker is still a
+                # member: the heal is a no-op. This runs on EVERY
+                # retryable failure (plain fault chaos included), so skip
+                # the per-stage plan walks before sibling retries convoy
+                # behind the lock
+                return 0
+            # latest shipped location of every peer producer task
+            loc: dict = {}
+            for w, k in self._peer_shipped:
+                loc[(k.query_id, k.stage_id, k.task_number)] = (w, k)
+            for qid, sid in sorted(plans, key=lambda e: e[1]):
+                prepared, t_prod, ttl = plans[(qid, sid)]
+                if sum(
+                    reroute_pulls(s, url_map) for s in peer_scans(prepared)
+                ):
+                    # this pass changed the stage's specs: every shipped
+                    # copy now pre-dates them and must be refreshed (or
+                    # re-shipped) before its consumers can trust it — the
+                    # mark persists across passes so copies whose workers
+                    # are busy THIS pass still refresh on a later one
+                    stale.update((qid, sid, i) for i in range(t_prod))
+                for i in range(t_prod):
+                    ko = (qid, sid, i)
+                    held = loc.get(ko)
+                    if held is None:
+                        continue
+                    worker, key = held
+                    if worker.url not in reachable:
+                        # departed: re-ship onto a survivor (the prepared
+                        # plan's own specs were healed just above)
+                        worker, key, _po, _st = (
+                            self._dispatch_task_with_retry(
+                                prepared, qid, sid, i, t_prod, ttl=ttl
+                            )
+                        )
+                        self._peer_shipped.append((worker, key))
+                        loc[ko] = (worker, key)
+                        url_map[ko] = worker.url
+                        stale.discard(ko)
+                        self.faults.bump("peer_producers_reshipped")
+                        healed += 1
+                    elif ko in stale:
+                        # live worker, stale shipped copy (its pulls named
+                        # a departed upstream): refresh in place so the
+                        # worker-held plan pulls from the survivors —
+                        # consumers keep addressing this same (key, url).
+                        # No pre-invalidate: registry.put evicts the
+                        # displaced entry atomically, so a concurrent
+                        # consumer pull never sees a "no plan" gap, and a
+                        # failed refresh leaves the old copy registered
+                        plan_obj = encode_plan(
+                            _task_specialized(prepared, i),
+                            worker.table_store,
+                        )
+                        try:
+                            worker.set_plan(
+                                key, plan_obj, t_prod,
+                                config=self.config_options,
+                                headers=self.passthrough_headers,
+                                ttl=ttl,
+                            )
+                        except BaseException as e:
+                            worker.table_store.remove(
+                                collect_table_ids(plan_obj)
+                            )
+                            if not getattr(e, "retryable", False):
+                                raise
+                            # transient refresh failure (the heal runs
+                            # inside the callers' failure-handling branch,
+                            # OUTSIDE their retry loops — an escape here
+                            # would fail the query): fall back to a full
+                            # re-ship, which retries/reroutes internally.
+                            # The old copy stays registered but unreferenced
+                            # once url_map points its consumers at the
+                            # re-shipped location; the query-end sweep
+                            # releases it.
+                            worker, key, _po, _st = (
+                                self._dispatch_task_with_retry(
+                                    prepared, qid, sid, i, t_prod, ttl=ttl
+                                )
+                            )
+                            self._peer_shipped.append((worker, key))
+                            loc[ko] = (worker, key)
+                            url_map[ko] = worker.url
+                            stale.discard(ko)
+                            self.faults.bump("peer_producers_reshipped")
+                            healed += 1
+                            continue
+                        stale.discard(ko)
+                        self.faults.bump("peer_producers_refreshed")
+            if url_map:
+                # the ACCUMULATED map, not just this pass's additions: a
+                # consumer whose specs were pinned before an earlier pass
+                # moved a producer heals here on its own retry
+                for s in peer_scans(stage_plan):
+                    reroute_pulls(s, url_map)
+        if healed:
+            self._event("peer_heal", reshipped=healed)
+        return healed
 
     # -- partition-range data plane ------------------------------------------
     def _partition_streams_enabled(self, exchange) -> bool:
@@ -2568,33 +2986,49 @@ class Coordinator:
                             pass
                         raise
                     asp.set(worker=worker.url)
+                    hedge_after = self._hedge_threshold()
                     try:
-                        try:
-                            with tr.span("execute_rpc", "execute",
-                                         worker=worker.url):
-                                out = self._execute_attempt(
-                                    worker, key,
-                                    cancel=self._cancel_event,
-                                )
-                            # metrics are best-effort: a flaky progress
-                            # RPC after a SUCCESSFUL execute must not
-                            # discard the result, re-run the task, or
-                            # count against the worker
+                        if hedge_after is not None and (
+                            not self._stage_span_shipped(query_id,
+                                                         stage_id)
+                        ):
+                            # hedge arm: race the primary against a
+                            # speculative re-dispatch once its wall
+                            # passes the sketch-derived threshold
+                            worker, out = self._hedged_execute(
+                                stage_plan, query_id, stage_id,
+                                task_number, task_count,
+                                (worker, key, plan_obj, store),
+                                hedge_after, state, asp,
+                            )
+                        else:
                             try:
-                                self._record_task_progress(worker, key)
-                            except Exception:
-                                pass
-                        finally:
-                            # best-effort: with the result in hand a
-                            # cleanup hiccup must not discard it (or
-                            # re-execute the task), and on the failure
-                            # path it must not MASK the execute error;
-                            # cleanup is local-only
-                            try:
-                                self._cleanup_task(worker, key, plan_obj,
-                                                   store)
-                            except Exception:
-                                pass
+                                with tr.span("execute_rpc", "execute",
+                                             worker=worker.url):
+                                    out = self._execute_attempt(
+                                        worker, key,
+                                        cancel=self._cancel_event,
+                                    )
+                                # metrics are best-effort: a flaky
+                                # progress RPC after a SUCCESSFUL execute
+                                # must not discard the result, re-run the
+                                # task, or count against the worker
+                                try:
+                                    self._record_task_progress(worker,
+                                                               key)
+                                except Exception:
+                                    pass
+                            finally:
+                                # best-effort: with the result in hand a
+                                # cleanup hiccup must not discard it (or
+                                # re-execute the task), and on the
+                                # failure path it must not MASK the
+                                # execute error; cleanup is local-only
+                                try:
+                                    self._cleanup_task(worker, key,
+                                                       plan_obj, store)
+                                except Exception:
+                                    pass
                     except BaseException as e:
                         # attribute the failure to the worker the ERROR
                         # names when it names one (a dead peer PRODUCER
@@ -2605,6 +3039,11 @@ class Coordinator:
                             e, getattr(e, "worker_url", "") or worker.url,
                             kt, state,
                         ):
+                            # a departed worker may have taken shipped
+                            # peer-producer plans with it: re-ship them
+                            # onto survivors and rewrite this stage plan's
+                            # pull specs BEFORE the re-dispatch
+                            self._heal_departed_peers(stage_plan, query_id)
                             continue
                         raise
                 self._record_worker_success(worker.url)
@@ -2624,8 +3063,9 @@ class Coordinator:
         the coordinator-side thread deadline, which works against any
         transport but can only abandon, not cancel.
 
-        ``cancel``: a pollable cancel handle (the per-query event)
-        forwarded to workers whose surface declares it — chaos proxies poll it inside injected
+        ``cancel``: a pollable cancel handle (the per-query event, or a
+        hedge attempt's combined loser-cancel) forwarded to workers whose
+        surface declares it — chaos proxies poll it inside injected
         delays, so a cancelled attempt releases its slot at cancellation
         latency rather than the full injected delay."""
         timeout = self._opt_float("task_timeout_s")
@@ -2717,6 +3157,458 @@ class Coordinator:
     def _record_worker_success(self, url: str) -> None:
         if self.health is not None and url:
             self.health.record_success(url)
+
+    # -- straggler hedging ---------------------------------------------------
+    def _hedge_budget(self):
+        if self.hedges is None:
+            from datafusion_distributed_tpu_torch.runtime.metrics import (
+                HedgeBudget,
+            )
+
+            with _HEDGE_INIT_LOCK:
+                if self.hedges is None:  # double-checked: fan-out threads
+                    self.hedges = HedgeBudget()
+        return self.hedges
+
+    def _hedge_threshold(self) -> Optional[float]:
+        """Seconds an attempt may run before a speculative re-dispatch,
+        or None with hedging off. max(sketch-p<hedge_quantile>,
+        hedge_floor_s): the floor keeps a COLD sketch from hedging
+        everything instantly (and the in-flight budget bounds whatever
+        the floor still admits)."""
+        from datafusion_distributed_tpu_torch.ops.table import parse_bool_knob
+
+        v = self.config_options.get("hedging", False)
+        try:
+            enabled = parse_bool_knob(v)
+        except Exception:
+            enabled = bool(v)
+        if not enabled:
+            return None
+        q = min(max(self._opt_float("hedge_quantile"), 0.0), 1.0)
+        floor = max(self._opt_float("hedge_floor_s"), 0.0)
+        p = None
+        if self.latency is not None and getattr(self.latency, "count", 0):
+            try:
+                p = self.latency.percentile(q)
+            except Exception:
+                p = None
+        threshold = max(p or 0.0, floor)
+        return threshold if threshold > 0 else None
+
+    def _stage_span_shipped(self, query_id: str, stage_id: int) -> bool:
+        """Whether this (query, stage) shipped as mesh SPANS: a span plan
+        is shared across sibling tasks, so neither a lone-task
+        re-dispatch nor a lone-task hedge is defined for it."""
+        spans = getattr(self, "_span_shipped", None)
+        if not spans:
+            return False
+        with self._span_lock:  # vs concurrent sibling-stage shipment
+            return any(
+                k[0] == query_id and k[1] == stage_id for k in spans
+            )
+
+    def _record_hedge_loss(self, url: str) -> None:
+        """Hedge-loss mark, DISTINCT from a failure: never advances the
+        circuit breaker (runtime/health.py record_hedge_loss)."""
+        if not url:
+            return
+        tracker = self._health_tracker()
+        mark = getattr(tracker, "record_hedge_loss", None)
+        if callable(mark):
+            mark(url)
+
+    def _dispatch_hedge(self, stage_plan, query_id, stage_id, task_number,
+                        task_count, primary_url, state):
+        """Speculatively dispatch the SAME task to a different healthy
+        worker; -> (worker, key, plan_obj, store) or None (no budget, no
+        alternative candidate, or the dispatch itself failed — a hedge
+        that cannot launch must never fail the primary attempt)."""
+        try:
+            urls = self.resolver.get_urls()
+        except Exception:
+            return None
+        if not any(u != primary_url for u in urls):
+            return None  # single-worker cluster: nowhere to hedge to
+        budget = self._hedge_budget()
+        if not budget.try_acquire(self._opt_int("hedge_budget")):
+            self.faults.bump("hedge_budget_denied")
+            return None
+        ok = False
+        try:
+            disp = self._dispatch_task(
+                stage_plan, query_id, stage_id, task_number, task_count,
+                exclude=set(state.excluded) | {primary_url},
+            )
+            if disp[0].url == primary_url:
+                # exclusion fell back to the primary (every alternative
+                # quarantined): hedging the same worker is pure waste
+                try:
+                    self._cleanup_task(*disp)
+                except Exception:
+                    pass
+                self.faults.bump("hedges_abandoned")
+                return None
+            ok = True
+            return disp
+        except Exception:
+            self.faults.bump("hedges_abandoned")
+            return None
+        finally:
+            if not ok:
+                budget.release()
+
+    def _hedged_execute(self, stage_plan, query_id, stage_id, task_number,
+                        task_count, primary, threshold, state, asp):
+        """Bulk-plane hedge race: run the already-dispatched ``primary``
+        attempt in a thread; if it outlives ``threshold``, speculatively
+        re-dispatch to a different worker and let the FIRST completed
+        attempt win. The loser is cancelled through its per-attempt
+        cancel handle and its thread releases its staged slices when the
+        in-flight call resolves (execute's finally joins these threads,
+        so the query never resolves with a release still pending).
+        -> (winner worker, result Table). Raises the primary's error when
+        every attempt fails (the normal retry loop takes over)."""
+        import queue as _queue
+        import threading as _threading
+
+        tr = self._tr()
+        results: "_queue.Queue" = _queue.Queue()
+        race_lock = _threading.Lock()
+        attempts: list = []
+
+        def start(disp, speculative: bool) -> dict:
+            ev = _threading.Event()
+            att = {
+                "worker": disp[0], "key": disp[1], "plan_obj": disp[2],
+                "store": disp[3], "ev": ev, "spec": speculative,
+                "lost": False,
+            }
+            cancel = _EitherSet(self._cancel_event, ev)
+
+            def run() -> None:
+                sp = tr.start_span(
+                    "execute_rpc", "execute", parent=asp.span_id,
+                    worker=att["worker"].url, hedge=speculative,
+                )
+                payload = None
+                try:
+                    out = self._execute_attempt(
+                        att["worker"], att["key"], cancel=cancel
+                    )
+                except BaseException as e:
+                    sp.set(error=type(e).__name__)
+                    payload = (att, None, e)
+                else:
+                    payload = (att, out, None)
+                finally:
+                    tr.end_span(sp)
+                    if speculative:
+                        self._hedge_budget().release()
+                # deliver-or-discard under the race lock: after the main
+                # thread marks an attempt lost, nothing more enqueues
+                with race_lock:
+                    if not att["lost"]:
+                        results.put(payload)
+                if payload[2] is None and not att["lost"]:
+                    # winner-side metrics (losers are being discarded: a
+                    # cancelled attempt's wall must not feed the sketch)
+                    try:
+                        self._record_task_progress(att["worker"],
+                                                   att["key"])
+                    except Exception:
+                        pass
+                try:
+                    self._cleanup_task(att["worker"], att["key"],
+                                       att["plan_obj"], att["store"])
+                except Exception:
+                    pass
+
+            t = _threading.Thread(target=run, daemon=True,
+                                  name="dftpu-hedge")
+            attempts.append(att)
+            self._hedge_threads.append(t)
+            t.start()
+            return att
+
+        start(primary, speculative=False)
+        started = 1
+        hedged = False
+        first = None
+        try:
+            first = results.get(timeout=threshold)
+        except _queue.Empty:
+            disp = self._dispatch_hedge(
+                stage_plan, query_id, stage_id, task_number, task_count,
+                primary[0].url, state,
+            )
+            if disp is not None:
+                hedged = True
+                self.faults.bump("hedges_issued")
+                self._event(
+                    "hedge_issued", stage=stage_id, task=task_number,
+                    primary=primary[0].url, hedge=disp[0].url,
+                    threshold_ms=round(threshold * 1e3, 1),
+                )
+                start(disp, speculative=True)
+                started = 2
+        errors: list = []
+        winner = None
+        while winner is None:
+            while first is None:
+                try:
+                    first = results.get(timeout=0.05)
+                except _queue.Empty:
+                    if self._cancelled():
+                        self._abandon_attempts(attempts, race_lock)
+                        self._check_cancelled()
+            att, out, err = first
+            first = None
+            if err is None:
+                winner = (att, out)
+                break
+            errors.append((att, err))
+            if len(errors) >= started:
+                # every attempt failed: surface the PRIMARY's error (the
+                # retry loop's health/reroute attribution expects it) and
+                # count the non-surfaced failures against their workers
+                surfaced = next(
+                    (e for a, e in errors if not a["spec"]),
+                    errors[0][1],
+                )
+                self._note_failed_attempts(
+                    [(a, e) for a, e in errors if e is not surfaced]
+                )
+                raise surfaced
+        att, out = winner
+        # the race resolved with a success: attempts that FAILED before
+        # the win were genuine failures (breaker-visible); attempts still
+        # running merely LOST (cancelled, breaker-neutral)
+        self._note_failed_attempts(errors)
+        failed = {id(a) for a, _e in errors}
+        self._abandon_attempts(
+            [a for a in attempts if a is not att], race_lock,
+        )
+        for a in attempts:
+            if a is not att and id(a) not in failed:
+                self._record_hedge_loss(a["worker"].url)
+        if hedged:
+            name = "hedge_won" if att["spec"] else "hedge_lost"
+            self.faults.bump("hedges_won" if att["spec"] else
+                             "hedges_lost")
+            self._event(name, stage=stage_id, task=task_number,
+                     worker=att["worker"].url)
+        return att["worker"], out
+
+    def _abandon_attempts(self, atts, race_lock) -> None:
+        """Mark ``atts`` lost (their threads stop delivering and discard
+        their own results/slices) and set their cancel handles."""
+        for a in atts:
+            with race_lock:
+                a["lost"] = True
+            a["ev"].set()
+
+    def _note_failed_attempts(self, errors) -> None:
+        """Health accounting for hedge-race attempts that FAILED with a
+        genuine error (collected before any winner, so never
+        cancellation-induced): a retryable infrastructure failure counts
+        against its worker's breaker exactly as the unhedged path would
+        count it — a worker that keeps crashing hedge attempts must not
+        stay quarantine-proof just because a sibling attempt won."""
+        member = set(self._full_membership_urls())
+        for a, e in errors:
+            if not is_retryable(e):
+                continue  # query-semantic: no breaker input (as unhedged)
+            url = getattr(e, "worker_url", "") or a["worker"].url
+            if url in member:
+                self._record_worker_failure(url)
+
+    def _discard_attempt(self, att, it) -> None:
+        """Release a losing (or abandoned) streaming attempt: close its
+        chunk iterator (the worker-side stream's own cleanup runs in its
+        finalizers) and drop its staged slices. Best-effort and silent —
+        teardown of discarded work must never mask or fail anything."""
+        try:
+            if it is not None:
+                it.close()
+        except Exception:
+            pass
+        try:
+            self._cleanup_task(att["worker"], att["key"],
+                               att["plan_obj"], att["store"])
+        except Exception:
+            pass
+
+    def _hedged_first_chunk(self, stage_plan, query_id, stage_id,
+                            task_number, task_count, primary, body,
+                            cancel, threshold, state, done, pull_span):
+        """Streaming-plane hedge race over the FIRST chunk (which
+        contains the task's execution — later chunks slice an already-
+        materialized output). Returns the winning attempt's
+        (worker, key, plan_obj, store, iterator, first_item); the caller
+        adopts the iterator and streams it exactly like an unhedged pull,
+        so the retry-while-nothing-yielded contract is preserved. Losers
+        are cancelled per-attempt and release their own staged state.
+        Raises the primary's error when every attempt fails."""
+        import queue as _queue
+        import threading as _threading
+
+        tr = self._tr()
+        timeout = self._opt_float("task_timeout_s")
+        results: "_queue.Queue" = _queue.Queue()
+        race_lock = _threading.Lock()
+        attempts: list = []
+
+        def start(disp, speculative: bool) -> dict:
+            ev = _threading.Event()
+            att = {
+                "worker": disp[0], "key": disp[1], "plan_obj": disp[2],
+                "store": disp[3], "ev": ev, "spec": speculative,
+                "lost": False,
+            }
+            # the attempt's pollable cancel merges the CALLER's stream
+            # cancel (LIMIT satisfied / sibling failure) with this
+            # attempt's private loser-cancel and the per-query event
+            combined = _EitherSet(
+                cancel, _EitherSet(ev, self._cancel_event)
+            )
+
+            def run() -> None:
+                sp = tr.start_span(
+                    "pull_attempt", "execute", parent=pull_span.span_id,
+                    worker=att["worker"].url, hedge=speculative,
+                )
+                it = None
+                payload = None
+                try:
+                    it = iter(body(att["worker"], att["key"], combined))
+                    if timeout:
+                        first = call_with_deadline(
+                            lambda: next(it, done), timeout,
+                            att["worker"].url, att["key"],
+                        )
+                    else:
+                        first = next(it, done)
+                except BaseException as e:
+                    sp.set(error=type(e).__name__)
+                    payload = (att, None, None, e)
+                else:
+                    payload = (att, it, first, None)
+                finally:
+                    tr.end_span(sp)
+                    if speculative:
+                        self._hedge_budget().release()
+                # deliver-or-discard under the race lock: once the main
+                # thread marks this attempt lost, nothing more enqueues —
+                # so a post-race drain of the queue sees every delivered
+                # loser, and an undelivered loser discards itself here
+                with race_lock:
+                    lost = att["lost"]
+                    if not lost:
+                        results.put(payload)
+                if payload[3] is not None:
+                    # a FAILED attempt's staged state is dead no matter
+                    # how the race resolves (the main thread never adopts
+                    # an error): release it here — idempotent with the
+                    # caller's primary-cleanup on the all-failed path
+                    self._discard_attempt(att, it)
+                elif lost:
+                    self._discard_attempt(att, it)
+
+            t = _threading.Thread(target=run, daemon=True,
+                                  name="dftpu-hedge-pull")
+            attempts.append(att)
+            self._hedge_threads.append(t)
+            t.start()
+            return att
+
+        start(primary, speculative=False)
+        started = 1
+        hedged = False
+        first_res = None
+        try:
+            first_res = results.get(timeout=threshold)
+        except _queue.Empty:
+            disp = self._dispatch_hedge(
+                stage_plan, query_id, stage_id, task_number, task_count,
+                primary[0].url, state,
+            )
+            if disp is not None:
+                hedged = True
+                self.faults.bump("hedges_issued")
+                self._event(
+                    "hedge_issued", stage=stage_id, task=task_number,
+                    primary=primary[0].url, hedge=disp[0].url,
+                    threshold_ms=round(threshold * 1e3, 1),
+                    plane="stream",
+                )
+                start(disp, speculative=True)
+                started = 2
+        errors: list = []
+        winner = None
+        while winner is None:
+            while first_res is None:
+                try:
+                    first_res = results.get(timeout=0.05)
+                except _queue.Empty:
+                    if self._cancelled():
+                        self._abandon_attempts(attempts, race_lock)
+                        self._drain_discard(results)
+                        self._check_cancelled()
+            att, it, first, err = first_res
+            first_res = None
+            if err is None:
+                winner = (att, it, first)
+                break
+            errors.append((att, err))
+            if len(errors) >= started:
+                # surface the PRIMARY's error for the retry loop's
+                # attribution; count the non-surfaced failures here
+                surfaced = next(
+                    (e for a, e in errors if not a["spec"]),
+                    errors[0][1],
+                )
+                self._note_failed_attempts(
+                    [(a, e) for a, e in errors if e is not surfaced]
+                )
+                raise surfaced
+        att, it, first = winner
+        # failed-before-the-win attempts are breaker-visible failures;
+        # still-running attempts merely lost the race (breaker-neutral)
+        self._note_failed_attempts(errors)
+        failed = {id(a) for a, _e in errors}
+        self._abandon_attempts(
+            [a for a in attempts if a is not att], race_lock,
+        )
+        # a loser that DELIVERED before being marked lost sits in the
+        # queue: its iterator/slices are discarded here (its thread
+        # already exited and will not)
+        self._drain_discard(results)
+        for a in attempts:
+            if a is not att and id(a) not in failed:
+                self._record_hedge_loss(a["worker"].url)
+        if hedged:
+            name = "hedge_won" if att["spec"] else "hedge_lost"
+            self.faults.bump("hedges_won" if att["spec"] else
+                             "hedges_lost")
+            self._event(name, stage=stage_id, task=task_number,
+                     worker=att["worker"].url, plane="stream")
+        return (att["worker"], att["key"], att["plan_obj"],
+                att["store"], it, first)
+
+    def _drain_discard(self, results) -> None:
+        """Discard every already-delivered losing attempt in ``results``
+        (close iterators, release slices)."""
+        import queue as _queue
+
+        while True:
+            try:
+                late = results.get_nowait()
+            except _queue.Empty:
+                return
+            att, it, _first, err = late
+            if err is None:
+                self._discard_attempt(att, it)
 
     def _handle_task_failure(self, exc, url, key_tuple, state) -> bool:
         """Record + classify a failed task attempt; True -> caller retries.
@@ -2870,16 +3762,37 @@ class Coordinator:
                 raise
             pull_span.set(worker=worker.url)
             yielded = False
+            hedge_after = self._hedge_threshold()
             try:
                 try:
-                    it = iter(body(worker, key, cancel))
-                    if timeout:
-                        first = call_with_deadline(
-                            lambda: next(it, done), timeout,
-                            worker.url, key,
+                    if hedge_after is not None and (
+                        not self._stage_span_shipped(query_id, stage_id)
+                    ):
+                        # hedge arm (streaming plane): race the FIRST
+                        # chunk — the wait that contains the execution —
+                        # against a speculative re-dispatch; the winner's
+                        # iterator is adopted below, so nothing has been
+                        # yielded before the race resolves and replay
+                        # safety is untouched
+                        worker, key, plan_obj, store, it, first = (
+                            self._hedged_first_chunk(
+                                stage_plan, query_id, stage_id,
+                                task_number, task_count,
+                                (worker, key, plan_obj, store),
+                                body, cancel, hedge_after, state, done,
+                                pull_span,
+                            )
                         )
+                        pull_span.set(worker=worker.url)
                     else:
-                        first = next(it, done)
+                        it = iter(body(worker, key, cancel))
+                        if timeout:
+                            first = call_with_deadline(
+                                lambda: next(it, done), timeout,
+                                worker.url, key,
+                            )
+                        else:
+                            first = next(it, done)
                     if first is not done:
                         yielded = True
                         yield first
@@ -2916,6 +3829,10 @@ class Coordinator:
                 if not yielded and self._handle_task_failure(
                     e, getattr(e, "worker_url", "") or worker.url, kt, state
                 ):
+                    # the failure may be a departed PEER PRODUCER feeding
+                    # this streamed stage: re-ship it onto a survivor and
+                    # rewrite the pull specs before the re-dispatch
+                    self._heal_departed_peers(stage_plan, query_id)
                     continue
                 raise
             tr.end_span(pull_span)

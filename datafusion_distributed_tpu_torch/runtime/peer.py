@@ -250,6 +250,26 @@ def attach_peer_channels(plan: ExecutionPlan, channels, local_worker) -> None:
         node._local_worker = local_worker
 
 
+def reroute_pulls(scan: "PeerShuffleScanExec", url_map: dict) -> int:
+    """Rewrite ``scan``'s pull specs IN PLACE for producers that were
+    re-shipped onto a different worker after their original worker left
+    the membership: ``url_map`` maps a producer key tuple
+    ``(query_id, stage_id, task_number)`` to its new url. The TaskKey
+    itself is stable — only the endpoint serving it moves — so consumers
+    keep addressing the same logical producer task. Mutates the ORIGINAL
+    node (task specialization copies the lists per dispatch, so pinned
+    copies made after the heal carry the survivor urls). -> specs
+    rewritten."""
+    rewritten = 0
+    for specs in scan.pulls_per_task:
+        for i, (key_obj, url, lo, hi) in enumerate(specs):
+            new_url = url_map.get(tuple(key_obj))
+            if new_url is not None and new_url != url:
+                specs[i] = (key_obj, new_url, lo, hi)
+                rewritten += 1
+    return rewritten
+
+
 def shuffle_pulls(producers: Sequence[tuple], t_consumer: int) -> list[list]:
     """pulls[j] = partition j from every producer (hash shuffle / broadcast
     virtual partitions)."""

@@ -4,8 +4,9 @@ scheduler, admission control.
 Port of the reference `runtime/serving.py`. Every admitted query runs
 through its own coordinator on the shared in-process workers, all on the
 session's device (one card, one CUDA stream: device work of concurrent
-queries interleaves in launch order). Straggler hedging is not ported
-(ROADMAP A.5.2), so no hedge budget is shared here.
+queries interleaves in launch order). One straggler-hedge budget is
+shared by every query's coordinator, so the in-flight hedge bound holds
+for the whole tier.
 
 The coordinator executes ONE query at a time: its stage-DAG scheduler
 overlaps stages *within* a query, but nothing arbitrates *between*
@@ -596,8 +597,8 @@ class ServingSession:
             h2 = srv.submit("select ...", priority=1)
             t1, t2 = h1.result(), h2.result()
 
-    ``cluster`` may be any resolver+channels pair (InMemoryCluster, a
-    chaos-wrapped cluster); by default an
+    ``cluster`` may be any resolver+channels pair (InMemoryCluster,
+    DynamicCluster, a chaos-wrapped cluster); by default an
     InMemoryCluster of ``num_workers`` spins up. Admission / policy knobs
     come from `SET distributed.*` (SERVING_DEFAULTS) with constructor
     overrides; ``seed`` makes scheduler tie-breaks reproducible.
@@ -619,6 +620,10 @@ class ServingSession:
             HealthPolicy,
             HealthTracker,
         )
+        from datafusion_distributed_tpu_torch.runtime.metrics import (
+            HedgeBudget,
+        )
+
         self.ctx = ctx
         self.cluster = cluster if cluster is not None else InMemoryCluster(
             num_workers
@@ -649,6 +654,9 @@ class ServingSession:
                 ckpt_cap = 0
             checkpoints = CheckpointStore(budget_bytes=ckpt_cap)
         self.checkpoints = checkpoints
+        # one cluster-wide speculative-attempt budget shared by every
+        # per-query coordinator (the hedge stampede bound)
+        self.hedge_budget = HedgeBudget()
         # shared across every per-query coordinator: quarantine/fault/
         # latency/span state outlives any single query
         self.health = HealthTracker(HealthPolicy(
@@ -688,9 +696,11 @@ class ServingSession:
         self._measured_bytes: dict = {}  # guarded-by: _lock
         # cluster-wide telemetry (runtime/telemetry.py): ONE typed
         # registry is the exposition sink for every counter this tier
-        # already keeps — faults, breaker state, latency
+        # already keeps — faults, hedge budget, breaker state, latency
         # sketches, admission/queue state, SLO attainment, event-log
-        # tallies — sampled via collector adapters at snapshot time
+        # tallies — sampled via collector adapters at snapshot time.
+        # `ObservabilityService(serving=...).get_metrics()` merges it
+        # with the per-worker `get_metrics` snapshots.
         from datafusion_distributed_tpu_torch.runtime.eventlog import (
             default_event_log,
         )
@@ -704,6 +714,7 @@ class ServingSession:
         self.telemetry = MetricRegistry()
         for collector in (
             self.faults.telemetry_families,
+            self.hedge_budget.telemetry_families,
             self.health.telemetry_families,
             self._serving_families,
             self._slo_families,
@@ -1040,6 +1051,7 @@ class ServingSession:
             stage_pool=_QueryPool(self.scheduler, h.query_id),
             cancel_event=h._cancel_event,
             on_query_end=on_query_end,
+            hedges=self.hedge_budget,
             checkpoints=checkpointer,
             result_cache=self._result_cache(),
         )
@@ -1368,6 +1380,7 @@ class ServingSession:
             }
         out["scheduler"] = self.scheduler.stats()
         out["latency"] = self.query_latency.summary()
+        out["hedging"] = self.hedge_budget.stats()
         # enforced-memory surface: per-worker residency vs budget plus
         # spill counters (in-process stores only) and the red-line factor
         out["memory"] = {

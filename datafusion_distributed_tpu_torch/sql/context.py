@@ -179,6 +179,25 @@ class SessionConfig:
                         f"invalid verify_plans mode {value!r} (expected "
                         f"one of {MODES})"
                     )
+            elif key == "data_plane":
+                # data-plane selection (runtime/coordinator.py): auto keeps
+                # the routing ladder; unary/stream/shm force one plane
+                # (shm is refused at run time until it is ported)
+                value = str(value).strip().lower()
+                if value not in ("auto", "unary", "stream", "shm"):
+                    raise ValueError(
+                        f"invalid data_plane {value!r} (expected one of "
+                        f"('auto', 'unary', 'stream', 'shm'))"
+                    )
+            elif key == "wire_compression":
+                # the wire transports' codec policy: validated as the
+                # reference does, read once the transports are ported
+                value = str(value).strip().lower()
+                if value not in ("auto", "off", "zstd", "lz4"):
+                    raise ValueError(
+                        f"invalid wire_compression {value!r} (expected "
+                        f"one of ('auto', 'off', 'zstd', 'lz4'))"
+                    )
             elif key == "max_concurrent_queries":
                 # serving-tier admission knobs (runtime/serving.py) are
                 # validated at SET time: a bad value must fail the SET,
@@ -252,6 +271,24 @@ class SessionConfig:
                 )
 
                 value = parse_bool_knob(value)
+            elif key == "hedge_quantile":
+                # hedging knobs validated at SET time like the serving
+                # admission knobs: a bad value must fail the SET, not
+                # silently disable (or stampede) the hedger mid-serve
+                value = float(value)
+                if not 0.0 <= value <= 1.0:
+                    raise ValueError("hedge_quantile must be in [0, 1]")
+            elif key == "hedge_floor_s":
+                value = float(value)
+                if value < 0:
+                    raise ValueError("hedge_floor_s must be >= 0")
+            elif key == "hedge_budget":
+                value = int(value)
+                if value < 0:
+                    raise ValueError(
+                        "hedge_budget must be >= 0 (0 disables hedging "
+                        "by denying every speculative attempt)"
+                    )
             elif key == "slo_p99_ms":
                 # SLO targets (runtime/telemetry.py SloTracker, read
                 # live by the serving tier's stats surface): validated at
@@ -264,6 +301,58 @@ class SessionConfig:
                 if not 0.0 <= value <= 1.0:
                     raise ValueError(
                         "slo_error_rate must be in [0, 1]"
+                    )
+            elif key == "tracing":
+                # distributed-tracing mode (runtime/tracing.py):
+                # validated at SET time so a typo fails the SET, not the
+                # queries silently running untraced
+                from datafusion_distributed_tpu_torch.runtime.tracing import (
+                    TRACING_MODES,
+                )
+
+                value = str(value).strip().lower()
+                if value not in TRACING_MODES:
+                    raise ValueError(
+                        f"invalid tracing mode {value!r} (expected one "
+                        f"of {TRACING_MODES})"
+                    )
+            elif key == "tracing_sample_rate":
+                value = float(value)
+                if not 0.0 <= value <= 1.0:
+                    raise ValueError(
+                        "tracing_sample_rate must be in [0, 1]"
+                    )
+            elif key == "skew_split_factor":
+                # runtime-adaptivity knobs (runtime/adaptivity.py),
+                # validated at SET time like the serving knobs
+                value = float(value)
+                if value != 0 and value < 1.0:
+                    raise ValueError(
+                        "skew_split_factor must be 0 (splitting off) or "
+                        ">= 1.0 (a hot partition is one ABOVE the "
+                        "median)"
+                    )
+            elif key == "skew_split_min_rows":
+                value = int(value)
+                if value < 0:
+                    raise ValueError(
+                        "skew_split_min_rows must be >= 0"
+                    )
+            elif key == "partial_agg_bailout_ratio":
+                value = float(value)
+                if not 0.0 <= value <= 1.0:
+                    raise ValueError(
+                        "partial_agg_bailout_ratio must be in [0, 1] "
+                        "(0 disables the bail-out; 1 bails only when "
+                        "the partial reduces nothing)"
+                    )
+            elif key == "replan_cardinality_factor":
+                value = float(value)
+                if value != 0 and value < 1.0:
+                    raise ValueError(
+                        "replan_cardinality_factor must be 0 (replan "
+                        "off) or >= 1.0 (measured/estimated divergence "
+                        "factor)"
                     )
             self.distributed_options[key] = value
         elif scope == "planner":

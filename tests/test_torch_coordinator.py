@@ -35,7 +35,8 @@ tests/test_tpch_distributed.py sets it), queries from benchmarks/queries/tpch,
   message;
 - every left-out feature raises NotImplementedError naming its ROADMAP A.5
   item, and the serving tier's hooks (checkpoints, the result cache, the
-  stage pool, worker memory budgets, `PreparedStatement.submit`) run.
+  stage pool, worker memory budgets, `PreparedStatement.submit`) and the
+  resilience tier (hedging, `DynamicCluster`, chaos membership events) run.
 """
 
 import re
@@ -264,11 +265,7 @@ def _left_out_cases():
         return run
 
     return {
-        "hedging": coord_opts(hedging=True),
         "data_plane=shm": coord_opts(data_plane="shm"),
-        "DynamicCluster": lambda ctx: tcoord.DynamicCluster(2),
-        "chaos MembershipEvent": lambda ctx: tchaos.MembershipEvent(
-            "leave", "mem://worker-0"),
         "chaos segment_lost": lambda ctx: tchaos.FaultSpec(
             site="execute", kind="segment_lost"),
         "last_trace": lambda ctx: ctx.last_trace(),
@@ -375,6 +372,47 @@ def test_serving_tier_hooks_run(env, case):
         num_workers=WORKERS, num_tasks=NT).to_numpy()
     got = _serving_hook_cases()[case](tctx).to_numpy()
     assert_results_equal(base, got, case)
+
+
+def _resilience_cases():
+    """The tiers this port refused before elastic membership and hedging
+    were ported: each now runs q6 (4 tasks over in-memory workers) to the
+    default coordinated result."""
+
+    def run(ctx, cluster, **opts):
+        coord = tcoord.Coordinator(
+            resolver=cluster, channels=cluster,
+            config_options={**ctx.config.distributed_snapshot(), **opts})
+        out = ctx.sql(_sql("q6")).collect_coordinated_table(
+            coordinator=coord, num_tasks=NT)
+        for w in cluster.workers.values():
+            assert not w.table_store.tables and len(w.registry) == 0
+        return out
+
+    def membership_event(ctx):
+        cluster = tcoord.DynamicCluster(3)
+        chaos = tchaos.wrap_cluster(cluster, tchaos.FaultPlan(
+            7, [], membership=[tchaos.MembershipEvent(
+                "leave", "mem://worker-0", site="execute")]))
+        out = run(ctx, chaos)
+        assert cluster.is_departed("mem://worker-0")
+        return out
+
+    return {
+        "hedging": lambda ctx: run(ctx, tcoord.InMemoryCluster(2),
+                                   hedging=True),
+        "DynamicCluster": lambda ctx: run(ctx, tcoord.DynamicCluster(2)),
+        "chaos MembershipEvent": membership_event,
+    }
+
+
+@pytest.mark.parametrize("case", list(_resilience_cases()))
+def test_resilience_tier_runs(env, case):
+    tctx = env[2]
+    base = tctx.sql(_sql("q6")).collect_coordinated_table(
+        num_workers=WORKERS, num_tasks=NT).to_numpy()
+    got = _resilience_cases()[case](tctx).to_numpy()
+    assert identical(base, got), case
 
 
 def test_prepared_statement_execute_coordinated(env):

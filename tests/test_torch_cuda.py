@@ -5,7 +5,10 @@ same table on the card as on the CPU, byte for byte. The coordinator's
 regroup does too, a coordinated query copies no column data to the host,
 and the kernels' launch counters stay exact under threads. A spilled
 TableStore entry refaults onto the card byte for byte, and two clients of
-one ServingSession get the sequential results.
+one ServingSession get the sequential results. A hedged query with a
+straggling worker and a query under membership churn give the plain
+results, and the card's allocated bytes return to their baseline once
+the cluster is released.
 
 This file imports neither jax nor the JAX package, so it also runs where
 they are absent, as on a machine with the card:
@@ -532,3 +535,107 @@ def test_two_client_serving_on_the_card(dev):
                 assert a[k].tobytes() == b[k].tobytes(), (q, k)
     for w in cluster.workers.values():
         assert not w.table_store.tables and len(w.registry) == 0
+
+
+def _resilience_session(dev):
+    from pathlib import Path
+
+    from datafusion_distributed_tpu_torch.data import tpchgen
+    from datafusion_distributed_tpu_torch.sql.context import SessionContext
+
+    qdir = Path(__file__).resolve().parent.parent / "benchmarks" / \
+        "queries" / "tpch"
+    ctx = SessionContext(device="cuda")
+    ctx.config.distributed_options["bytes_per_task"] = 1
+    tpchgen.register_tpch(ctx, 0.01, 7)
+    return ctx, lambda q: (qdir / f"{q}.sql").read_text()
+
+
+def _coordinated_on(ctx, sql, cluster, **opts):
+    """``sql`` over ``cluster`` -> (numpy result, fault counters,
+    allocated bytes once the coordinator and the result are released)."""
+    import gc
+
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator,
+    )
+
+    coord = Coordinator(resolver=cluster, channels=cluster, config_options={
+        **ctx.config.distributed_snapshot(), **opts})
+    out = ctx.sql(sql).collect_coordinated_table(coordinator=coord,
+                                                 num_tasks=4)
+    assert out.device.type == "cuda"
+    res, faults = out.to_numpy(), coord.faults.as_dict()
+    for w in cluster.workers.values():
+        assert not w.table_store.tables and len(w.registry) == 0
+    del out, coord
+    gc.collect()
+    torch.cuda.synchronize()
+    return res, faults, torch.cuda.memory_allocated()
+
+
+def _assert_same(a, b, exact=True):
+    assert list(a) == list(b)
+    for k in a:
+        if a[k].dtype == object:
+            assert a[k].tolist() == b[k].tolist(), k
+        elif exact or a[k].dtype.kind != "f":
+            assert a[k].tobytes() == b[k].tobytes(), k
+        else:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hedged_query_on_the_card(dev):
+    """q6 with a straggling worker and hedging on: a hedge is issued and
+    wins, the result equals single-node's, and the card's allocated bytes
+    return to the plain run's baseline (the loser's slices released)."""
+    from datafusion_distributed_tpu_torch.runtime import chaos
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+
+    ctx, sql = _resilience_session(dev)
+    single = ctx.sql(sql("q6")).collect_table().to_numpy()
+    plain, _f, base = _coordinated_on(ctx, sql("q6"), InMemoryCluster(4))
+    plan = chaos.FaultPlan(7, [chaos.FaultSpec(
+        site="execute", kind="straggler", delay_s=2.0, rate=1.0,
+        workers=["mem://worker-1"])])
+    got, faults, after = _coordinated_on(
+        ctx, sql("q6"), chaos.wrap_cluster(InMemoryCluster(4), plan),
+        hedging=True, hedge_floor_s=0.25, hedge_budget=2)
+    _assert_same(got, plain)
+    _assert_same(got, single, exact=False)
+    assert faults.get("hedges_won", 0) >= 1, faults
+    assert after == base, (after, base)
+
+
+@pytest.mark.cuda
+def test_membership_churn_on_the_card(dev):
+    """q3 under the reference's leave/join/drain schedule equals the
+    no-churn run byte for byte, and the card's allocated bytes return to
+    the no-churn run's baseline."""
+    from datafusion_distributed_tpu_torch.runtime import chaos
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        DynamicCluster,
+        InMemoryCluster,
+    )
+
+    ctx, sql = _resilience_session(dev)
+    plain, _f, base = _coordinated_on(ctx, sql("q3"), InMemoryCluster(4))
+    cluster = DynamicCluster(4)
+    urls = cluster.get_urls()
+    plan = chaos.FaultPlan(7, [], membership=[
+        chaos.MembershipEvent("leave", urls[1], site="execute", nth_call=0),
+        chaos.MembershipEvent("join", "mem://joiner-0", site="set_plan",
+                              nth_call=4),
+        chaos.MembershipEvent("drain", urls[2], site="execute", nth_call=3),
+    ])
+    got, _f, after = _coordinated_on(ctx, sql("q3"),
+                                 chaos.wrap_cluster(cluster, plan),
+                                 max_task_retries=6)
+    _assert_same(got, plain)
+    assert sorted(f["kind"] for f in plan.fired) == [
+        "membership_drain", "membership_join", "membership_leave"]
+    assert cluster.wait_drained(urls[2], timeout_s=10.0)
+    assert after == base, (after, base)

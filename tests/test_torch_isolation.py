@@ -3,10 +3,12 @@ runs a TPC-H query, a window query, a prepared-statement binding, a
 ClickBench query, a one-task staged plan with a fused multiway join, the
 same plan over four tasks (runtime/mesh_executor.py, its exchanges) and
 through the coordinator over four in-memory workers, static and adaptive
-(runtime/coordinator.py and the runtime modules it loads), and through the
+(runtime/coordinator.py and the runtime modules it loads), through the
 serving tier (runtime/serving.py, with the spill, checkpoint, result-cache
-and chaos modules imported), on the CPU when asked to, and refuses to
-start without a CUDA device otherwise."""
+and chaos modules imported) and over a `DynamicCluster` that loses a
+worker mid-query with hedging on, read through the observability service,
+on the CPU when asked to, and refuses to start without a CUDA device
+otherwise."""
 
 import os
 import re
@@ -74,11 +76,31 @@ _SCRIPT = textwrap.dedent("""
     with ServingSession(ctx, num_workers=2, num_tasks=2) as srv:
         served = srv.submit(star).result_table(timeout=120).to_numpy()
     assert served["n"].tobytes() == staged["n"].tobytes()
+    from datafusion_distributed_tpu_torch.runtime.chaos import (
+        FaultPlan, MembershipEvent, wrap_cluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator, DynamicCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.observability import (
+        ObservabilityService,
+    )
+    cluster = DynamicCluster(3)
+    chaos = wrap_cluster(cluster, FaultPlan(7, [], membership=[
+        MembershipEvent("leave", "mem://worker-1", site="execute")]))
+    coord = Coordinator(resolver=chaos, channels=chaos,
+                        config_options={"hedging": True})
+    churned = ctx.sql(star).collect_coordinated_table(
+        coordinator=coord, num_tasks=4).to_numpy()
+    assert churned["n"].tobytes() == staged["n"].tobytes()
+    mem = ObservabilityService(cluster, cluster).get_membership()
+    assert mem["epoch"] == cluster.membership_epoch
+    assert mem["departed"] == ["mem://worker-1"]
     import importlib
     for m in ("errors", "leakcheck", "eventlog", "telemetry", "tracing",
               "metrics", "health", "codec", "worker", "streams", "peer",
               "adaptivity", "coordinator", "spill", "checkpoint",
-              "result_cache", "serving", "chaos"):
+              "result_cache", "serving", "chaos", "observability"):
         importlib.import_module("datafusion_distributed_tpu_torch.runtime."
                                 + m)
     importlib.import_module("datafusion_distributed_tpu_torch.planner."

@@ -431,6 +431,52 @@ def test_concurrent_mixed_equal_reference(env, sequential, fair_share):
     _assert_no_leaks(cluster)
 
 
+def test_concurrent_under_chaos_and_churn(env, sequential):
+    """tests/test_serving.py's case in both packages: six queries served
+    at once over a DynamicCluster under seeded transport faults, a leave
+    and a join. Each package's results are byte-identical to its
+    sequential runs, the packages' results equal, the membership events
+    fired, the per-query chaos state swept, no staged slice left."""
+    jctx, tctx = env
+    served = []
+    names = ("q1", "q6", "q3", "q6", "q1", "q3")
+    for ctx, chaos, module, serving in (
+            (jctx, jchaos, jcoord, jserving),
+            (tctx, tchaos, tcoord, tserving)):
+        cluster = module.DynamicCluster(4)
+        urls = cluster.get_urls()
+        plan = chaos.FaultPlan(20260803, [
+            chaos.FaultSpec(site="execute", kind="transport", rate=0.1),
+            chaos.FaultSpec(site="set_plan", kind="transport", rate=0.05),
+        ], membership=[
+            chaos.MembershipEvent("leave", urls[3], site="execute",
+                                  nth_call=5),
+            chaos.MembershipEvent("join", "mem://joiner-srv",
+                                  site="set_plan", nth_call=12),
+        ], query_scoped=True)
+        ctx.config.distributed_options["max_task_retries"] = 8
+        try:
+            with serving.ServingSession(
+                    ctx, cluster=chaos.wrap_cluster(cluster, plan),
+                    num_tasks=4, max_concurrent_queries=6) as srv:
+                handles = [srv.submit(_sql(q)) for q in names]
+                served.append({q: h.result_table(timeout=600).to_numpy()
+                               for q, h in zip(names, handles)})
+                assert set(srv.stats()["hedging"]) == {
+                    "in_flight", "peak_in_flight", "denied"}
+        finally:
+            ctx.config.distributed_options.pop("max_task_retries", None)
+        kinds = {f["kind"] for f in plan.fired}
+        assert {"membership_leave", "membership_join"} <= kinds, kinds
+        assert urls[3] not in cluster.get_urls()
+        assert "mem://joiner-srv" in cluster.get_urls()
+        assert not plan._calls, list(plan._calls)[:4]
+        _assert_no_leaks(cluster)
+    for q in MIX:
+        assert identical(served[1][q], sequential[q]), q
+        assert_results_equal(served[0][q], served[1][q], q)
+
+
 def test_prepared_statement_submit(env):
     """Three bindings of a q6 template through `submit` equal the same
     bindings' `execute()` (and the reference's) — the serving hot path."""

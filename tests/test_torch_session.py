@@ -393,6 +393,43 @@ def test_set_validation_matches_the_reference(key, good, bad):
         jphys.set_plan_cache_size(jphys._plan_cache_default())
 
 
+#: the knobs the reference validates and coerces at SET time
+#: (sql/context.py): knob -> (a good value, a bad value; a negative one
+#: quoted, since the SET grammar has no unary minus)
+SET_KNOBS = {
+    "data_plane": ("'STREAM'", "'disk'"),
+    "wire_compression": ("'ZSTD'", "'zip'"),
+    "tracing": ("'On'", "'bogus'"),
+    "tracing_sample_rate": ("1", "2"),
+    "hedge_quantile": ("0.95", "2"),
+    "hedge_floor_s": ("0", "'-1'"),
+    "hedge_budget": ("3", "'-1'"),
+    "skew_split_factor": ("2", "0.5"),
+    "skew_split_min_rows": ("100", "'-1'"),
+    "partial_agg_bailout_ratio": ("0.8", "1.5"),
+    "replan_cardinality_factor": ("4", "0.5"),
+}
+
+
+@pytest.mark.parametrize("knob", list(SET_KNOBS))
+def test_set_knob_coercion_matches_the_reference(knob):
+    """A good value is stored as the reference stores it (value and
+    type); a bad one raises the reference's ValueError message and stores
+    nothing."""
+    good, bad = SET_KNOBS[knob]
+    stored, msgs = [], []
+    for ctx in (JContext(), TContext(device="cpu")):
+        ctx.sql(f"SET distributed.{knob} = {good}")
+        value = ctx.config.distributed_options.pop(knob)
+        stored.append((value, type(value)))
+        with pytest.raises(ValueError) as ei:
+            ctx.sql(f"SET distributed.{knob} = {bad}")
+        assert knob not in ctx.config.distributed_options
+        msgs.append(str(ei.value))
+    assert stored[1] == stored[0]
+    assert msgs[1] == msgs[0]
+
+
 # ---------------------------------------------------------------------------
 # EXPLAIN VERIFY and the clean sweep (tests/test_plan_verify.py's cases)
 # ---------------------------------------------------------------------------
