@@ -83,7 +83,23 @@ Phases, each of which must pass:
    after a worker holding them left; kernels 1, 2 and 3 at every logged
    shape; at SF 0.01 churned q3 and hedged q1 on "cuda" against "cpu" (a
    CPU subprocess that runs meanwhile).
-13. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
+13. wire — coordinated TPC-H over real 127.0.0.1 gRPC sockets
+   (start_localhost_cluster(4): four gRPC servers in this process, every
+   worker on the card) at 4 tasks: q1, q3, q5, q9, q18 and q21 at SF 1,
+   cold then warm, over gRPC and over InMemoryCluster(4) on the same
+   session (warm seconds of both; device-to-host and host-to-device bytes,
+   copies and GB/s; wire bytes before and after compression; SetPlan bytes
+   shipped; peak device memory; the card's allocated bytes before the
+   cluster started and after its shutdown), each byte-identical to the
+   in-process run and equal to single-node; q3, q5 and q18 at SF 0.1
+   under data_plane default, stream and shm, stream and shm each with
+   wire_compression auto and off, and q21 on shm with auto, byte-identical (segments published and
+   released, bytes through shm), and q3 under a chaos segment_lost
+   schedule; the native
+   host hash against the card's on SF 1 key columns; kernels 1, 2 and 3 at
+   every logged shape; at SF 0.01 four queries over gRPC on "cuda" against
+   "cpu" (a CPU subprocess that runs meanwhile).
+14. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
    import): the `hits` table at its published 99,997,497 rows, seed 3, all
    43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
    kernels 1 and 2 at every shape that run gave them (group builds on
@@ -98,8 +114,9 @@ The check phase also runs q22 and q13 over `orders` without the customers
 whose key is divisible by 3, card against CPU (7 and 22 rows at SF 0.01).
 The main phase, the window phase, the one-task staged path, each
 coordinator's second run, the serving tier's fair-share arm, the hedged
-straggler arm's warm run and the ClickBench run each set the kernels'
-launch counts to 0 just before they run and read them just after.
+straggler arm's warm run, each warm gRPC run of the wire phase and the
+ClickBench run each set the kernels' launch counts to 0 just before they
+run and read them just after.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, the script fails and prints no result.
@@ -1319,6 +1336,27 @@ def _sync_calls(fn) -> int:
     return sum("synchronizing" in str(w.message) for w in caught)
 
 
+#: (kernel, shape) -> the case of its check, for every shape a phase of
+#: this run held against the plain version: a later phase that logs the
+#: same shape reuses the case (the run's time limit holds each shape once)
+_CHECKED: dict = {}
+
+
+def _checked_earlier(key, skipped: list):
+    """The case of ``key`` if an earlier phase of this run checked it
+    (marked with that phase), else None."""
+    case = _CHECKED.get(key)
+    if case is not None:
+        skipped.append(key)
+    return case
+
+
+def _log_reused(tag: str, skipped: list) -> None:
+    if skipped:
+        log(f"[{tag}] {len(skipped)} shapes were checked bit-exact by an "
+            "earlier phase of this run")
+
+
 def build_shape_checks(build_shapes, dev, tag: str) -> dict:
     """Kernel 1 at every build shape a run logged ([rows, int32 lanes,
     slots, launches]), on seeded keys drawn on the card (about 0.45 *
@@ -1330,7 +1368,12 @@ def build_shape_checks(build_shapes, dev, tag: str) -> dict:
     from datafusion_distributed_tpu_torch.ops.hash import hash_columns
 
     builds = {}
+    skipped: list = []
     for n, lanes, slots, _count in build_shapes:
+        earlier = _checked_earlier(("build", n, lanes, slots), skipped)
+        if earlier is not None:
+            builds[f"{n}x{lanes}/{slots}"] = earlier
+            continue
         gen = _device_rng(f"{tag} build {n} {lanes} {slots}", dev)
         ndv = max(1, int(0.45 * slots))
         vals = _ints(gen, (ndv, lanes), dev)
@@ -1350,9 +1393,11 @@ def build_shape_checks(build_shapes, dev, tag: str) -> dict:
               f"build_group_ids rows={n} lanes={lanes} slots={slots}: "
               f"kernel != plain ({case}, plain rounds {int(ref[4])})")
         builds[f"{n}x{lanes}/{slots}"] = case
+        _CHECKED[("build", n, lanes, slots)] = {**case, "checked_by": tag}
         log(f"[{tag}] build_group_ids rows={n} lanes={lanes} slots={slots}: "
             f"{case}")
         del keys, s0, live, got, ref
+    _log_reused(tag, skipped)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return builds
@@ -2692,7 +2737,13 @@ def agg_shape_checks(agg_shapes, dev, tag: str) -> dict:
     from datafusion_distributed_tpu_torch.ops.hash import hash_columns
 
     aggs = {}
+    skipped: list = []
     for (n, lanes, slots, ops), _count in agg_shapes.items():
+        earlier = _checked_earlier(("agg", n, lanes, slots, tuple(ops)),
+                                   skipped)
+        if earlier is not None:
+            aggs[f"{n}x{lanes}/{slots}/{','.join(ops)}"] = earlier
+            continue
         gen = _device_rng(f"{tag} agg {n} {lanes} {slots} {ops}", dev)
         ndv = max(1, int(0.45 * slots))
         vals = _ints(gen, (ndv, lanes), dev)
@@ -2710,9 +2761,12 @@ def agg_shape_checks(agg_shapes, dev, tag: str) -> dict:
               f"group_aggregate rows={n} lanes={lanes} slots={slots} "
               f"ops={ops}: kernel != plain ({case})")
         aggs[f"{n}x{lanes}/{slots}/{','.join(ops)}"] = case
+        _CHECKED[("agg", n, lanes, slots, tuple(ops))] = {**case,
+                                                        "checked_by": tag}
         log(f"[{tag}] group_aggregate rows={n} lanes={lanes} slots={slots} "
             f"ops={ops}: {case}")
         del keys, s0, live, values, got, ref
+    _log_reused(tag, skipped)
     torch.cuda.synchronize()
     return aggs
 
@@ -3030,7 +3084,510 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: ClickBench in x64 mode, in a subprocess
+# phase 13: the wire tier (gRPC workers, the shm plane, native regroup)
+# ---------------------------------------------------------------------------
+
+WIRE_WORKERS = 4
+WIRE_TASKS = 4
+#: the SF 1 arm: scans, the five-way join, the six-way join, the big GROUP
+#: BY, the anti-join (the resilience phase's queries)
+WIRE_QUERIES = ("q1", "q3", "q5", "q9", "q18", "q21")
+#: the plane and codec variants, at WIRE_KNOB_SF
+WIRE_KNOB_QUERIES = ("q3", "q5", "q18", "q21")
+#: queries that run only some of WIRE_PLANES' variants: q21's five took
+#: 23.5 s of a 184.6 s phase on the card, which the run's time limit does
+#: not hold beside the 22-query churn of the resilience phase; it keeps
+#: the shm plane, where its stream's segments carry lineitem's dictionaries
+WIRE_KNOB_ONLY = {"q21": (("shm", "auto"),)}
+WIRE_KNOB_SF = 0.1
+#: (data plane, its knobs, the wire compressions it runs under): the
+#: default ladder never calls TransferPartitions, the one RPC that reads
+#: `wire_compression`, so it runs once
+WIRE_PLANES = (("default", {}, ("auto",)),
+               ("stream", {"data_plane": "stream"}, ("auto", "off")),
+               ("shm", {"data_plane": "shm"}, ("auto", "off")))
+#: card against CPU at CHECK_SF
+WIRE_CHECK_QUERIES = ("q1", "q3", "q5", "q18")
+#: the deadline of every RPC the phase's clients make
+WIRE_RPC_TIMEOUT_S = 300.0
+WIRE_CPU_TIMEOUT_S = 600
+#: the SF 1 key columns the native hash is held against the card's on
+WIRE_HASH_COLUMNS = (("lineitem", ("l_orderkey",)),
+                     ("lineitem", ("l_orderkey", "l_partkey", "l_suppkey")),
+                     ("orders", ("o_custkey", "o_totalprice")))
+
+
+class _ShipMeter:
+    """Sums the framed bytes every GrpcWorkerClient.set_plan puts on the
+    wire (its return value) while active: the SetPlan bytes shipped."""
+
+    def __enter__(self):
+        import functools
+        import threading
+
+        from datafusion_distributed_tpu_torch.runtime import grpc_worker
+
+        self.cls = grpc_worker.GrpcWorkerClient
+        self.original = original = self.cls.set_plan
+        self.lock = threading.Lock()
+        self.bytes = 0
+        self.calls = 0
+        meter = self
+
+        @functools.wraps(original)
+        def set_plan(client, *a, **kw):
+            n = original(client, *a, **kw)
+            with meter.lock:
+                meter.bytes += n
+                meter.calls += 1
+            return n
+
+        self.cls.set_plan = set_plan
+        return self
+
+    def take(self) -> tuple:
+        with self.lock:
+            out = (self.bytes, self.calls)
+            self.bytes = self.calls = 0
+        return out
+
+    def __exit__(self, *exc):
+        self.cls.set_plan = self.original
+
+
+def _copies(fn) -> tuple:
+    """(fn(), its host/device copies): for each direction the bytes and
+    copies the table layer counted where it made them
+    (`ops.table.copy_stats`: the packed copies, `move`, `to_device`),
+    beside what the profiler's CUDA activity recorded of the same call (in
+    every thread of the process, read from its exported trace): its bytes,
+    copies and summed device time, the rate those copies reached, and the
+    share of the counted bytes it saw (it can drop events; the counts are
+    the table layer's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from datafusion_distributed_tpu_torch.ops.table import (
+        copy_stats,
+        reset_copy_stats,
+    )
+
+    box: list = []
+    reset_copy_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        box.append(fn())
+    counted = copy_stats()
+    path = Path(tempfile.mkdtemp()) / "trace.json"
+    prof.export_chrome_trace(str(path))
+    seen = {d: {"bytes": 0, "copies": 0, "us": 0.0} for d in ("d2h", "h2d")}
+    for e in json.loads(path.read_text()).get("traceEvents", []):
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        name = e.get("name", "")
+        d = "d2h" if "DtoH" in name else "h2d" if "HtoD" in name else None
+        if d is None:
+            continue
+        seen[d]["bytes"] += int(e.get("args", {}).get("bytes", 0))
+        seen[d]["copies"] += 1
+        seen[d]["us"] += float(e.get("dur", 0.0))
+    path.unlink()
+    out = {}
+    for d, v in seen.items():
+        b = counted[f"{d}_bytes"]
+        out[d] = {"bytes": b, "copies": counted[f"{d}_copies"],
+                  "profiler_bytes": v["bytes"],
+                  "profiler_copies": v["copies"], "profiler_us": v["us"],
+                  "gb_s": v["bytes"] / (v["us"] * 1e3) if v["us"] else None,
+                  "profiler_share": v["bytes"] / b if b else None}
+    return box[0], out
+
+
+def _grpc_coordinated(ctx, sql: str, cluster, opts=None, wrap=None):
+    """One query through collect_coordinated_table(num_tasks=4) over a
+    localhost gRPC ``cluster`` (or ``wrap(cluster)``), on a fresh
+    Coordinator. -> (result, coordinator); every worker's store, task
+    registry and segment directory must be empty afterwards."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator,
+    )
+
+    c = cluster if wrap is None else wrap(cluster)
+    coord = Coordinator(resolver=c, channels=c, config_options={
+        **ctx.config.distributed_snapshot(), **(opts or {})})
+    table = ctx.sql(sql).collect_coordinated_table(coordinator=coord,
+                                                   num_tasks=WIRE_TASKS)
+    out = table.to_numpy()
+    if table.device.type == "cuda":
+        torch.cuda.synchronize()
+    for w in cluster.local_workers:
+        check(not w.table_store.tables and len(w.registry) == 0,
+              f"gRPC worker {w.url} kept {len(w.table_store.tables)} staged "
+              f"tables and {len(w.registry)} tasks after the query")
+        check(w.segment_pool.live_segments() == 0,
+              f"gRPC worker {w.url} left {w.segment_pool.live_segments()} "
+              "shm segments")
+    return out, coord
+
+
+def wire_cpu_worker(sf: float, out_path: str) -> int:
+    """The CPU's side of the wire phase's card-against-CPU check: the
+    WIRE_CHECK_QUERIES over start_localhost_cluster(4, device="cpu") at SF
+    ``sf``, pickled."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.runtime.grpc_worker import (
+        start_localhost_cluster,
+    )
+
+    torch.set_num_threads(4)
+    ctx = _session("cpu", sf, SEED)
+    cluster = start_localhost_cluster(WIRE_WORKERS, device="cpu",
+                                      rpc_timeout_s=WIRE_RPC_TIMEOUT_S)
+    try:
+        out = {q: _grpc_coordinated(ctx, sql, cluster)[0]
+               for q, sql in _queries(WIRE_CHECK_QUERIES)}
+    finally:
+        cluster.shutdown()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def _pool_totals(cluster) -> dict:
+    """Segments published, released (published and no longer in a pool
+    directory) and their bytes, summed over the cluster's workers."""
+    st = [w.segment_pool.stats() for w in cluster.local_workers]
+    published = sum(s["published"] for s in st)
+    live = sum(s["live_segments"] for s in st)
+    return {"published": published, "released": published - live,
+            "live": live, "bytes": sum(s["published_bytes"] for s in st)}
+
+
+def phase_wire(sf: float, check_sf: float, seed: int) -> dict:
+    """The wire tier on the card: coordinated TPC-H over real 127.0.0.1
+    gRPC sockets (start_localhost_cluster(4), four servers in this
+    process, every worker on the card), against the same session's
+    in-process cluster.
+
+    1. SF ``sf``: WIRE_QUERIES over gRPC and in-process (InMemoryCluster(4)),
+    each cold then warm, default plane ladder and zstd: per query the warm
+    seconds of both tiers; device-to-host and host-to-device bytes and
+    copies as the table layer counts them (cold and warm gRPC runs), with
+    what the profiler's CUDA activity recorded of the cold one and the
+    GB/s its copies reached (the coordinator phase measures the copies of
+    in-process runs); wire
+    bytes as framed and after decompression with what compression saved
+    (every frame the process unpacked in the warm gRPC run); SetPlan bytes
+    shipped; peak device memory of the warm gRPC run; the card's allocated
+    bytes before the query's cluster started and after its shutdown. Each
+    gRPC result byte-identical to the in-process run and equal to
+    single-node. Launches are counted from 0 over the six warm gRPC runs.
+    2. SF WIRE_KNOB_SF: WIRE_KNOB_QUERIES under each plane and wire
+    compression of WIRE_PLANES (WIRE_KNOB_ONLY's under theirs),
+    byte-identical to the in-process run;
+    segments published and released, the bytes that went through shm (a
+    query whose exchanges take no partition stream publishes none; some
+    query must); then q3 under a chaos `segment_lost` schedule on the shm
+    plane: a lost segment costs one wire re-pull and gives the same bytes.
+    3. The native host hash against the card's `hash_columns` on host
+    copies of SF 1 key columns, bit for bit.
+    4. At SF ``check_sf`` the WIRE_CHECK_QUERIES over gRPC on the card
+    against the CPU (a subprocess that runs meanwhile).
+    5. Kernels 1, 2 and 3 at every shape the phase logged, bit for bit
+    against their plain versions. No segment may be left in a pool
+    directory and the leak checker must track no live resource."""
+    cpu_out = Path(tempfile.mkdtemp()) / "wire_cpu.pkl"
+    cpu_worker = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--wire-cpu-worker", str(check_sf), "--out", str(cpu_out)],
+        stdout=subprocess.DEVNULL)
+    try:
+        return _wire_phase(sf, check_sf, seed, cpu_worker, cpu_out)
+    finally:
+        if cpu_worker.poll() is None:
+            cpu_worker.kill()
+            cpu_worker.wait()
+
+
+def _wire_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
+    import gc
+
+    import torch
+
+    from datafusion_distributed_tpu_torch import native, precision
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.ops.hash import hash_columns
+    from datafusion_distributed_tpu_torch.ops.table import (
+        copy_stats,
+        reset_copy_stats,
+    )
+    from datafusion_distributed_tpu_torch.runtime import (
+        chaos,
+        leakcheck,
+        transport,
+    )
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.grpc_worker import (
+        start_localhost_cluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.telemetry import (
+        DEFAULT_REGISTRY,
+    )
+
+    rtol = precision.test_rtol()
+    t_phase = time.perf_counter()
+    # the codecs this installation can put on the wire (zstd only where the
+    # zstandard package is installed; frames ship raw otherwise)
+    out: dict = {"codecs": transport.supported_codecs()}
+    log(f"[wire] wire codecs here: {out['codecs']}")
+    shapes: dict = {"build": {}, "probe": {}, "agg": {}}
+    hk.reset_launch_counts()
+    leakcheck.install()
+    leakcheck.reset()
+
+    def grpc_cluster():
+        return start_localhost_cluster(WIRE_WORKERS, device="cuda",
+                                       rpc_timeout_s=WIRE_RPC_TIMEOUT_S)
+
+    def settled() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    # --- 1. SF 1: gRPC against in-process -----------------------------------
+    ctx = _session("cuda", sf, seed)
+    mem = InMemoryCluster(WIRE_WORKERS)
+    sqls = dict(_queries(WIRE_QUERIES))
+    per_query: dict = {}
+    launches: dict = {}
+    with _ShipMeter() as ships:
+        for q in WIRE_QUERIES:
+            sql = sqls[q]
+            r: dict = {}
+            single = _run(ctx, sql)
+            t0 = time.perf_counter()
+            cold_mem = _coordinated(ctx, sql, False, mem)[0]
+            r["inproc_cold_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            warm_mem = _coordinated(ctx, sql, False, mem)[0]
+            r["inproc_s"] = time.perf_counter() - t0
+            check(_identical(cold_mem, warm_mem),
+                  f"{q}: two in-process runs differ")
+            del cold_mem
+            before = settled()
+            cluster = grpc_cluster()
+            try:
+                t0 = time.perf_counter()
+                cold, r["copies"] = _copies(
+                    lambda: _grpc_coordinated(ctx, sql, cluster)[0])
+                r["cold_s"] = time.perf_counter() - t0
+                check(r["copies"]["d2h"]["bytes"] > 0
+                      and r["copies"]["h2d"]["bytes"] > 0,
+                      f"{q}: the gRPC run counted no copy between card and "
+                      f"host: {r['copies']}")
+                ships.take()
+                transport.reset_wire_stats()
+                _drain_shapes(hk, shapes)
+                torch.cuda.reset_peak_memory_stats()
+                reset_copy_stats()
+                t0 = time.perf_counter()
+                warm, coord = _grpc_coordinated(ctx, sql, cluster)
+                r["s"] = time.perf_counter() - t0
+                r["warm_copies"] = copy_stats()
+                r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                for k, v in hk.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + v
+                _drain_shapes(hk, shapes)
+                r["wire"] = transport.wire_stats()
+                r["setplan_bytes"], r["setplan_calls"] = ships.take()
+                r["planes"] = _planes(coord)
+                del coord
+            finally:
+                cluster.shutdown()
+            del cluster
+            after = settled()
+            r["allocated_before"], r["allocated_after"] = before, after
+            check(_identical(cold, warm), f"{q}: two gRPC runs differ")
+            check(_identical(warm, warm_mem),
+                  f"{q}: the gRPC result differs from the in-process run")
+            diff, r["tied"] = _close_or_ties(warm, single, rtol)
+            check(diff == "", f"{q} over gRPC differs from single-node in "
+                  f"{diff}")
+            r["tracked_live"] = _tracked_live()
+            check(r["tracked_live"] == 0, f"{q}: the leak checker tracks "
+                  f"{r['tracked_live']} live resources")
+            per_query[q] = r
+            log(f"[wire] {q}: gRPC warm {r['s']:.3f}s against in-process "
+                f"{r['inproc_s']:.3f}s; {r} ({_since(t_phase)})")
+            del cold, warm, warm_mem, single
+    for k in ("build_group_ids", "multiway_probe"):
+        check(launches.get(k, 0) > 0,
+              f"kernel {k} was not launched by the warm gRPC runs")
+    out["queries"] = per_query
+    out["launches"] = launches
+    out["allocated_differs"] = [
+        q for q, r in per_query.items()
+        if r["allocated_after"] != r["allocated_before"]]
+
+    # --- 3. the native host hash against the card's ------------------------
+    t0 = time.perf_counter()
+    native.load()  # built from the checkout's source at first use
+    hashes = {"build_s": time.perf_counter() - t0}
+    for table, cols in WIRE_HASH_COLUMNS:
+        t = ctx.catalog.tables[table]
+        n = int(t.num_rows)
+        data = [t.column(c).data[:n] for c in cols]
+        valid = [t.column(c).validity for c in cols]
+        valid = [v[:n] if v is not None else None for v in valid]
+        card = hash_columns(data, valid)
+        host = [d.cpu().numpy() for d in data]
+        host_valid = [v.cpu().numpy() if v is not None else None
+                      for v in valid]
+        t0 = time.perf_counter()
+        got = native.hash_rows(host, host_valid,
+                               [t.column(c).dtype for c in cols])
+        native_ms = (time.perf_counter() - t0) * 1e3  # host time
+        same = bool(np.array_equal(card.cpu().numpy().astype(np.uint32),
+                                   got))
+        check(same, f"native hash of {table}{cols} differs from the card's")
+        hashes[f"{table}({','.join(cols)})"] = {
+            "rows": n, "equal": same, "native_ms": native_ms,
+            "card_ms": time_ms(lambda: hash_columns(data, valid), 3)}
+        del data, valid, card, host, host_valid, got
+    out["native_hash"] = hashes
+    log(f"[wire] native hash equal to the card's: {hashes} "
+        f"({_since(t_phase)})")
+    del ctx, mem
+    torch.cuda.empty_cache()
+
+    # --- 2. SF 0.1: planes and codecs, segment_lost ------------------------
+    knob_ctx = _session("cuda", WIRE_KNOB_SF, seed)
+    mem = InMemoryCluster(WIRE_WORKERS)
+    cluster = grpc_cluster()
+    knobs: dict = {}
+    saved = DEFAULT_REGISTRY.counter(
+        "dftpu_wire_bytes_saved",
+        "Wire bytes avoided (shm references, compression delta)",
+        labels=("plane",))
+    fallbacks = DEFAULT_REGISTRY.counter(
+        "dftpu_shm_fallbacks",
+        "Shm segments lost; pulls degraded to the wire path")
+    try:
+        for q, sql in _queries(WIRE_KNOB_QUERIES):
+            base = _coordinated(knob_ctx, sql, False, mem)[0]
+            for plane, popts, comps in WIRE_PLANES:
+                for comp in comps:
+                    if (q in WIRE_KNOB_ONLY
+                            and (plane, comp) not in WIRE_KNOB_ONLY[q]):
+                        continue
+                    pool0 = _pool_totals(cluster)
+                    shm0 = saved.value(plane="shm")
+                    transport.reset_wire_stats()
+                    t0 = time.perf_counter()
+                    got, coord = _grpc_coordinated(
+                        knob_ctx, sql, cluster,
+                        {**popts, "wire_compression": comp})
+                    wall = time.perf_counter() - t0
+                    _drain_shapes(hk, shapes)
+                    check(_identical(got, base),
+                          f"{q} over gRPC, data_plane={plane}, "
+                          f"wire_compression={comp}: differs from the "
+                          "in-process run")
+                    pool1 = _pool_totals(cluster)
+                    knobs[f"{q} {plane} {comp}"] = {
+                        "s": wall, "planes": _planes(coord),
+                        "wire": transport.wire_stats(),
+                        "segments_published":
+                            pool1["published"] - pool0["published"],
+                        "segments_released":
+                            pool1["released"] - pool0["released"],
+                        "shm_bytes": saved.value(plane="shm") - shm0}
+                    check(pool1["live"] == 0, f"{q} {plane} {comp}: "
+                          f"{pool1['live']} segments left")
+                    del coord
+            log(f"[wire] SF {WIRE_KNOB_SF} {q}: every plane and codec "
+                "byte-identical: "
+                f"{ {k: v for k, v in knobs.items() if k.startswith(q)} } "
+                f"({_since(t_phase)})")
+        check(any(v["segments_published"] for k, v in knobs.items()
+                  if " shm " in k), "the shm plane published no segment")
+        # one segment_lost schedule on q3: the torn pull is retried over
+        # the wire and gives the same bytes
+        sql = dict(_queries(("q3",)))["q3"]
+        base = _coordinated(knob_ctx, sql, False, mem)[0]
+        fb0 = fallbacks.value()
+        plan = chaos.one_crash_per_stage(seed, kind="segment_lost")
+        got, coord = _grpc_coordinated(
+            knob_ctx, sql, cluster, {"data_plane": "shm"},
+            wrap=lambda c: chaos.wrap_cluster(c, plan))
+        _drain_shapes(hk, shapes)
+        check(_identical(got, base),
+              "q3 under segment_lost differs from the in-process run")
+        lost = {"fallbacks": fallbacks.value() - fb0,
+                "retries": coord.faults.get("task_retries"),
+                "fired": len(plan.fired)}
+        check(lost["fallbacks"] >= 1, f"no segment was lost: {lost}")
+        out["segment_lost"] = lost
+        log(f"[wire] q3 under segment_lost: byte-identical, {lost} "
+            f"({_since(t_phase)})")
+        out["pool"] = _pool_totals(cluster)
+    finally:
+        cluster.shutdown()
+    check(out["pool"]["live"] == 0,
+          f"segments left in a pool directory: {out['pool']}")
+    out["knobs"] = knobs
+    out["tracked_live"] = _tracked_live()
+    check(out["tracked_live"] == 0,
+          f"the leak checker tracks {out['tracked_live']} live resources")
+    del knob_ctx, mem, cluster
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 4. card against CPU ----------------------------------------------
+    gpu = _session("cuda", check_sf, seed)
+    small = grpc_cluster()
+    try:
+        card = {q: _grpc_coordinated(gpu, sql, small)[0]
+                for q, sql in _queries(WIRE_CHECK_QUERIES)}
+    finally:
+        small.shutdown()
+    _drain_shapes(hk, shapes)
+    check(cpu_worker.wait(timeout=WIRE_CPU_TIMEOUT_S) == 0,
+          f"the CPU worker exited {cpu_worker.returncode}")
+    with open(cpu_out, "rb") as f:
+        cpu_results = pickle.load(f)
+    identical = 0
+    for q in WIRE_CHECK_QUERIES:
+        diff = _close(card[q], cpu_results[q], rtol)
+        check(diff == "", f"{q} over gRPC: cuda and cpu differ in {diff}")
+        identical += _identical(card[q], cpu_results[q])
+    out["card_cpu_identical"] = identical
+    log(f"[wire] SF {check_sf}: {len(WIRE_CHECK_QUERIES)} queries over gRPC "
+        f"equal on cuda and cpu, {identical} byte for byte "
+        f"({_since(t_phase)})")
+    del gpu, card
+
+    # --- 5. every logged shape against the plain version -------------------
+    dev = torch.device("cuda")
+    out["kernel_checks"] = {
+        "build_group_ids": build_shape_checks(
+            [[n, lanes, h, c] for (n, lanes, h), c
+             in shapes["build"].items()], dev, "wire"),
+        "multiway_probe": probe_shape_checks(
+            [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
+             in shapes["probe"].items()], dev, "wire"),
+        "group_aggregate": agg_shape_checks(shapes["agg"], dev, "wire"),
+    }
+    out["shapes"] = {k: len(v) for k, v in shapes.items()}
+    log(f"[wire] shapes checked: {out['shapes']} ({_since(t_phase)})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: ClickBench in x64 mode, in a subprocess
 # ---------------------------------------------------------------------------
 
 CLICKBENCH_ROWS = 99_997_497  # ClickBench's `hits` table
@@ -3367,7 +3924,13 @@ def probe_shape_checks(probe_shapes, dev, tag: str) -> dict:
     from datafusion_distributed_tpu_torch.ops.hash import hash_columns
 
     probes = {}
+    skipped: list = []
     for n, ntab, lanes, slots, _count in probe_shapes:
+        key = ("probe", n, ntab, lanes, tuple(slots))
+        earlier = _checked_earlier(key, skipped)
+        if earlier is not None:
+            probes[f"{n}x{ntab}x{lanes}/{slots}"] = earlier
+            continue
         gen = _device_rng(f"{tag} probe {n} {lanes} {slots}", dev)
         tparts, uparts, kparts = [], [], []
         for hslots in slots:
@@ -3399,9 +3962,11 @@ def probe_shape_checks(probe_shapes, dev, tag: str) -> dict:
         check(case["max_abs_err"] == 0, f"multiway_probe rows={n} "
               f"tables={ntab} lanes={lanes} slots={slots}: kernel != plain")
         probes[f"{n}x{ntab}x{lanes}/{slots}"] = case
+        _CHECKED[key] = {**case, "checked_by": tag}
         log(f"[{tag}] multiway_probe rows={n} tables={ntab} "
             f"lanes={lanes} slots={slots}: {case}")
         del keys, s0, active, args, tparts, uparts, kparts
+    _log_reused(tag, skipped)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return probes
@@ -3473,7 +4038,7 @@ SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
           "window", "distributed", "tasks", "coordinator", "serving",
-          "resilience", "clickbench")
+          "resilience", "wire", "clickbench")
 CLICKBENCH_TIMEOUT_S = 800
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -3496,6 +4061,8 @@ def main(argv=None) -> int:
                     metavar="SF", help=argparse.SUPPRESS)
     ap.add_argument("--resilience-cpu-worker", type=float, default=None,
                     metavar="SF", help=argparse.SUPPRESS)
+    ap.add_argument("--wire-cpu-worker", type=float, default=None,
+                    metavar="SF", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -3516,6 +4083,8 @@ def main(argv=None) -> int:
         return serving_cpu_worker(args.serving_cpu_worker, args.out)
     if args.resilience_cpu_worker is not None:
         return resilience_cpu_worker(args.resilience_cpu_worker, args.out)
+    if args.wire_cpu_worker is not None:
+        return wire_cpu_worker(args.wire_cpu_worker, args.out)
     if args.clickbench_worker:
         try:
             return clickbench_worker(args.out)
@@ -3568,6 +4137,8 @@ def main(argv=None) -> int:
                 results["serving"] = phase_serving(SF, CHECK_SF, SEED)
             elif phase == "resilience":
                 results["resilience"] = phase_resilience(SF, CHECK_SF, SEED)
+            elif phase == "wire":
+                results["wire"] = phase_wire(SF, CHECK_SF, SEED)
             else:
                 results["clickbench"] = phase_clickbench(CLICKBENCH_TIMEOUT_S)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
@@ -3596,11 +4167,13 @@ def main(argv=None) -> int:
              "coordinated_adaptive": ("coordinator",),
              "serving": ("serving",),
              "resilience": ("resilience",),
+             "wire": ("wire",),
              "clickbench_x64": ("clickbench",),
              "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
                     for phase in ("distributed", "tasks", "coordinator",
-                                  "serving", "resilience", "clickbench")]
+                                  "serving", "resilience", "wire",
+                                  "clickbench")]
     shape_checks.append(results.get("clickbench", {}).get("t8", {})
                         .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
@@ -3701,6 +4274,23 @@ def main(argv=None) -> int:
             "churn_all_kinds": d["churn_all_kinds"],
             "served": d["served"], "resume": d["resume"],
             "card_cpu": d["card_cpu"], "shapes": d["shapes"],
+            "launches": d["launches"]}}))
+    if "wire" in results:
+        d = results["wire"]
+        print(json.dumps({"wire": {
+            "queries": {q: {
+                "s": r["s"], "inproc_s": r["inproc_s"],
+                "cold_s": r["cold_s"], "peak_gb": r["peak_gb"],
+                "d2h": r["copies"]["d2h"], "h2d": r["copies"]["h2d"],
+                "wire": r["wire"], "setplan_bytes": r["setplan_bytes"],
+                "allocated_before": r["allocated_before"],
+                "allocated_after": r["allocated_after"]}
+                for q, r in d["queries"].items()},
+            "allocated_differs": d["allocated_differs"],
+            "codecs": d["codecs"],
+            "segment_lost": d["segment_lost"], "pool": d["pool"],
+            "native_hash": d["native_hash"], "shapes": d["shapes"],
+            "card_cpu_identical": d["card_cpu_identical"],
             "launches": d["launches"]}}))
     if "clickbench" in results:
         cb = results["clickbench"]

@@ -249,40 +249,40 @@ def build_group_ids_plain(keys_mat, slot0, live, num_slots: int,
     """The reference's XLA claim loop as torch ops (one host-checked round
     per iteration). keys_mat [N, L] int, slot0 [N] int32, live [N] bool ->
     (gid [N] i32, slot_keys [H, L], slot_used [H] bool, overflow 0-d bool,
-    rounds 0-d i32)."""
+    rounds 0-d i32). Each round works on the rows still unresolved, in row
+    order: a resolved row takes no part in a later round (it claims
+    nothing and its slot never changes), so the result is the loop's over
+    all rows, and a round costs what is left of the build."""
     n, lanes = keys_mat.shape
     dev = keys_mat.device
     h = num_slots
-    rows = torch.arange(n, dtype=torch.int64, device=dev)
-    resolved = ~live
-    slot = slot0.to(torch.int64)
     gid = torch.zeros(n, dtype=torch.int32, device=dev)
-    # one extra row: the scratch target of dropped scatters
-    slot_keys = torch.zeros((h + 1, lanes), dtype=keys_mat.dtype, device=dev)
-    slot_used = torch.zeros(h + 1, dtype=torch.bool, device=dev)
+    slot_keys = torch.zeros((h, lanes), dtype=keys_mat.dtype, device=dev)
+    slot_used = torch.zeros(h, dtype=torch.bool, device=dev)
+    # the unresolved rows, ascending, and each one's candidate slot
+    act = torch.nonzero(live.to(torch.bool)).flatten()
+    slot = slot0.to(torch.int64)[act]
     rounds = 0
-    while rounds < max_rounds and not bool(resolved.all()):
+    while rounds < max_rounds and act.numel():
         # 1. unresolved rows claim their candidate slot (min row-id wins)
-        claim = torch.where(resolved, h, slot)
-        owner = torch.full((h + 1,), n, dtype=torch.int64, device=dev)
-        owner.scatter_reduce_(0, claim, rows, reduce="amin")
+        owner = torch.full((h,), n, dtype=torch.int64, device=dev)
+        owner.scatter_reduce_(0, slot, act, reduce="amin")
         # only claims on slots empty at the start of the round count
-        winner = (~resolved) & (owner[slot] == rows) & (~slot_used[slot])
-        # 2. winners write their keys and mark their slots used
-        wslot = torch.where(winner, slot, h)
-        slot_keys.index_put_((wslot,), keys_mat)
-        slot_used.index_put_((wslot,), torch.ones_like(winner))
+        winner = (owner[slot] == act) & ~slot_used[slot]
+        # 2. winners (one a slot) write their keys and mark their slots
+        wslot = slot[winner]
+        slot_keys[wslot] = keys_mat[act[winner]]
+        slot_used[wslot] = True
         # 3. everyone compares; match -> resolve, mismatch on used -> probe
         used = slot_used[slot]
-        match = used & (slot_keys[slot] == keys_mat).all(dim=1)
-        newly = (~resolved) & match
-        gid = torch.where(newly, slot.to(torch.int32), gid)
-        resolved = resolved | newly
-        advance = (~resolved) & used & ~match
+        match = used & (slot_keys[slot] == keys_mat[act]).all(dim=1)
+        gid[act[match]] = slot[match].to(torch.int32)
+        advance = used & ~match
         slot = torch.where(advance, (slot + 1) & (h - 1), slot)
+        act, slot = act[~match], slot[~match]
         rounds += 1
-    overflow = ~resolved.all()
-    return (gid, slot_keys[:h], slot_used[:h], overflow,
+    overflow = torch.tensor(act.numel() > 0, device=dev)
+    return (gid, slot_keys, slot_used, overflow,
             torch.tensor(rounds, dtype=torch.int32, device=dev))
 
 

@@ -174,6 +174,117 @@ def get_dictionary(dict_id: int) -> Dictionary:
     return _DICT_REGISTRY[dict_id]
 
 
+def _host_buffers(values, dtype: DataType, capacity: int,
+                  validity=None) -> tuple:
+    """A column's padded host buffers: (data [capacity] in the device
+    storage dtype, validity [capacity] bool or None)."""
+    n = len(values)
+    if n > capacity:
+        raise ValueError(f"{n} values > capacity {capacity}")
+    np_dtype = np.dtype(dtype.np_dtype)
+    vals = np.asarray(values)
+    # tpu precision mode stores logical 64-bit ints as int32; narrowing
+    # must be loud, never a silent wrap
+    if (
+        n
+        and np.issubdtype(vals.dtype, np.integer)
+        and np.issubdtype(np_dtype, np.integer)
+        and vals.dtype.itemsize > np_dtype.itemsize
+    ):
+        info = np.iinfo(np_dtype)
+        lo, hi = vals.min(), vals.max()
+        if lo < info.min or hi > info.max:
+            raise OverflowError(
+                f"int values [{lo}, {hi}] exceed {np_dtype} device "
+                "storage; run with DFTPU_PRECISION=x64 for 64-bit keys"
+            )
+    buf = np.zeros(capacity, dtype=np_dtype)
+    buf[:n] = vals
+    v = None
+    if validity is not None:
+        v = np.zeros(capacity, dtype=np.bool_)
+        v[:n] = validity
+    return buf, v
+
+
+_ALIGN = 16
+
+_COPY_LOCK = threading.Lock()
+#: bytes and copies between host and card that the table layer made since
+#: the last `reset_copy_stats`: counted where each copy is enqueued
+#: (`_upload_packed`, `_download_packed`, `move`, `to_device`)
+_COPIES = {"d2h_bytes": 0, "d2h_copies": 0,
+           "h2d_bytes": 0, "h2d_copies": 0}  # guarded-by: _COPY_LOCK
+
+
+def _count_copy(direction: str, nbytes: int) -> None:
+    with _COPY_LOCK:
+        _COPIES[f"{direction}_bytes"] += nbytes
+        _COPIES[f"{direction}_copies"] += 1
+
+
+def copy_stats() -> dict:
+    """Host-card copies the table layer made since `reset_copy_stats`:
+    ``d2h_bytes``, ``d2h_copies``, ``h2d_bytes``, ``h2d_copies``."""
+    with _COPY_LOCK:
+        return dict(_COPIES)
+
+
+def reset_copy_stats() -> None:
+    with _COPY_LOCK:
+        for k in _COPIES:
+            _COPIES[k] = 0
+
+
+def _packed_offsets(nbytes: list) -> tuple:
+    offs, total = [], 0
+    for nb in nbytes:
+        offs.append(total)
+        total += -(-nb // _ALIGN) * _ALIGN
+    return offs, max(total, _ALIGN)
+
+
+def _upload_packed(arrays: list, dev) -> list:
+    """Host arrays -> tensors on the card in ONE host-to-device copy: packed
+    (16-byte aligned) into one pinned staging buffer, copied without
+    blocking the host, and handed out as typed views of one device buffer.
+    The caching host allocator keeps the staging buffer until the copy has
+    run."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offs, total = _packed_offsets([a.nbytes for a in arrays])
+    staging = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    host = staging.numpy()
+    for a, o in zip(arrays, offs):
+        host[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = staging.to(dev, non_blocking=True)
+    _count_copy("h2d", total)
+    return [
+        buf[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+        for a, o in zip(arrays, offs)
+    ]
+
+
+def _download_packed(tensors: list) -> list:
+    """Tensors on one card -> host tensors in ONE device-to-host copy (one
+    wait for the device's stream, not one per tensor): packed on the card
+    into one buffer, copied into pinned host memory, handed out as typed
+    views of it."""
+    dev = tensors[0].device
+    flat = [t.contiguous().reshape(-1) for t in tensors]
+    nbytes = [t.numel() * t.element_size() for t in flat]
+    offs, total = _packed_offsets(nbytes)
+    packed = torch.empty(total, dtype=torch.uint8, device=dev)
+    for t, o, nb in zip(flat, offs, nbytes):
+        if nb:
+            packed[o:o + nb].copy_(t.view(torch.uint8))
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    _count_copy("d2h", total)
+    torch.cuda.current_stream(dev).synchronize()
+    return [host[o:o + nb].view(t.dtype)
+            for t, o, nb in zip(flat, offs, nbytes)]
+
+
 # ---------------------------------------------------------------------------
 # Column
 # ---------------------------------------------------------------------------
@@ -202,35 +313,10 @@ class Column:
         device=None,
     ) -> "Column":
         dev = resolve_device(device)
-        n = len(values)
-        if n > capacity:
-            raise ValueError(f"{n} values > capacity {capacity}")
-        np_dtype = np.dtype(dtype.np_dtype)
-        vals = np.asarray(values)
-        # tpu precision mode stores logical 64-bit ints as int32; narrowing
-        # must be loud, never a silent wrap
-        if (
-            n
-            and np.issubdtype(vals.dtype, np.integer)
-            and np.issubdtype(np_dtype, np.integer)
-            and vals.dtype.itemsize > np_dtype.itemsize
-        ):
-            info = np.iinfo(np_dtype)
-            lo, hi = vals.min(), vals.max()
-            if lo < info.min or hi > info.max:
-                raise OverflowError(
-                    f"int values [{lo}, {hi}] exceed {np_dtype} device "
-                    "storage; run with DFTPU_PRECISION=x64 for 64-bit keys"
-                )
-        buf = np.zeros(capacity, dtype=np_dtype)
-        buf[:n] = vals
-        data = to_device(buf, dev)
-        col_validity = None
-        if validity is not None:
-            v = np.zeros(capacity, dtype=np.bool_)
-            v[:n] = validity
-            col_validity = to_device(v, dev)
-        return Column(data, col_validity, dtype, dictionary)
+        buf, v = _host_buffers(values, dtype, capacity, validity)
+        return Column(to_device(buf, dev),
+                      to_device(v, dev) if v is not None else None,
+                      dtype, dictionary)
 
     @property
     def capacity(self) -> int:
@@ -292,13 +378,17 @@ class Table:
         device=None,
     ) -> "Table":
         """Build a device Table from host arrays (string columns must already
-        be int32 codes with a matching entry in ``dictionaries``)."""
+        be int32 codes with a matching entry in ``dictionaries``). On the
+        card every buffer of the table goes in one host-to-device copy that
+        does not block the host (`_upload_packed`): a copy per column would
+        wait, each time, for everything queued on the device's one
+        stream."""
         if not data:
             raise ValueError("from_numpy needs at least one column")
         dev = resolve_device(device)
         n = len(next(iter(data.values())))
         cap = capacity if capacity is not None else max(1, _round_up(n))
-        cols: dict[str, Column] = {}
+        host = []
         for f in schema.fields:
             vals = data[f.name]
             if len(vals) != n:
@@ -307,8 +397,21 @@ class Table:
             d = dictionaries.get(f.name) if dictionaries else None
             if f.dtype == DataType.STRING and d is None:
                 raise ValueError(f"string column {f.name} needs a dictionary")
-            cols[f.name] = Column.from_numpy(vals, f.dtype, cap, v, d, dev)
-        return Table.make(cols, n)
+            host.append((f, _host_buffers(vals, f.dtype, cap, v), d))
+        if dev.type != "cuda":
+            cols = {f.name: Column(to_device(b, dev),
+                                   to_device(v, dev) if v is not None
+                                   else None, f.dtype, d)
+                    for f, (b, v), d in host}
+            return Table.make(cols, n)
+        arrays = [a for _f, bv, _d in host for a in bv if a is not None]
+        uploaded = iter(_upload_packed(arrays, dev))
+        cols = {}
+        for f, (_b, v), d in host:
+            data_t = next(uploaded)
+            cols[f.name] = Column(
+                data_t, next(uploaded) if v is not None else None, f.dtype, d)
+        return Table(tuple(cols), tuple(cols.values()), rows_tensor(n, dev))
 
     @staticmethod
     def empty(schema: Schema, capacity: int, dictionaries=None,
@@ -714,32 +817,58 @@ def move(table: Table, device) -> Table:
     dev = torch.device(device)
     if table.device == dev:
         return table
+    direction = ("h2d" if dev.type == "cuda" else
+                 "d2h" if table.device.type == "cuda" else None)
+
+    def to(t: torch.Tensor) -> torch.Tensor:
+        if direction is not None:
+            _count_copy(direction, t.numel() * t.element_size())
+        return t.to(dev)
+
     cols = tuple(
-        Column(
-            c.data.to(dev),
-            c.validity.to(dev) if c.validity is not None else None,
-            c.dtype, c.dictionary,
-        )
+        Column(to(c.data), to(c.validity) if c.validity is not None
+               else None, c.dtype, c.dictionary)
         for c in table.columns
     )
-    out = Table(table.names, cols, table.num_rows.to(dev))
+    out = Table(table.names, cols, to(table.num_rows))
     n = known_rows(table)
     return _with_host_rows(out, n) if n is not None else out
 
 
 def host_view(table: Table) -> Table:
     """The table's buffers in host memory: free for a table on the CPU,
-    one device-to-host copy of every column otherwise. Only bytes that
-    leave the process need it (Arrow IPC); the in-process planes keep
-    tables on their device."""
-    return table if is_host_backed(table) else move(table, "cpu")
+    one device-to-host copy of all its columns for a table on the card.
+    Only bytes that leave the process need it (Arrow IPC); the in-process
+    planes keep tables on their device."""
+    if is_host_backed(table):
+        return table
+    if table.device.type != "cuda":
+        return move(table, "cpu")
+    n = host_rows(table)
+    parts = []
+    for c in table.columns:
+        parts.append(c.data)
+        if c.validity is not None:
+            parts.append(c.validity)
+    host = iter(_download_packed(parts))
+    cols = tuple(
+        Column(next(host),
+               next(host) if c.validity is not None else None,
+               c.dtype, c.dictionary)
+        for c in table.columns
+    )
+    return _with_host_rows(Table(table.names, cols, rows_tensor(n, "cpu")),
+                           n)
 
 
 def to_device(arr: np.ndarray, device=None) -> torch.Tensor:
     """Host buffer -> tensor on ``device`` (None: the card); on the CPU the
     tensor shares the buffer, so the caller hands it over: it must not be
     mutated afterwards."""
-    return torch.from_numpy(arr).to(resolve_device(device))
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        _count_copy("h2d", arr.nbytes)
+    return torch.from_numpy(arr).to(dev)
 
 
 def _merge_views(arrs: list, want_len: int) -> Optional[torch.Tensor]:

@@ -1,9 +1,8 @@
 """Deterministic fault injection for the host-runtime tier.
 
-Port of the reference `runtime/chaos.py`. Ported fault kinds: crash,
-transport, delay, straggler, corrupt_plan, oom and skew, and the
-membership events. `kind="segment_lost"` waits for the tier it drives and
-raises NotImplementedError naming it (the shm plane, ROADMAP A.5.3).
+Port of the reference `runtime/chaos.py`, with every fault kind (crash,
+transport, delay, straggler, corrupt_plan, oom, skew and segment_lost) and
+the membership events.
 
 A seeded `FaultPlan` wraps a cluster's workers (`wrap_cluster` /
 `ChaosWorker`) and injects faults at the coordinator-visible call sites:
@@ -16,7 +15,9 @@ A seeded `FaultPlan` wraps a cluster's workers (`wrap_cluster` /
   execute    crash-mid-execute / transient transport errors / slow-worker
              delays, applied uniformly to execute_task,
              execute_task_stream, execute_task_partitions and
-             transfer_partitions
+             transfer_partitions; kind="segment_lost" (transfer-only)
+             tears the next shm segment mid-stream, asserting the pull
+             is retried over the wire path instead of failing the query
 
 Membership churn (`MembershipEvent`): seeded `leave`/`join`/`drain`
 events scheduled by site/stage/task like the fault kinds above, applied
@@ -118,11 +119,6 @@ class FaultSpec:
         if self.site not in SITES:
             raise ValueError(
                 f"unknown fault site {self.site!r} (expected one of {SITES})"
-            )
-        if self.kind == "segment_lost":
-            raise NotImplementedError(
-                'chaos kind="segment_lost" tears an shm plane segment; the '
-                "shm data plane is not ported: ROADMAP A.5.3"
             )
 
     def _matches(self, site: str, url: str, stage_id: int,
@@ -595,6 +591,16 @@ class ChaosWorker:
                 # call-time is a no-op so stream/partition paths that
                 # share this fault site pass through untouched
                 pass
+            elif spec.kind == "segment_lost":
+                # transfer-specific: ARM the client's tear-next-segment
+                # hook and delegate — the fault manifests mid-stream as
+                # a vanished shm segment (the window a dying producer
+                # leaves behind), and the assertion is that the pull is
+                # retried over the wire path, not that this call raises.
+                # On clients without the hook (in-process workers, other
+                # data-plane calls) the schedule slot is a no-op.
+                if hasattr(self._inner, "_chaos_tear_next_segment"):
+                    self._inner._chaos_tear_next_segment = True
             else:
                 _raise_for(spec, "execute", self.url, key)
         return spec
@@ -629,7 +635,9 @@ class ChaosWorker:
     def transfer_partitions(self, key, *a, **kw):
         # explicit proxy (NOT __getattr__ passthrough) so transfer pulls
         # sit under the same execute-site fault schedule as the other
-        # data-plane calls
+        # data-plane calls — including kind="segment_lost", which arms
+        # the client's tear hook in _execute_fault and lets the stream
+        # proceed into the torn-segment window
         self._execute_fault(key, kw.get("cancel"))
         return self._inner.transfer_partitions(key, *a, **kw)
 

@@ -1329,20 +1329,27 @@ def _live_on_host(table: Table) -> Table:
     return host_view(slice_view(table, 0, host_rows(table)))
 
 
-def encode_table(table: Table) -> memoryview:
+def encode_table(table: Table, whole_dictionaries: bool = False,
+                 sent: Optional[set] = None) -> memoryview:
     """Table -> Arrow IPC payload (the Flight data-plane analogue):
     dictionary-GC'd string columns + logical-dtype metadata (the wire shape
     of io/parquet.table_to_arrow). Writes through `pa.BufferOutputStream`
     and returns a memoryview over the resulting Arrow buffer — the old
     `BytesIO` + `getvalue()` shape duplicated the whole payload at peak
     (one copy in the stream, a second in getvalue). Consumers (transport
-    framing, compression, len) all speak the buffer protocol."""
+    framing, compression, len) all speak the buffer protocol.
+    ``whole_dictionaries`` ships string columns with their whole
+    dictionaries and unchanged codes, named by fingerprint; a dictionary
+    whose fingerprint is in ``sent`` (the receiver holds it) goes as a
+    reference (io/parquet.py `table_to_arrow`): the gRPC tier's
+    encoding."""
     import pyarrow as pa
 
     from datafusion_distributed_tpu_torch.io.parquet import table_to_arrow
 
     arrow = table_to_arrow(_live_on_host(table), dictionary_gc=True,
-                           logical_metadata=True)
+                           logical_metadata=True,
+                           whole_dictionaries=whole_dictionaries, sent=sent)
     sink = pa.BufferOutputStream()
     with pa.ipc.new_stream(sink, arrow.schema) as w:
         w.write_table(arrow)
@@ -1351,17 +1358,22 @@ def encode_table(table: Table) -> memoryview:
     return memoryview(sink.getvalue())
 
 
-def decode_table(data, capacity: Optional[int] = None, device=None) -> Table:
-    """Arrow IPC payload -> Table on ``device`` (None: the card). Reads
-    through `pa.BufferReader` (no BytesIO staging copy); ``capacity``
-    passes through to the column build."""
+def decode_table(data, capacity: Optional[int] = None, device=None,
+                 held: Optional[dict] = None) -> Table:
+    """Arrow IPC payload -> Table on ``device`` (None: the card), uploaded
+    in one copy. Reads through `pa.BufferReader` (no BytesIO staging
+    copy); ``capacity`` passes through to the column build; ``held``:
+    fingerprint -> Dictionary, the dictionaries the receiver advertised
+    and those earlier payloads of the stream carried (`encode_table`'s
+    ``sent``; io/parquet.py `arrow_to_host_columns`)."""
     import pyarrow as pa
 
     from datafusion_distributed_tpu_torch.io.parquet import arrow_to_table
 
     with pa.ipc.open_stream(pa.BufferReader(data)) as r:
         arrow = r.read_all()
-    return arrow_to_table(arrow, capacity=capacity, device=device)
+    return arrow_to_table(arrow, capacity=capacity, device=device,
+                          held=held)
 
 
 # ---------------------------------------------------------------------------
@@ -1412,19 +1424,25 @@ def choose_column_codec(column, available) -> str:
     return best("zstd", "lz4")
 
 
-def encode_table_adaptive(table: Table, available) -> tuple[dict, dict]:
+def encode_table_adaptive(table: Table, available,
+                          whole_dictionaries: bool = False,
+                          sent: Optional[set] = None
+                          ) -> tuple[dict, dict]:
     """Table -> per-column Arrow IPC blobs with per-column codec picks;
     -> (blobs {"c<i>": payload}, codecs {"c<i>": codec}). Each column is
     its own single-column IPC stream so the transport's per-blob
     ``comp`` framing (self-describing) carries a MIXED-codec frame; the
     decoder reassembles the columns into one table. Returns ({}, {})
-    for a zero-column table — callers fall back to `encode_table`."""
+    for a zero-column table — callers fall back to `encode_table`.
+    ``whole_dictionaries`` and ``sent`` as for `encode_table` (the first
+    column's blob carries the payload's dictionary references)."""
     import pyarrow as pa
 
     from datafusion_distributed_tpu_torch.io.parquet import table_to_arrow
 
     arrow = table_to_arrow(_live_on_host(table), dictionary_gc=True,
-                           logical_metadata=True)
+                           logical_metadata=True,
+                           whole_dictionaries=whole_dictionaries, sent=sent)
     blobs: dict = {}
     codecs: dict = {}
     for i in range(arrow.num_columns):
@@ -1440,11 +1458,12 @@ def encode_table_adaptive(table: Table, available) -> tuple[dict, dict]:
 
 def decode_table_adaptive(blobs: dict, num_cols: int,
                           capacity: Optional[int] = None,
-                          device=None) -> Table:
+                          device=None, held: Optional[dict] = None) -> Table:
     """Reassemble `encode_table_adaptive` blobs into one Table: the
     single-column arrow tables are re-joined and decoded through the
     SAME `arrow_to_table` call as the single-blob path, so both wire
-    shapes build byte-identical tables."""
+    shapes build byte-identical tables. ``held`` as for
+    `decode_table`."""
     import pyarrow as pa
 
     from datafusion_distributed_tpu_torch.io.parquet import arrow_to_table
@@ -1458,4 +1477,5 @@ def decode_table_adaptive(blobs: dict, num_cols: int,
     arrow = parts[0]
     for t in parts[1:]:
         arrow = arrow.append_column(t.schema.field(0), t.column(0))
-    return arrow_to_table(arrow, capacity=capacity, device=device)
+    return arrow_to_table(arrow, capacity=capacity, device=device,
+                          held=held)

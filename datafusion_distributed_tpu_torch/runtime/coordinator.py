@@ -26,8 +26,10 @@ hooks are ported: the global stage pool (`stage_pool`), query checkpoints
 (`checkpoints`), the sub-plan cache (`result_cache`) and the enforced
 worker memory budget; elastic membership (`DynamicCluster`), the
 departed-peer healing and straggler hedging. Every attempt of a task
-(a hedge included) runs on the device's one current stream. Left out:
-the shm data plane (refused, A.5.3) and mesh-worker span dispatch (A.4).
+(a hedge included) runs on the device's one current stream. The same
+coordinator drives gRPC workers (runtime/grpc_worker.py), whose planes
+carry Arrow IPC bytes through the host, the co-located shm plane among
+them (`data_plane = shm`). Left out: mesh-worker span dispatch (A.4).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from datafusion_distributed_tpu_torch.ops.table import (
     Table,
     concat_tables,
     host_rows,
+    is_host_backed,
     read_rows,
     rows_tensor,
     slice_view,
@@ -406,10 +409,6 @@ class DynamicCluster(WorkerResolver, ChannelResolver):
             }
 
 
-def _refuse(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{feature} is not ported: ROADMAP {item}")
-
-
 def _plan_device(plan: ExecutionPlan):
     """The device of a plan's leaf tables (where every stage runs)."""
     from datafusion_distributed_tpu_torch.plan.physical import (
@@ -551,7 +550,6 @@ class Coordinator:
         # object, so the retry loops' re-submissions verify once.
         enforce_verification(plan, options=self.config_options,
                              context="coordinator pre-dispatch")
-        self._refuse_left_out()
         # every stage runs on the device of the plan's leaf tables; an
         # empty slice made here takes that device too
         self._device = _plan_device(plan)
@@ -724,13 +722,6 @@ class Coordinator:
                     self.on_query_end(query_id)
                 except Exception:
                     pass  # sweep hook must not mask the query's error
-
-    def _refuse_left_out(self) -> None:
-        """The reference's default-off tiers this port does not have yet:
-        switching one on raises instead of silently taking another path."""
-        opts = self.config_options
-        if str(opts.get("data_plane", "auto")).lower() == "shm":
-            raise _refuse("the shm data plane (data_plane = shm)", "A.5.3")
 
     def _apply_worker_budgets(self) -> None:
         """Apply `distributed.worker_memory_budget_bytes` (when present
@@ -4542,10 +4533,16 @@ def _shuffle_regroup(
     outputs: Sequence[Table], key_names, num_tasks: int,
     per_dest_capacity: int, zero_copy: bool = True, exact: bool = False,
 ) -> list[Table]:
-    """Hash regroup between stages, on the producers' device. Uses the SAME
+    """Hash regroup between stages, where the producers live. Uses the SAME
     hash as the task executor's shuffle (ops/hash.py, bit-identical to the
-    reference's device hash and its native host hash), so keys co-locate
+    reference's device hash and to the native host hash), so keys co-locate
     across tiers.
+
+    Producer tables on the card are bucketed there; producer tables in host
+    memory by the native host data plane (native/: its hash and CSR
+    buckets, `_shuffle_regroup_host`), as the reference's regroup does.
+    The tables' device decides, never whether the library built: a failed
+    build raises.
 
     ``zero_copy`` (the view-based data plane, default on): each producer
     output is bucketed with ONE stable destination-major gather per column,
@@ -4558,10 +4555,12 @@ def _shuffle_regroup(
 
     The copying path (``zero_copy`` off) compacts each destination's rows
     out of each producer and concatenates them: the same rows in the same
-    order, so both paths give the same bytes. The reference builds that
-    path's hash and CSR buckets in its native host library (native/), which
-    this port does not carry: bytes only leave the device with the wire
-    transports (ROADMAP A.5.3)."""
+    order, so both paths give the same bytes."""
+    if outputs and all(is_host_backed(o) for o in outputs):
+        return _shuffle_regroup_host(
+            outputs, key_names, num_tasks, per_dest_capacity, zero_copy,
+            exact,
+        )
     if zero_copy:
         return _shuffle_regroup_views(
             outputs, key_names, num_tasks, per_dest_capacity, exact
@@ -4580,6 +4579,68 @@ def _shuffle_regroup(
     cap = max(len(outputs), 1) * per_dest_capacity
     for j in range(num_tasks):
         slices.append(concat_tables(buckets[j], capacity=cap))
+    return slices
+
+
+def _shuffle_regroup_host(
+    outputs: Sequence[Table], key_names, num_tasks: int,
+    per_dest_capacity: int, zero_copy: bool, exact: bool,
+) -> list[Table]:
+    """The regroup of producer tables in host memory (port of the
+    reference's `_shuffle_regroup_host` and its native copying path): the
+    native library hashes each output's live key rows and builds the CSR of
+    row indices per destination, each destination's rows in their original
+    order. On the view plane one gather per column by that CSR makes a
+    destination-major buffer whose per-destination row ranges are the
+    slices; the copying plane gathers each destination's rows out of each
+    producer at the producer's capacity (the padding is row 0, as
+    `Table.compact` pads). Both give the rows and order of the device
+    paths, so every plane stays byte-identical."""
+    from datafusion_distributed_tpu_torch import native
+
+    ns = read_rows(outputs)
+    buckets: list[list[Table]] = [[] for _ in range(num_tasks)]
+    for out, n in zip(outputs, ns):
+        keys = [_narrowed(out.column(k), n) for k in key_names]
+        h = native.hash_rows(
+            [c.data.numpy() for c in keys],
+            [c.validity.numpy() if c.validity is not None else None
+             for c in keys],
+            [c.dtype for c in keys],
+        )
+        offsets, indices, counts = native.shuffle_buckets(h, None, num_tasks)
+        order = torch.from_numpy(indices)
+        if zero_copy:
+            gathered = Table(
+                out.names,
+                tuple(_narrowed(c, n).gather(order) for c in out.columns),
+                out.num_rows,
+            )
+            gathered._host_rows = n
+            for j in range(num_tasks):
+                buckets[j].append(slice_view(
+                    gathered, int(offsets[j]), int(counts[j])))
+            continue
+        for j in range(num_tasks):
+            idx = torch.zeros(out.capacity, dtype=torch.int64)
+            idx[: int(counts[j])] = order[int(offsets[j]):int(offsets[j + 1])]
+            piece = out.gather(idx, int(counts[j]))
+            piece._host_rows = int(counts[j])
+            buckets[j].append(piece)
+    cap = max(len(outputs), 1) * per_dest_capacity
+    slices = []
+    for j in range(num_tasks):
+        if not zero_copy:
+            slices.append(concat_tables(buckets[j], capacity=cap))
+            continue
+        if exact and len(buckets[j]) == 1:
+            slices.append(buckets[j][0])
+            continue
+        rows = sum(host_rows(b) for b in buckets[j])
+        slices.append(concat_tables(
+            buckets[j],
+            capacity=(max(rows, 1) if exact else cap),
+        ))
     return slices
 
 

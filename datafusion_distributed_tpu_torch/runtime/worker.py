@@ -16,8 +16,9 @@ Port of the reference `runtime/worker.py`. A task runs `execute_plan` on the
 device its tables live on, eagerly; the reference's stage-shared compile
 cache has no counterpart here (nothing is compiled). Outputs, partition
 slices and chunks stay on that device: slices and chunks are row-range
-views (ops/table.py `slice_view`). The gRPC wrapper, the shm plane and the
-wire codecs are ROADMAP A.5.3.
+views (ops/table.py `slice_view`). A worker names its ``device``: the
+tables the gRPC wrapper decodes for it (shipped slices, peer pulls) land
+there, and only there.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
+
+import torch
 
 from datafusion_distributed_tpu_torch.ops.table import Table, host_rows
 from datafusion_distributed_tpu_torch.plan.physical import (
@@ -300,8 +303,12 @@ class Worker:
         version: str = "0.1.0",
         on_plan: Optional[Callable[[ExecutionPlan, TaskKey], ExecutionPlan]] = None,
         peer_channels=None,
+        device=None,
     ):
         self.url = url
+        # where the tables decoded for this worker land (None: the card);
+        # in-process planes hand tables over by reference and decode none
+        self.device = torch.device("cuda" if device is None else device)
         self.version = version
         self.registry = TaskRegistry(
             ttl_seconds,
@@ -342,6 +349,15 @@ class Worker:
         # data plane to open streams to producer workers (the reference's
         # consumer-side WorkerConnectionPool, `worker_connection_pool.rs`)
         self.peer_channels = peer_channels
+        # co-located segment pool (runtime/shm_plane.py): the streaming
+        # transfer RPC publishes chunk payloads here when the consumer
+        # is classified same-host; cheap to build — no directory exists
+        # until the first publish
+        from datafusion_distributed_tpu_torch.runtime.shm_plane import (
+            SegmentPool,
+        )
+
+        self.segment_pool = SegmentPool()
         # final progress of partition-range tasks, retained past their
         # drop-driven invalidation (consumed once by task_progress)
         self._final_progress: dict[TaskKey, Optional[dict]] = {}
@@ -556,6 +572,7 @@ class Worker:
         per_dest_capacity: int = 0,
         chunk_rows: int = 65536,
         cancel=None,
+        on_host: bool = False,
     ):
         """Partition-range data plane: one stream carries partitions
         [part_lo, part_hi) of this task's hash-partitioned output, each
@@ -566,6 +583,11 @@ class Worker:
         `partitions_remaining` decrements per served partition and the
         registry entry self-invalidates at zero (the drop-driven accounting
         of `impl_execute_task.rs:97-112`).
+
+        ``on_host`` (the wire handlers, whose chunks leave the process as
+        Arrow IPC): each partition's live rows are copied to the host once
+        and its chunks are host views of that copy — one device-to-host
+        copy a partition, not one a chunk.
 
         Yields (partition_id, chunk Table, est_bytes).
         """
@@ -623,6 +645,7 @@ class Worker:
             # slices out from under this one: hold our own reference
             slices = data.partition_slices
         from datafusion_distributed_tpu_torch.ops.table import (
+            host_view,
             read_rows,
             slice_view,
             zero_copy_enabled,
@@ -639,6 +662,8 @@ class Worker:
                 if n == 0:
                     yield p, piece.slice_rows(0, 0), 0
                 else:
+                    if on_host:
+                        piece = host_view(slice_view(piece, 0, n))
                     for lo in range(0, n, max(chunk_rows, 1)):
                         if cancel is not None and cancel.is_set():
                             return
@@ -757,9 +782,17 @@ class Worker:
         return self.peer_channels is not None
 
     def get_info(self) -> dict:
+        from datafusion_distributed_tpu_torch.runtime import transport
+
         return {"url": self.url, "version": self.version,
                 "tasks_cached": len(self.registry),
                 "peer_capable": self.peer_capable,
+                # wire codecs this process can decode: clients intersect
+                # with their own before choosing a connection codec (the
+                # per-connection negotiation surface)
+                "wire_codecs": transport.supported_codecs(),
+                # shm data-plane accounting (runtime/shm_plane.py)
+                "shm": self.segment_pool.stats(),
                 # staged-byte accounting (zero-copy data plane): actual
                 # staged bytes/entries/views + peak, per worker — the
                 # observability service's data-plane surface

@@ -182,7 +182,6 @@ class SessionConfig:
             elif key == "data_plane":
                 # data-plane selection (runtime/coordinator.py): auto keeps
                 # the routing ladder; unary/stream/shm force one plane
-                # (shm is refused at run time until it is ported)
                 value = str(value).strip().lower()
                 if value not in ("auto", "unary", "stream", "shm"):
                     raise ValueError(
@@ -190,8 +189,8 @@ class SessionConfig:
                         f"('auto', 'unary', 'stream', 'shm'))"
                     )
             elif key == "wire_compression":
-                # the wire transports' codec policy: validated as the
-                # reference does, read once the transports are ported
+                # the wire transports' codec policy (runtime/grpc_worker.py
+                # TransferPartitions), validated as the reference does
                 value = str(value).strip().lower()
                 if value not in ("auto", "off", "zstd", "lz4"):
                     raise ValueError(

@@ -34,7 +34,9 @@ tests/test_tpch_distributed.py sets it), queries from benchmarks/queries/tpch,
   non-retryable worker error surfaces with the reference's type and
   message;
 - every left-out feature raises NotImplementedError naming its ROADMAP A.5
-  item, and the serving tier's hooks (checkpoints, the result cache, the
+  item; the shm data plane and chaos `segment_lost` (refused until the
+  wire tier was ported) run over localhost gRPC workers; the serving
+  tier's hooks (checkpoints, the result cache, the
   stage pool, worker memory budgets, `PreparedStatement.submit`) and the
   resilience tier (hedging, `DynamicCluster`, chaos membership events) run.
 """
@@ -254,20 +256,7 @@ def test_non_retryable_error_surfaces_as_the_reference(env):
 
 
 def _left_out_cases():
-    def coord_opts(**opts):
-        def run(ctx):
-            cluster = tcoord.InMemoryCluster(2)
-            coord = tcoord.Coordinator(
-                resolver=cluster, channels=cluster,
-                config_options={**ctx.config.distributed_snapshot(), **opts})
-            ctx.sql(_sql("q6")).collect_coordinated_table(
-                coordinator=coord, num_tasks=NT)
-        return run
-
     return {
-        "data_plane=shm": coord_opts(data_plane="shm"),
-        "chaos segment_lost": lambda ctx: tchaos.FaultSpec(
-            site="execute", kind="segment_lost"),
         "last_trace": lambda ctx: ctx.last_trace(),
         "last_trace_profile": lambda ctx: ctx.last_trace_profile(),
     }
@@ -278,6 +267,51 @@ def test_left_out_features_refuse(env, case):
     tctx = env[2]
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         _left_out_cases()[case](tctx)
+
+
+def _wire_tier_cases():
+    """The tiers this port refused before the wire tier was ported: each
+    now runs q6 (4 tasks over two localhost gRPC workers on the CPU) to
+    the default coordinated result, with no staged slice, task or shm
+    segment left on either worker."""
+    from datafusion_distributed_tpu_torch.runtime.grpc_worker import (
+        start_localhost_cluster,
+    )
+
+    def run(ctx, wrap=None, **opts):
+        cluster = start_localhost_cluster(2, device="cpu", rpc_timeout_s=60)
+        try:
+            c = cluster if wrap is None else wrap(cluster)
+            coord = tcoord.Coordinator(
+                resolver=c, channels=c,
+                config_options={**ctx.config.distributed_snapshot(), **opts})
+            out = ctx.sql(_sql("q6")).collect_coordinated_table(
+                coordinator=coord, num_tasks=NT)
+            for w in cluster.local_workers:
+                assert not w.table_store.tables and len(w.registry) == 0
+                assert w.segment_pool.live_segments() == 0
+            return out
+        finally:
+            cluster.shutdown()
+
+    def torn(cluster):
+        return tchaos.wrap_cluster(cluster, tchaos.one_crash_per_stage(
+            7, kind="segment_lost"))
+
+    return {
+        "data_plane=shm": lambda ctx: run(ctx, data_plane="shm"),
+        "chaos segment_lost": lambda ctx: run(ctx, wrap=torn,
+                                              data_plane="shm"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_wire_tier_cases()))
+def test_wire_tier_runs(env, case):
+    tctx = env[2]
+    base = tctx.sql(_sql("q6")).collect_coordinated_table(
+        num_workers=WORKERS, num_tasks=NT).to_numpy()
+    got = _wire_tier_cases()[case](tctx).to_numpy()
+    assert identical(base, got), case
 
 
 def _serving_hook_cases():

@@ -8,7 +8,9 @@ TableStore entry refaults onto the card byte for byte, and two clients of
 one ServingSession get the sequential results. A hedged query with a
 straggling worker and a query under membership churn give the plain
 results, and the card's allocated bytes return to their baseline once
-the cluster is released.
+the cluster is released. A query over four localhost gRPC workers on the
+card, on the default and the shm plane, equals the in-process run. The
+table layer counts each copy it makes between card and host.
 
 This file imports neither jax nor the JAX package, so it also runs where
 they are absent, as on a machine with the card:
@@ -639,3 +641,83 @@ def test_membership_churn_on_the_card(dev):
         "membership_drain", "membership_join", "membership_leave"]
     assert cluster.wait_drained(urls[2], timeout_s=10.0)
     assert after == base, (after, base)
+
+
+@pytest.mark.cuda
+def test_grpc_cluster_on_the_card(dev):
+    """q3 over four localhost gRPC workers on the card, on the default
+    plane and on the shm plane, equals the in-process run byte for byte;
+    the workers decode onto the card; no shm segment is left; and the
+    card's allocated bytes return to the in-process run's baseline once
+    the cluster is shut down."""
+    import gc
+
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator,
+        InMemoryCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.grpc_worker import (
+        start_localhost_cluster,
+    )
+
+    ctx, sql = _resilience_session(dev)
+    plain, _f, base = _coordinated_on(ctx, sql("q3"), InMemoryCluster(4))
+    cluster = start_localhost_cluster(4, rpc_timeout_s=300)
+    try:
+        assert all(w.device.type == "cuda" for w in cluster.local_workers)
+        for plane in ("auto", "shm"):
+            coord = Coordinator(resolver=cluster, channels=cluster,
+                                config_options={
+                                    **ctx.config.distributed_snapshot(),
+                                    "data_plane": plane})
+            out = ctx.sql(sql("q3")).collect_coordinated_table(
+                coordinator=coord, num_tasks=4)
+            assert out.device.type == "cuda"
+            _assert_same(out.to_numpy(), plain)
+            for w in cluster.local_workers:
+                assert not w.table_store.tables and len(w.registry) == 0
+                assert w.segment_pool.live_segments() == 0
+            del out, coord
+        published = sum(w.segment_pool.stats()["published"]
+                        for w in cluster.local_workers)
+        assert published > 0
+    finally:
+        cluster.shutdown()
+    del cluster
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+
+
+@pytest.mark.cuda
+def test_copy_counters_count_each_table_copy(dev):
+    """The table layer counts a copy between card and host where it makes
+    it: one packed upload of a table built from host arrays, one packed
+    download of its host view, and one copy a tensor moved; the bytes are
+    the buffers' (the packed ones with their 16-byte alignment)."""
+    import pyarrow as pa
+
+    from datafusion_distributed_tpu_torch.io.parquet import arrow_to_table
+    from datafusion_distributed_tpu_torch.ops import table as tt
+
+    arrow = pa.table({"k": np.arange(1000, dtype=np.int32),
+                      "s": pa.array([None, "b"] * 500)})
+    tt.reset_copy_stats()
+    t = arrow_to_table(arrow, device=dev)
+    up = tt.copy_stats()
+    assert (up["h2d_copies"], up["d2h_copies"]) == (1, 0)
+    cap = t.capacity
+    # k (int32) and s (int32 codes), each with its validity (bool), each
+    # aligned to 16 bytes
+    assert up["h2d_bytes"] == 2 * (cap * 4 + -(-cap // 16) * 16)
+    tt.reset_copy_stats()
+    host = tt.host_view(t)
+    down = tt.copy_stats()
+    assert (down["d2h_copies"], down["d2h_bytes"]) == (1, up["h2d_bytes"])
+    assert host.columns[0].data.device.type == "cpu"
+    tt.reset_copy_stats()
+    moved = tt.move(host, dev)
+    again = tt.copy_stats()
+    # k, s, their validities and the row count
+    assert (again["h2d_copies"], again["d2h_copies"]) == (5, 0)
+    _assert_same(moved.to_numpy(), t.to_numpy())

@@ -7,7 +7,8 @@ through the coordinator over four in-memory workers, static and adaptive
 serving tier (runtime/serving.py, with the spill, checkpoint, result-cache
 and chaos modules imported) and over a `DynamicCluster` that loses a
 worker mid-query with hedging on, read through the observability service,
-on the CPU when asked to, and refuses to start without a CUDA device
+and over two localhost gRPC workers on the shm plane (runtime/grpc_worker.py,
+shm_plane.py, transport.py, native/), on the CPU when asked to, and refuses to start without a CUDA device
 otherwise."""
 
 import os
@@ -96,13 +97,28 @@ _SCRIPT = textwrap.dedent("""
     mem = ObservabilityService(cluster, cluster).get_membership()
     assert mem["epoch"] == cluster.membership_epoch
     assert mem["departed"] == ["mem://worker-1"]
+    from datafusion_distributed_tpu_torch.runtime.grpc_worker import (
+        start_localhost_cluster,
+    )
+    grpc_cluster = start_localhost_cluster(2, device="cpu",
+                                           rpc_timeout_s=120)
+    try:
+        coord = Coordinator(resolver=grpc_cluster, channels=grpc_cluster,
+                            config_options={"data_plane": "shm"})
+        wired = ctx.sql(star).collect_coordinated_table(
+            coordinator=coord, num_tasks=4).to_numpy()
+    finally:
+        grpc_cluster.shutdown()
+    assert wired["n"].tobytes() == staged["n"].tobytes()
     import importlib
     for m in ("errors", "leakcheck", "eventlog", "telemetry", "tracing",
               "metrics", "health", "codec", "worker", "streams", "peer",
               "adaptivity", "coordinator", "spill", "checkpoint",
-              "result_cache", "serving", "chaos", "observability"):
+              "result_cache", "serving", "chaos", "observability",
+              "transport", "shm_plane", "grpc_worker"):
         importlib.import_module("datafusion_distributed_tpu_torch.runtime."
                                 + m)
+    importlib.import_module("datafusion_distributed_tpu_torch.native")
     importlib.import_module("datafusion_distributed_tpu_torch.planner."
                             "adaptive")
     assert "verification:" in ctx.sql("EXPLAIN VERIFY " + star)
