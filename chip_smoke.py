@@ -99,7 +99,23 @@ Phases, each of which must pass:
    host hash against the card's on SF 1 key columns; kernels 1, 2 and 3 at
    every logged shape; at SF 0.01 four queries over gRPC on "cuda" against
    "cpu" (a CPU subprocess that runs meanwhile).
-14. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
+14. tools — the operator's tools on the card: `cli.main(["--tpch", "1",
+   "-c", q3])`, its printed rows equal to single-node; q3 and q5 through
+   the coordinator over InMemoryCluster(4) at SF 1, untraced then traced,
+   byte-identical (`ctx.last_trace()`'s events, `trace_coverage`, the
+   first lines of `ctx.last_trace_profile()`, the seconds tracing adds);
+   `Console.render_frame()` over two localhost gRPC workers after q3 over
+   them, with the worker rows and the data-plane line; four parquet slices
+   of lineitem streamed through a work-unit feed into a WorkUnitScanExec
+   under a GROUP BY, equal to the GROUP BY over the whole table (each
+   unit's four timestamps); kernels 1, 2 and 3 at every logged shape; the
+   served q1/q6 mix over two gRPC workers at SF 0.1 in a subprocess with
+   DFTPU_LOCK_CHECK=0 and in one with DFTPU_LOCK_CHECK=1 (warm seconds of
+   both; observed lock-order edges, static or new, hold outliers and
+   events; a lock-order cycle fails it); and, in a subprocess with jax
+   blocked, a star query over three fresh gRPC clusters in a row (the shm,
+   stream and shm planes), each equal to single-node.
+15. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
    import): the `hits` table at its published 99,997,497 rows, seed 3, all
    43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
    kernels 1 and 2 at every shape that run gave them (group builds on
@@ -114,9 +130,10 @@ The check phase also runs q22 and q13 over `orders` without the customers
 whose key is divisible by 3, card against CPU (7 and 22 rows at SF 0.01).
 The main phase, the window phase, the one-task staged path, each
 coordinator's second run, the serving tier's fair-share arm, the hedged
-straggler arm's warm run, each warm gRPC run of the wire phase and the
-ClickBench run each set the kernels' launch counts to 0 just before they
-run and read them just after.
+straggler arm's warm run, each warm gRPC run of the wire phase, the tools
+phase's in-process runs (cli, tracing, console, feed) and the ClickBench
+run each set the kernels' launch counts to 0 just before they run and read
+them just after.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, the script fails and prints no result.
@@ -3587,7 +3604,437 @@ def _wire_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 14: ClickBench in x64 mode, in a subprocess
+# phase 14: the tools (cli, tracing, console, work-unit feeds, lockcheck)
+# ---------------------------------------------------------------------------
+
+TOOLS_TRACED = ("q3", "q5")  # traced through the coordinator at SF 1
+TOOLS_WORKERS = 4  # in-memory workers of the traced runs
+TOOLS_GRPC_WORKERS = 2  # localhost gRPC workers: console, lockcheck, crash
+TOOLS_FEED_SLICES = 4  # parquet slices of lineitem fed to the scan
+TOOLS_FEED_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+                      "l_extendedprice", "l_discount", "l_orderkey")
+TOOLS_FEED_SQL = (
+    "select l_returnflag, l_linestatus, count(*) as n, "
+    "sum(l_quantity) as qty, sum(l_extendedprice) as price, "
+    "max(l_discount) as top, min(l_orderkey) as lo from li "
+    "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus")
+TOOLS_LOCK_SF = 0.1  # the served mix under the lock-order harness
+TOOLS_LOCK_MIX = ("q1", "q6") * 4  # submitted at once, twice (cold, warm)
+TOOLS_CRASH_SF = 0.01  # three fresh gRPC clusters in a row, jax blocked
+TOOLS_CRASH_PLANES = ("shm", "stream", "shm")
+TOOLS_STAR = ("select s_nationkey, count(*) n from lineitem join orders on "
+              "l_orderkey = o_orderkey join part on l_partkey = p_partkey "
+              "join supplier on l_suppkey = s_suppkey group by s_nationkey "
+              "order by s_nationkey")
+TOOLS_SUB_TIMEOUT_S = 300
+
+
+def lockcheck_worker(sf: float, out_path: str) -> int:
+    """The served q1/q6 mix (TOOLS_LOCK_MIX, all submitted at once, cold
+    then warm) through ServingSession over TOOLS_GRPC_WORKERS localhost
+    gRPC workers on the card at SF ``sf``, each result equal to
+    single-node; with DFTPU_LOCK_CHECK=1 in the environment every lock the
+    port creates is instrumented (the package installs the harness at
+    import). Writes the walls and the harness's report as JSON; a
+    lock-order cycle raised anywhere fails it."""
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.runtime import lockcheck
+    from datafusion_distributed_tpu_torch.runtime.grpc_worker import (
+        start_localhost_cluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.serving import (
+        ServingSession,
+    )
+
+    violations: list = []
+
+    class Recorded(lockcheck.LockOrderViolation):
+        """Every violation, also one that a thread's handler swallows."""
+
+        def __init__(self, *a):
+            super().__init__(*a)
+            violations.append(str(self)[:4000])
+
+    lockcheck.LockOrderViolation = Recorded
+    rtol = precision.test_rtol()
+    ctx = _session("cuda", sf, SEED)
+    sqls = dict(_queries(sorted(set(TOOLS_LOCK_MIX))))
+    want = {q: _run(ctx, sql) for q, sql in sqls.items()}
+    cluster = start_localhost_cluster(TOOLS_GRPC_WORKERS, device="cuda",
+                                      rpc_timeout_s=WIRE_RPC_TIMEOUT_S)
+    walls = []
+    try:
+        with ServingSession(ctx, cluster=cluster,
+                            num_tasks=TOOLS_GRPC_WORKERS) as srv:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                handles = [(q, srv.submit(sqls[q])) for q in TOOLS_LOCK_MIX]
+                got = [(q, _served(h)) for q, h in handles]
+                walls.append(time.perf_counter() - t0)
+                for q, g in got:
+                    diff = _close(g, want[q], rtol)
+                    check(diff == "", f"served {q} differs from single-node "
+                          f"in {diff}")
+    finally:
+        cluster.shutdown()
+    torch.cuda.synchronize()
+    check(not violations, f"lock-order cycles: {violations}")
+    rep = lockcheck.report()
+    out = {
+        "installed": lockcheck.enabled(), "cold_s": walls[0],
+        "warm_s": walls[1], "queries": len(TOOLS_LOCK_MIX),
+        "violations": len(violations),
+        "static_edges": (len(rep["static_edges"])
+                         if rep["static_edges"] is not None else None),
+        "edges": [{k: e[k] for k in ("src", "dst", "count", "status")}
+                  for e in rep["observed_edges"]],
+        "hold_outliers": [{k: o[k] for k in ("lock", "held_s", "thread")}
+                          for o in rep["hold_outliers"]],
+        "events": [{"kind": e["kind"], "locks_held": e["locks_held"],
+                    "thread": e["thread"]} for e in rep["events"]],
+    }
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def crash_worker(sf: float, out_path: str) -> int:
+    """The wire tier's crash repro on the card: with jax blocked, the star
+    query TOOLS_STAR over three fresh localhost gRPC clusters in a row
+    (TOOLS_CRASH_PLANES), each result equal to single-node. Before the
+    package loaded libarrow at import, a stream thread's first Arrow
+    allocation after another such thread exited crashed the process."""
+    sys.modules["jax"] = None
+    import torch
+
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator,
+    )
+    from datafusion_distributed_tpu_torch.runtime.grpc_worker import (
+        start_localhost_cluster,
+    )
+
+    ctx = _session("cuda", sf, SEED)
+    ctx.sql("SET distributed.multiway_join = true")
+    want = _run(ctx, TOOLS_STAR)
+    out = {}
+    for i, plane in enumerate(TOOLS_CRASH_PLANES):
+        t0 = time.perf_counter()
+        cluster = start_localhost_cluster(TOOLS_GRPC_WORKERS, device="cuda",
+                                          rpc_timeout_s=WIRE_RPC_TIMEOUT_S)
+        try:
+            coord = Coordinator(resolver=cluster, channels=cluster,
+                                config_options={"data_plane": plane})
+            got = ctx.sql(TOOLS_STAR).collect_coordinated_table(
+                coordinator=coord, num_tasks=WIRE_TASKS).to_numpy()
+        finally:
+            cluster.shutdown()
+        torch.cuda.synchronize()
+        check(_identical(got, want),
+              f"cluster {i} ({plane}): the star query differs from "
+              "single-node")
+        out[f"{i} {plane}"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _tools_subprocess(flag: str, sf: float, lock_check: str) -> dict:
+    """This script in a subprocess with ``flag`` at SF ``sf`` and
+    DFTPU_LOCK_CHECK=``lock_check``: -> its JSON, with its wall seconds."""
+    out_path = Path(tempfile.mkdtemp()) / "tools_worker.json"
+    env = dict(os.environ, DFTPU_LOCK_CHECK=lock_check)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), flag, str(sf),
+         "--out", str(out_path)],
+        stdout=subprocess.DEVNULL, env=env, timeout=TOOLS_SUB_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"{flag} (DFTPU_LOCK_CHECK={lock_check}) exited {proc.returncode}")
+    return {**json.loads(out_path.read_text()), "process_s": wall}
+
+
+def _plain_text(frame: str) -> str:
+    return re.sub(r"\x1b\[[0-9;]*m", "", frame)
+
+
+def phase_tools(sf: float, seed: int) -> dict:
+    """The operator's tools on the card.
+
+    1. cli: `cli.main(["--tpch", sf, "-c", q3])` on the card (its --tpch
+    registers the run's generated tables, seed ``seed``, instead of
+    generating them again); the printed rows equal single-node q3.
+    2. Tracing: TOOLS_TRACED through Coordinator over
+    InMemoryCluster(TOOLS_WORKERS) at 4 tasks, untraced then traced (`SET
+    distributed.tracing`), warm: the result byte-identical either way,
+    `ctx.last_trace()`'s event count, `trace_coverage`, the first lines of
+    `ctx.last_trace_profile()` and the seconds tracing adds.
+    3. Console: `Console.render_frame()` over TOOLS_GRPC_WORKERS localhost
+    gRPC workers on the card after q3 over them (equal to in-process),
+    with the worker rows and the data-plane line, and its render time.
+    4. Work-unit feed: TOOLS_FEED_SLICES parquet slices of lineitem's
+    TOOLS_FEED_COLUMNS streamed to one task and read by a WorkUnitScanExec
+    under TOOLS_FEED_SQL's GROUP BY: equal to the GROUP BY over the whole
+    table; every unit's four timestamps.
+    Launches are counted from 0 over parts 1-4.
+    5. Kernels 1, 2 and 3 at every shape parts 1-4 logged, bit for bit
+    against their plain versions.
+    6. lockcheck: the served mix of `lockcheck_worker` at SF TOOLS_LOCK_SF
+    in a subprocess with DFTPU_LOCK_CHECK=0, then in one with
+    DFTPU_LOCK_CHECK=1 (observed edges, static or new; hold outliers;
+    events; no lock-order cycle).
+    7. The crash repro of `crash_worker` in a subprocess at SF
+    TOOLS_CRASH_SF."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+
+    import pyarrow.parquet as pq
+    import torch
+
+    from datafusion_distributed_tpu_torch import cli, precision
+    from datafusion_distributed_tpu_torch.console import Console
+    from datafusion_distributed_tpu_torch.data import tpchgen
+    from datafusion_distributed_tpu_torch.io.parquet import table_to_arrow
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.ops.table import Table
+    from datafusion_distributed_tpu_torch.plan.physical import execute_plan
+    from datafusion_distributed_tpu_torch.runtime import tracing
+    from datafusion_distributed_tpu_torch.runtime import (
+        work_unit_feed as wuf,
+    )
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.grpc_worker import (
+        start_localhost_cluster,
+    )
+
+    rtol = precision.test_rtol()
+    t_phase = time.perf_counter()
+    out: dict = {}
+    shapes: dict = {"build": {}, "probe": {}, "agg": {}}
+    launches: dict = {}
+
+    def take() -> None:
+        for k, v in hk.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        _drain_shapes(hk, shapes)
+
+    ctx = _session("cuda", sf, seed)
+    sqls = dict(_queries(TOOLS_TRACED))
+    single = {q: _run(ctx, sql) for q, sql in sqls.items()}
+    hk.reset_launch_counts()
+
+    # --- 1. the cli --------------------------------------------------------
+    cached = _TABLES[("cuda", sf, seed)]
+    generate = tpchgen.register_tpch
+
+    def registered(c, sf=0.01, seed=0):
+        for name, table in cached.items():
+            c.register_table(name, table)
+
+    tpchgen.register_tpch = registered
+    printed = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["--tpch", str(sf), "-c", sqls["q3"]])
+        cli_s = time.perf_counter() - t0
+    finally:
+        tpchgen.register_tpch = generate
+    torch.cuda.synchronize()
+    take()
+    lines = printed.getvalue().splitlines()
+    keys = [int(ln.split()[0]) for ln in lines
+            if ln.split() and ln.split()[0].isdigit()]
+    want = single["q3"]["l_orderkey"].tolist()
+    check(rc == 0 and keys == want,
+          f"cli -c q3 printed keys {keys}, single-node {want}")
+    check(f"({len(want)} rows in" in lines[-1],
+          f"cli footer: {lines[-1]!r}")
+    out["cli"] = {"s": cli_s, "rows": len(keys), "footer": lines[-1],
+                  "header": lines[1] if len(lines) > 1 else ""}
+    log(f"[tools] cli -c q3 on the card: {out['cli']} ({_since(t_phase)})")
+
+    # --- 2. tracing --------------------------------------------------------
+    mem = InMemoryCluster(TOOLS_WORKERS)
+    traced: dict = {}
+    for q in TOOLS_TRACED:
+        sql = sqls[q]
+        _coordinated(ctx, sql, False, mem)  # cold
+        t0 = time.perf_counter()
+        plain = _coordinated(ctx, sql, False, mem)[0]
+        off_s = time.perf_counter() - t0
+        ctx.config.distributed_options["tracing"] = "on"
+        try:
+            t0 = time.perf_counter()
+            got = _coordinated(ctx, sql, False, mem)[0]
+            on_s = time.perf_counter() - t0
+        finally:
+            ctx.config.distributed_options.pop("tracing", None)
+        chrome = ctx.last_trace()
+        profile = ctx.last_trace_profile()
+        trace = tracing.DEFAULT_TRACE_STORE.last()
+        cov, gap = tracing.trace_coverage(trace)
+        check(_identical(got, plain), f"traced {q} differs from untraced")
+        diff, _ = _close_or_ties(got, single[q], rtol)
+        check(diff == "", f"traced {q} differs from single-node in {diff}")
+        check(chrome is not None and chrome["traceEvents"]
+              and profile.startswith("-- trace profile"),
+              f"{q}: no trace recorded")
+        traced[q] = {"untraced_s": off_s, "traced_s": on_s,
+                     "events": len(chrome["traceEvents"]),
+                     "spans": len(trace.span_list()),
+                     "coverage": cov, "max_gap": gap,
+                     "profile_head": profile.splitlines()[:6]}
+        log(f"[tools] traced {q}: {traced[q]} ({_since(t_phase)})")
+        del plain, got, chrome, trace
+    take()
+    out["tracing"] = traced
+    del mem
+
+    # --- 3. the console over gRPC workers ----------------------------------
+    cluster = start_localhost_cluster(TOOLS_GRPC_WORKERS, device="cuda",
+                                      rpc_timeout_s=WIRE_RPC_TIMEOUT_S)
+    try:
+        got, coord = _grpc_coordinated(ctx, sqls["q3"], cluster)
+        con = Console(cluster, cluster, health=coord.health,
+                      faults=coord.faults)
+        t0 = time.perf_counter()
+        frame = _plain_text(con.render_frame())
+        render_ms = (time.perf_counter() - t0) * 1e3
+        del coord
+    finally:
+        cluster.shutdown()
+    take()
+    diff, _ = _close_or_ties(got, single["q3"], rtol)
+    check(diff == "", f"q3 over gRPC differs from single-node in {diff}")
+    # each section by its own header: the tracing line also names the data
+    # plane, and a section that raised renders as "<label> unavailable"
+    check(f"workers ({TOOLS_GRPC_WORKERS} active" in frame
+          and re.search(r"^data plane  staged ", frame, re.M) is not None
+          and "unavailable" not in frame and "DOWN" not in frame,
+          f"console frame lacks a section:\n{frame}")
+    out["console"] = {"render_ms": render_ms, "frame": frame.splitlines()}
+    log(f"[tools] console frame ({render_ms:.1f} ms):\n{frame}")
+    del got
+
+    # --- 4. a work-unit feed under a GROUP BY ------------------------------
+    li = ctx.catalog.tables["lineitem"]
+    sub = Table(TOOLS_FEED_COLUMNS,
+                tuple(li.column(c) for c in TOOLS_FEED_COLUMNS), li.num_rows)
+    t0 = time.perf_counter()
+    arrow = table_to_arrow(sub)
+    tmp = Path(tempfile.mkdtemp(prefix="feed_"))
+    bounds = np.linspace(0, arrow.num_rows, TOOLS_FEED_SLICES + 1).astype(int)
+    paths = []
+    for i in range(TOOLS_FEED_SLICES):
+        paths.append(str(tmp / f"lineitem_{i}.parquet"))
+        pq.write_table(arrow.slice(bounds[i], bounds[i + 1] - bounds[i]),
+                       paths[-1])
+    write_s = time.perf_counter() - t0
+    try:
+        ctx.register_arrow("li", arrow)
+        whole = _run(ctx, TOOLS_FEED_SQL)
+        reg = ctx.catalog.tables["li"]
+        dicts = {n: c.dictionary for n, c in zip(reg.names, reg.columns)
+                 if c.dictionary is not None}
+        df = ctx.sql(TOOLS_FEED_SQL)
+        plan = df.physical_plan()
+        (leaf,) = plan.collect(lambda n: not n.children())
+        feeds = wuf.WorkUnitFeedRegistry()
+        fid = feeds.register(lambda: iter(paths))
+        remote = wuf.RemoteWorkUnitFeedRegistry()
+        units: list = []
+
+        def route(unit, task_count):
+            units.append(unit)
+            return 0
+
+        t0 = time.perf_counter()
+        sent = wuf.stream_feed(feeds, remote, fid, route, 1)
+        scan = wuf.WorkUnitScanExec(fid, leaf.schema(),
+                                    leaf.output_capacity(), remote,
+                                    dictionaries=dicts, device="cuda")
+
+        def swap(node):
+            kids = node.children()
+            if not kids:
+                return scan
+            return node.with_new_children([swap(k) for k in kids])
+
+        fed = type(df)._strip_quals(execute_plan(swap(plan))).to_numpy()
+        torch.cuda.synchronize()
+        feed_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    take()
+    check(sent == TOOLS_FEED_SLICES, f"the feed sent {sent} units")
+    diff = _close(fed, whole, rtol)
+    check(diff == "", f"the fed GROUP BY differs from the whole table's "
+          f"in {diff}")
+    base = units[0].created_at
+    out["feed"] = {
+        "rows": arrow.num_rows, "units": sent, "write_s": write_s,
+        "feed_s": feed_s, "identical": _identical(fed, whole),
+        "groups": len(next(iter(fed.values()))),
+        # ms after the first unit's creation: created, sent, received,
+        # processed
+        "unit_ms": [[round((getattr(u, k) - base) * 1e3, 3) for k in (
+            "created_at", "sent_at", "received_at", "processed_at")]
+            for u in units]}
+    log(f"[tools] work-unit feed: {out['feed']} ({_since(t_phase)})")
+    for k in ("build_group_ids", "multiway_probe"):
+        check(launches.get(k, 0) > 0,
+              f"kernel {k} was not launched by the tools' runs")
+    out["launches"] = launches
+    del ctx, li, sub, arrow, reg, df, plan, leaf, scan, fed, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 5. every logged shape against the plain version -------------------
+    dev = torch.device("cuda")
+    out["kernel_checks"] = {
+        "build_group_ids": build_shape_checks(
+            [[n, lanes, h, c] for (n, lanes, h), c
+             in shapes["build"].items()], dev, "tools"),
+        "multiway_probe": probe_shape_checks(
+            [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
+             in shapes["probe"].items()], dev, "tools"),
+        "group_aggregate": agg_shape_checks(shapes["agg"], dev, "tools"),
+    }
+    out["shapes"] = {k: len(v) for k, v in shapes.items()}
+    log(f"[tools] shapes checked: {out['shapes']} ({_since(t_phase)})")
+
+    # --- 6. the lock-order harness off and on ------------------------------
+    lock = {arm: _tools_subprocess("--lockcheck-worker", TOOLS_LOCK_SF, env)
+            for arm, env in (("off", "0"), ("on", "1"))}
+    check(not lock["off"]["installed"] and lock["on"]["installed"],
+          f"the harness installed: off {lock['off']['installed']}, on "
+          f"{lock['on']['installed']}")
+    check(lock["on"]["edges"], "the harness observed no lock-order edge")
+    # without the static graph every edge reads "unknown", never "new"
+    check(lock["on"]["static_edges"] is not None,
+          "the harness did not load the static lock graph")
+    out["lockcheck"] = lock
+    log(f"[tools] lockcheck off / on: warm {lock['off']['warm_s']:.3f} / "
+        f"{lock['on']['warm_s']:.3f} s; {lock['on']} ({_since(t_phase)})")
+
+    # --- 7. the crash repro -------------------------------------------------
+    out["crash_repro"] = _tools_subprocess("--crash-worker", TOOLS_CRASH_SF,
+                                           "0")
+    log(f"[tools] three fresh gRPC clusters, jax blocked: "
+        f"{out['crash_repro']} ({_since(t_phase)})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: ClickBench in x64 mode, in a subprocess
 # ---------------------------------------------------------------------------
 
 CLICKBENCH_ROWS = 99_997_497  # ClickBench's `hits` table
@@ -4038,7 +4485,7 @@ SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
           "window", "distributed", "tasks", "coordinator", "serving",
-          "resilience", "wire", "clickbench")
+          "resilience", "wire", "tools", "clickbench")
 CLICKBENCH_TIMEOUT_S = 800
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -4063,6 +4510,10 @@ def main(argv=None) -> int:
                     metavar="SF", help=argparse.SUPPRESS)
     ap.add_argument("--wire-cpu-worker", type=float, default=None,
                     metavar="SF", help=argparse.SUPPRESS)
+    ap.add_argument("--lockcheck-worker", type=float, default=None,
+                    metavar="SF", help=argparse.SUPPRESS)
+    ap.add_argument("--crash-worker", type=float, default=None,
+                    metavar="SF", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -4085,6 +4536,10 @@ def main(argv=None) -> int:
         return resilience_cpu_worker(args.resilience_cpu_worker, args.out)
     if args.wire_cpu_worker is not None:
         return wire_cpu_worker(args.wire_cpu_worker, args.out)
+    if args.lockcheck_worker is not None:
+        return lockcheck_worker(args.lockcheck_worker, args.out)
+    if args.crash_worker is not None:
+        return crash_worker(args.crash_worker, args.out)
     if args.clickbench_worker:
         try:
             return clickbench_worker(args.out)
@@ -4139,6 +4594,8 @@ def main(argv=None) -> int:
                 results["resilience"] = phase_resilience(SF, CHECK_SF, SEED)
             elif phase == "wire":
                 results["wire"] = phase_wire(SF, CHECK_SF, SEED)
+            elif phase == "tools":
+                results["tools"] = phase_tools(SF, SEED)
             else:
                 results["clickbench"] = phase_clickbench(CLICKBENCH_TIMEOUT_S)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
@@ -4168,12 +4625,13 @@ def main(argv=None) -> int:
              "serving": ("serving",),
              "resilience": ("resilience",),
              "wire": ("wire",),
+             "tools": ("tools",),
              "clickbench_x64": ("clickbench",),
              "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
                     for phase in ("distributed", "tasks", "coordinator",
                                   "serving", "resilience", "wire",
-                                  "clickbench")]
+                                  "tools", "clickbench")]
     shape_checks.append(results.get("clickbench", {}).get("t8", {})
                         .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
@@ -4291,6 +4749,28 @@ def main(argv=None) -> int:
             "segment_lost": d["segment_lost"], "pool": d["pool"],
             "native_hash": d["native_hash"], "shapes": d["shapes"],
             "card_cpu_identical": d["card_cpu_identical"],
+            "launches": d["launches"]}}))
+    if "tools" in results:
+        d = results["tools"]
+        print(json.dumps({"tools": {
+            "cli": d["cli"],
+            "tracing": {q: {k: v for k, v in r.items()
+                            if k != "profile_head"}
+                        for q, r in d["tracing"].items()},
+            "console_render_ms": d["console"]["render_ms"],
+            "feed": {k: d["feed"][k] for k in (
+                "rows", "units", "write_s", "feed_s", "identical",
+                "unit_ms")},
+            "lockcheck": {arm: {k: r[k] for k in (
+                "cold_s", "warm_s", "process_s", "installed", "violations",
+                "static_edges")} | {
+                    "edges": len(r["edges"]),
+                    "new_edges": sum(e["status"] == "new"
+                                     for e in r["edges"]),
+                    "hold_outliers": len(r["hold_outliers"]),
+                    "events": len(r["events"])}
+                for arm, r in d["lockcheck"].items()},
+            "crash_repro": d["crash_repro"], "shapes": d["shapes"],
             "launches": d["launches"]}}))
     if "clickbench" in results:
         cb = results["clickbench"]

@@ -66,6 +66,12 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The loaded library, built at first use."""
     global _lib
+    if _lib is None:
+        # lock-while-building witness (runtime/lockcheck.py): an engine
+        # lock held across a g++ run
+        from datafusion_distributed_tpu_torch.runtime import lockcheck
+
+        lockcheck.note_blocking("kernel_build")
     with _lock:
         if _lib is not None:
             return _lib

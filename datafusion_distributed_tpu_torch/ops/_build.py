@@ -70,6 +70,13 @@ def build(source: str) -> tuple[Path, str]:
 
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built at first use."""
+    if source not in _LIBS:
+        # lock-while-building witness (runtime/lockcheck.py, opt-in via
+        # DFTPU_LOCK_CHECK=1): an engine lock held across an nvcc run
+        # stalls every contender for seconds
+        from datafusion_distributed_tpu_torch.runtime import lockcheck
+
+        lockcheck.note_blocking("kernel_build")
     with _LOCK:
         lib = _LIBS.get(source)
         if lib is None:

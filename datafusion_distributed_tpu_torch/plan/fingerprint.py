@@ -386,6 +386,11 @@ _PLAN_ATTRS: dict = {
     "IsolatedArmExec": lambda n: (int(n.assigned_task),),
     # stateless metric pass-through (planner/adaptive.py)
     "SamplerExec": lambda n: (),
+    # feed-fed leaf: the feed id is a data location (like table-store ids),
+    # not structure; the drained units enter as the run's inputs
+    "WorkUnitScanExec": lambda n: (
+        _canon_schema(n._schema), int(n.capacity),
+    ),
     "PeerShuffleScanExec": lambda n: (
         len(n.pulls_per_task),
         tuple(len(s) for s in n.pulls_per_task),

@@ -26,8 +26,9 @@ device; ``df.collect_distributed_table(T)`` runs it over T tasks.
 coordinator/worker runtime, consulting the whole-result cache first when
 ``SET distributed.result_cache`` is on (``ctx.result_cache()``); the
 serving tier (runtime/serving.py `ServingSession`) submits queries from
-many clients at once. ``ctx.last_trace()`` waits for a later slice
-(ROADMAP A.5.4).
+many clients at once. With ``SET distributed.tracing = 'on'``,
+``ctx.last_trace()`` is the last coordinated query's Chrome trace and
+``ctx.last_trace_profile()`` its text profile (runtime/tracing.py).
 """
 
 from __future__ import annotations
@@ -1024,16 +1025,29 @@ class SessionContext:
         return result
 
     def last_trace(self):
-        """The reference's Chrome trace of the last traced query: not
-        ported (ROADMAP A.5.4)."""
-        raise NotImplementedError(
-            "ctx.last_trace() is not ported: ROADMAP A.5.4")
+        """Chrome trace-event JSON dict of the most recently completed
+        traced query (load in Perfetto / chrome://tracing), or None when
+        nothing ran with `SET distributed.tracing` on. Coordinated
+        executions record into the process-wide trace store whichever
+        coordinator object ran them (runtime/tracing.py)."""
+        from datafusion_distributed_tpu_torch.runtime.tracing import (
+            DEFAULT_TRACE_STORE,
+            to_chrome_trace,
+        )
+
+        trace = DEFAULT_TRACE_STORE.last()
+        return to_chrome_trace(trace) if trace is not None else None
 
     def last_trace_profile(self) -> str:
-        """The reference's text profile of the last traced query: not
-        ported (ROADMAP A.5.4)."""
-        raise NotImplementedError(
-            "ctx.last_trace_profile() is not ported: ROADMAP A.5.4")
+        """Text profile report of the most recent traced query ('' when
+        none): the explain_analyze trace fold, standalone."""
+        from datafusion_distributed_tpu_torch.runtime.tracing import (
+            DEFAULT_TRACE_STORE,
+            render_profile,
+        )
+
+        trace = DEFAULT_TRACE_STORE.last()
+        return render_profile(trace) if trace is not None else ""
 
     def prepare(self, template: str) -> "PreparedStatement":
         """Prepared-statement API: ``ctx.prepare("... where x < $1")`` -> a

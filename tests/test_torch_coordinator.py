@@ -33,8 +33,8 @@ tests/test_tpch_distributed.py sets it), queries from benchmarks/queries/tpch,
   another worker, the same result and FaultCounters in both packages; a
   non-retryable worker error surfaces with the reference's type and
   message;
-- every left-out feature raises NotImplementedError naming its ROADMAP A.5
-  item; the shm data plane and chaos `segment_lost` (refused until the
+- the features once left out (`last_trace`, `last_trace_profile`) answer
+  as the reference's; the shm data plane and chaos `segment_lost` (refused until the
   wire tier was ported) run over localhost gRPC workers; the serving
   tier's hooks (checkpoints, the result cache, the
   stage pool, worker memory budgets, `PreparedStatement.submit`) and the
@@ -256,17 +256,34 @@ def test_non_retryable_error_surfaces_as_the_reference(env):
 
 
 def _left_out_cases():
+    """The features this port refused until the tools were ported (ROADMAP
+    A.5.4): each now answers, after a traced coordinated q6, with what the
+    reference's answers (tests/test_torch_tracing.py holds them in
+    detail)."""
     return {
-        "last_trace": lambda ctx: ctx.last_trace(),
-        "last_trace_profile": lambda ctx: ctx.last_trace_profile(),
+        "last_trace": lambda ctx: sorted(
+            (e.get("ph"), e.get("name"))
+            for e in ctx.last_trace()["traceEvents"]),
+        "last_trace_profile": lambda ctx: [
+            ln for ln in ctx.last_trace_profile().splitlines()
+            if ln.startswith(("per-stage", "events", "top spans"))],
     }
 
 
 @pytest.mark.parametrize("case", list(_left_out_cases()))
 def test_left_out_features_refuse(env, case):
-    tctx = env[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        _left_out_cases()[case](tctx)
+    jctx, _jcl, tctx, _tcl = env
+    out = []
+    for ctx, module in ((jctx, jcoord), (tctx, tcoord)):
+        cluster = module.InMemoryCluster(WORKERS)
+        coord = module.Coordinator(
+            resolver=cluster, channels=cluster,
+            config_options={**ctx.config.distributed_snapshot(),
+                            "tracing": "on"})
+        ctx.sql(_sql("q6")).collect_coordinated_table(coordinator=coord,
+                                                      num_tasks=NT)
+        out.append(_left_out_cases()[case](ctx))
+    assert out[1] == out[0] and out[1]
 
 
 def _wire_tier_cases():

@@ -8,8 +8,13 @@ serving tier (runtime/serving.py, with the spill, checkpoint, result-cache
 and chaos modules imported) and over a `DynamicCluster` that loses a
 worker mid-query with hedging on, read through the observability service,
 and over two localhost gRPC workers on the shm plane (runtime/grpc_worker.py,
-shm_plane.py, transport.py, native/), on the CPU when asked to, and refuses to start without a CUDA device
-otherwise."""
+shm_plane.py, transport.py, native/), traced (`ctx.last_trace()`), and through
+a work-unit feed (runtime/work_unit_feed.py), with the console, the cli and
+the lock-order harness imported, on the CPU when asked to, and refuses to
+start without a CUDA device otherwise; and that pyarrow's allocator
+survives the gRPC tier's threads: three fresh localhost gRPC clusters in a
+row, on both wire planes, with jax blocked, and a thread that loads nothing
+first."""
 
 import os
 import re
@@ -110,14 +115,44 @@ _SCRIPT = textwrap.dedent("""
     finally:
         grpc_cluster.shutdown()
     assert wired["n"].tobytes() == staged["n"].tobytes()
+    ctx.sql("SET distributed.tracing = 'on'")
+    traced = ctx.sql(star).collect_coordinated_table(
+        num_workers=2, num_tasks=2).to_numpy()
+    assert traced["n"].tobytes() == staged["n"].tobytes()
+    assert ctx.last_trace()["traceEvents"]
+    assert ctx.last_trace_profile().startswith("-- trace profile")
+    ctx.sql("SET distributed.tracing = 'off'")
+    import os, tempfile
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from datafusion_distributed_tpu_torch.io.parquet import schema_from_arrow
+    from datafusion_distributed_tpu_torch.plan.physical import execute_plan
+    from datafusion_distributed_tpu_torch.runtime import work_unit_feed as wuf
+    tmp = tempfile.mkdtemp()
+    paths = []
+    for i in range(4):
+        paths.append(os.path.join(tmp, f"part{i}.parquet"))
+        pq.write_table(pa.table({"x": list(range(i * 25, (i + 1) * 25))}),
+                       paths[-1])
+    feeds = wuf.WorkUnitFeedRegistry()
+    fid = feeds.register(lambda: iter(paths))
+    remote = wuf.RemoteWorkUnitFeedRegistry()
+    assert wuf.stream_feed(feeds, remote, fid, lambda u, n: 0, 1) == 4
+    fed = execute_plan(wuf.WorkUnitScanExec(
+        fid, schema_from_arrow(pq.read_schema(paths[0])), 128, remote,
+        device="cpu")).to_numpy()
+    assert int(fed["x"].sum()) == sum(range(100))
     import importlib
     for m in ("errors", "leakcheck", "eventlog", "telemetry", "tracing",
               "metrics", "health", "codec", "worker", "streams", "peer",
               "adaptivity", "coordinator", "spill", "checkpoint",
               "result_cache", "serving", "chaos", "observability",
-              "transport", "shm_plane", "grpc_worker"):
+              "transport", "shm_plane", "grpc_worker", "lockcheck",
+              "work_unit_feed"):
         importlib.import_module("datafusion_distributed_tpu_torch.runtime."
                                 + m)
+    for m in ("console", "cli"):
+        importlib.import_module("datafusion_distributed_tpu_torch." + m)
     importlib.import_module("datafusion_distributed_tpu_torch.native")
     importlib.import_module("datafusion_distributed_tpu_torch.planner."
                             "adaptive")
@@ -140,6 +175,95 @@ def test_port_runs_without_jax_or_the_reference():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ISOLATED-OK" in proc.stdout
+
+
+_CLUSTERS_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None
+    import torch
+    torch.set_num_threads(1)
+    from datafusion_distributed_tpu_torch.data import tpchgen
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator,
+    )
+    from datafusion_distributed_tpu_torch.runtime.grpc_worker import (
+        start_localhost_cluster,
+    )
+    from datafusion_distributed_tpu_torch.sql.context import SessionContext
+    ctx = SessionContext(device="cpu")
+    tpchgen.register_tpch(ctx, 0.001, 7)
+    ctx.sql("SET distributed.multiway_join = true")
+    star = ("select s_nationkey, count(*) n from lineitem join orders on "
+            "l_orderkey = o_orderkey join part on l_partkey = p_partkey "
+            "join supplier on l_suppkey = s_suppkey group by s_nationkey "
+            "order by s_nationkey")
+    want = ctx.sql(star).collect_table().to_numpy()["n"].tobytes()
+    for plane in ("shm", "stream", "shm"):
+        cluster = start_localhost_cluster(2, device="cpu", rpc_timeout_s=120)
+        try:
+            coord = Coordinator(resolver=cluster, channels=cluster,
+                                config_options={"data_plane": plane})
+            got = ctx.sql(star).collect_coordinated_table(
+                coordinator=coord, num_tasks=4).to_numpy()["n"].tobytes()
+        finally:
+            cluster.shutdown()
+        assert got == want, plane
+    print("CLUSTERS-OK")
+""")
+
+
+def test_fresh_grpc_clusters_in_a_row_without_jax():
+    """The wire tier's stream and handler threads come and go; the first
+    of them used to load pyarrow, and a later one crashed in its first
+    Arrow allocation (see the package's ``__init__``)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-X", "faulthandler", "-c", _CLUSTERS_SCRIPT],
+        capture_output=True, text=True, env=env, timeout=300, cwd=str(REPO),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLUSTERS-OK" in proc.stdout
+
+
+_THREAD_CHURN_SCRIPT = textwrap.dedent("""
+    import sys, threading
+    sys.modules["jax"] = None
+    import numpy as np
+    import datafusion_distributed_tpu_torch  # noqa: F401
+
+    def first_use():
+        import pyarrow as pa
+        pa.array(np.arange(8), mask=np.zeros(8, dtype=bool))
+
+    t = threading.Thread(target=first_use)
+    t.start()
+    t.join()
+    import pyarrow as pa
+    assert pa.default_memory_pool().backend_name == "mimalloc"
+
+    def alloc():
+        pa.array(np.arange(1000), mask=np.zeros(1000, dtype=bool))
+
+    for _ in range(500):
+        t = threading.Thread(target=alloc)
+        t.start()
+        t.join()
+    print("CHURN-OK")
+""")
+
+
+def test_arrow_allocator_survives_thread_churn():
+    """Importing the package loads libarrow on the importing thread, so a
+    short-lived thread's first use of pyarrow cannot make Arrow's mimalloc
+    pool take that thread for the process's main thread (the pool stays
+    mimalloc: the fix is the load, not another allocator)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _THREAD_CHURN_SCRIPT], capture_output=True,
+        text=True, env=env, timeout=120, cwd=str(REPO),
+    )
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-3000:])
+    assert "CHURN-OK" in proc.stdout
 
 
 def test_no_port_module_names_the_reference_package():
