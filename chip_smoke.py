@@ -115,7 +115,19 @@ Phases, each of which must pass:
    events; a lock-order cycle fails it); and, in a subprocess with jax
    blocked, a star query over three fresh gRPC clusters in a row (the shm,
    stream and shm planes), each equal to single-node.
-15. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
+15. mesh — meshes-as-workers: TPC-H through Coordinator over
+   InMemoryMeshCluster(2, 4, devices=[cuda] * 8) at 8 tasks, so that each
+   stage ships one span plan to each worker: q1, q3, q5, q9, q18 and q21
+   at SF 1, cold then warm, beside the same queries over
+   InMemoryCluster(2) with per-task dispatch (warm seconds of both, spans
+   run per worker, set_stage_plan against set_plan calls, peak device
+   memory), each equal to single-node; all 22 queries at SF 0.1 over the
+   mesh workers, each equal to single-node; the card's allocated bytes
+   before the cluster, after the runs and after its release, and what
+   workers that keep their last spans (as the JAX package's do) hold
+   after each query of the warm mix; kernels 1, 2 and 3 at every logged
+   shape.
+16. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
    import): the `hits` table at its published 99,997,497 rows, seed 3, all
    43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
    kernels 1 and 2 at every shape that run gave them (group builds on
@@ -131,8 +143,8 @@ whose key is divisible by 3, card against CPU (7 and 22 rows at SF 0.01).
 The main phase, the window phase, the one-task staged path, each
 coordinator's second run, the serving tier's fair-share arm, the hedged
 straggler arm's warm run, each warm gRPC run of the wire phase, the tools
-phase's in-process runs (cli, tracing, console, feed) and the ClickBench
-run each set the kernels' launch counts to 0 just before they run and read
+phase's in-process runs (cli, tracing, console, feed), each warm run over
+the mesh workers and the ClickBench run each set the kernels' launch counts to 0 just before they run and read
 them just after.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -4034,7 +4046,258 @@ def phase_tools(sf: float, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: ClickBench in x64 mode, in a subprocess
+# phase 15: meshes-as-workers (span dispatch over mesh workers)
+# ---------------------------------------------------------------------------
+
+MESH_WORKERS = 2  # mesh workers of the cluster
+MESH_WIDTH = 4  # local tasks (devices) a worker
+MESH_TASKS = 8  # tasks a stage: one span of 4 on each worker
+MESH_QUERIES = RESILIENCE_HEDGE_QUERIES  # the resilience and wire cells' mix
+MESH_ALL_SF = 0.1  # all 22 queries over the mesh workers
+
+
+def _count_calls(cluster, names) -> dict:
+    """Count the calls of each named control-plane method on every worker
+    of ``cluster`` (the wrappers keep the signatures the coordinator
+    inspects). -> the counts, a dict updated in place."""
+    import functools
+    import threading
+
+    counts = {n: 0 for n in names}
+    lock = threading.Lock()
+    for w in cluster.workers.values():
+        for n in names:
+            original = getattr(w, n)
+
+            def counted(*a, _original=original, _n=n, **kw):
+                with lock:
+                    counts[_n] += 1
+                return _original(*a, **kw)
+
+            setattr(w, n, functools.wraps(original)(counted))
+    return counts
+
+
+def _mesh_coordinated(ctx, sql: str, cluster, spans_kept=False) -> dict:
+    """One query through Coordinator over ``cluster`` at MESH_TASKS tasks;
+    every worker's store, task registry and (unless ``spans_kept``) span
+    states must be empty afterwards (a mesh worker drops a span once its
+    tasks are gone)."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator,
+    )
+
+    coord = Coordinator(resolver=cluster, channels=cluster,
+                        config_options=ctx.config.distributed_snapshot())
+    table = ctx.sql(sql).collect_coordinated_table(coordinator=coord,
+                                                   num_tasks=MESH_TASKS)
+    out = table.to_numpy()
+    torch.cuda.synchronize()
+    for w in cluster.workers.values():
+        check(not w.table_store.tables and len(w.registry) == 0
+              and (spans_kept or not getattr(w, "_spans", {})),
+              f"worker {w.url} kept {len(w.table_store.tables)} staged "
+              f"tables, {len(w.registry)} tasks and "
+              f"{len(getattr(w, '_spans', {}))} spans after the query")
+    return out
+
+
+def phase_mesh(sf: float, seed: int) -> dict:
+    """Meshes-as-workers on the card: `InMemoryMeshCluster(MESH_WORKERS,
+    MESH_WIDTH, devices=[cuda] * 8)`, MESH_TASKS tasks, so that each
+    stage ships one span plan to each worker.
+
+    1. MESH_QUERIES at SF ``sf`` through Coordinator over the mesh
+    workers, cold then warm, and beside them over
+    InMemoryCluster(MESH_WORKERS) at the same task count with per-task
+    dispatch (after the mesh runs, so its plans and statistics are
+    warm): warm seconds of both, spans run per worker, set_stage_plan
+    calls against set_plan calls, peak device memory; every result equal
+    to the same session's single-node result. Launches are counted from 0
+    over the warm mesh runs.
+    2. All 22 queries at SF MESH_ALL_SF over the mesh workers, each equal
+    to single-node.
+    3. The card's allocated bytes before the cluster, after the runs and
+    after the cluster is released; then the warm mix once more over mesh
+    workers that keep their last spans as the JAX package's do (no release
+    when a span's tasks are gone): the bytes they hold after each query.
+    4. Kernels 1, 2 and 3 at every shape the phase logged (the
+    single-node reference runs excluded), bit for bit against their plain
+    versions; kernel 3's launches are reported by part."""
+    import functools
+    import gc
+
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.mesh_worker import (
+        InMemoryMeshCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.worker import Worker
+
+    rtol = precision.test_rtol()
+    t_phase = time.perf_counter()
+    out: dict = {}
+    shapes: dict = {"build": {}, "probe": {}, "agg": {}}
+    launches: dict = {}
+
+    def settled() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    ctx = _session("cuda", sf, seed)
+    sqls = dict(_queries(MESH_QUERIES))
+    single = {q: _run(ctx, sql) for q, sql in sqls.items()}
+    hk.reset_launch_counts()
+    allocated = {"before": settled()}
+    cards = [torch.device("cuda")] * (MESH_WORKERS * MESH_WIDTH)
+    mesh = InMemoryMeshCluster(MESH_WORKERS, MESH_WIDTH, devices=cards)
+    per_task = InMemoryCluster(MESH_WORKERS)
+    mesh_calls = _count_calls(mesh, ("set_stage_plan", "set_plan"))
+    task_calls = _count_calls(per_task, ("set_plan",))
+
+    # --- 1. the mix at SF 1: spans against per-task dispatch --------------
+    per_query: dict = {}
+    for q, sql in sqls.items():
+        r: dict = {}
+        t0 = time.perf_counter()
+        cold = _mesh_coordinated(ctx, sql, mesh)
+        r["cold_s"] = time.perf_counter() - t0
+        _drain_shapes(hk, shapes)
+        runs0 = {u: w.spans_run for u, w in mesh.workers.items()}
+        calls0 = dict(mesh_calls)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        warm = _mesh_coordinated(ctx, sql, mesh)
+        r["s"] = time.perf_counter() - t0
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for k, v in hk.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        _drain_shapes(hk, shapes)
+        r["spans"] = {u: w.spans_run - runs0[u]
+                      for u, w in mesh.workers.items()}
+        r["set_stage_plan"] = mesh_calls["set_stage_plan"] - calls0[
+            "set_stage_plan"]
+        r["mesh_set_plan"] = mesh_calls["set_plan"] - calls0["set_plan"]
+        check(any(r["spans"].values()), f"{q}: no span ran")
+        check(_identical(cold, warm), f"{q}: two mesh runs differ")
+        calls0 = task_calls["set_plan"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tasks = _mesh_coordinated(ctx, sql, per_task)
+        r["per_task_s"] = time.perf_counter() - t0
+        r["per_task_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        r["set_plan"] = task_calls["set_plan"] - calls0
+        _drain_shapes(hk, shapes)
+        diff, r["tied"] = _close_or_ties(warm, single[q], rtol)
+        check(diff == "", f"{q} over mesh workers differs from single-node "
+              f"in {diff}")
+        diff, _tied = _close_or_ties(tasks, single[q], rtol)
+        check(diff == "", f"{q} with per-task dispatch differs from "
+              f"single-node in {diff}")
+        r["identical_to_per_task"] = _identical(warm, tasks)
+        per_query[q] = r
+        log(f"[mesh] {q}: spans warm {r['s']:.3f}s against per-task "
+            f"{r['per_task_s']:.3f}s; {r} ({_since(t_phase)})")
+        del cold, warm, tasks
+    for u in mesh.workers:
+        check(any(r["spans"][u] for r in per_query.values()),
+              f"mesh worker {u} ran no span in the warm runs")
+    for k in ("build_group_ids", "multiway_probe"):
+        check(launches.get(k, 0) > 0,
+              f"kernel {k} was not launched by the warm mesh runs")
+    out["queries"] = per_query
+    out["launches"] = launches
+    out["sf1_s"] = time.perf_counter() - t_phase
+    out["warm_s"] = sum(r["s"] for r in per_query.values())
+    out["per_task_s"] = sum(r["per_task_s"] for r in per_query.values())
+    allocated["after_sf1"] = settled()
+
+    # --- 2. all 22 queries at SF 0.1 --------------------------------------
+    small = _session("cuda", MESH_ALL_SF, seed)
+    singles = {q: _run(small, sql) for q, sql in _queries(QUERIES)}
+    hk.reset_launch_counts()  # the single-node runs' shapes are not the path's
+    all22: dict = {}
+    t0 = time.perf_counter()
+    for q, sql in _queries(QUERIES):
+        got = _mesh_coordinated(small, sql, mesh)
+        diff, tied = _close_or_ties(got, singles[q], rtol)
+        check(diff == "", f"{q} at SF {MESH_ALL_SF} over mesh workers "
+              f"differs from single-node in {diff}")
+        all22[q] = {"rows": len(next(iter(got.values()))), "tied": tied}
+    kernel3 = hk.LAUNCHES.get("group_aggregate", 0)
+    _drain_shapes(hk, shapes)
+    out["all22"] = {"s": time.perf_counter() - t0, "queries": all22,
+                    "group_aggregate_launches": kernel3}
+    log(f"[mesh] SF {MESH_ALL_SF}: all 22 over mesh workers equal to "
+        f"single-node in {out['all22']['s']:.1f}s ({_since(t_phase)})")
+    del small
+
+    # --- 3. the card's allocated bytes ------------------------------------
+    out["spans_run"] = {u: w.spans_run for u, w in mesh.workers.items()}
+    out["calls"] = {"mesh": dict(mesh_calls), "per_task": dict(task_calls)}
+    allocated["after_runs"] = settled()
+    del mesh, per_task
+    allocated["after_release"] = settled()
+    out["allocated"] = allocated
+    log(f"[mesh] allocated bytes: {allocated} ({_since(t_phase)})")
+    # what the JAX package's retention would hold: the same warm mix over
+    # workers that keep their last MAX_SPANS spans (no release when a
+    # span's tasks are gone)
+    kept = InMemoryMeshCluster(MESH_WORKERS, MESH_WIDTH, devices=cards)
+    for kw in kept.workers.values():
+        kw.registry.on_evict = functools.partial(Worker._on_task_evict, kw)
+    del kw
+    retained = {}
+    for q, sql in sqls.items():
+        got = _mesh_coordinated(ctx, sql, kept, spans_kept=True)
+        diff, _tied = _close_or_ties(got, single[q], rtol)
+        check(diff == "", f"{q} with spans kept differs from single-node "
+              f"in {diff}")
+        retained[q] = {"allocated": settled() - allocated["after_release"],
+                       "spans": sum(len(w._spans)
+                                    for w in kept.workers.values())}
+    del kept
+    retained["after_release"] = settled() - allocated["after_release"]
+    _drain_shapes(hk, shapes)
+    out["spans_kept"] = retained
+    log(f"[mesh] with spans kept as the JAX package keeps them, bytes "
+        f"above the released baseline: {retained} ({_since(t_phase)})")
+    del ctx, single
+
+    # --- 4. every logged shape against the plain version -------------------
+    t_checks = time.perf_counter()
+    dev = torch.device("cuda")
+    out["kernel3_shapes"] = len(shapes["agg"])
+    log(f"[mesh] kernel 3 (group_aggregate): "
+        f"{launches.get('group_aggregate', 0)} launches in the warm runs at "
+        f"SF {sf}, {out['all22']['group_aggregate_launches']} over the 22 "
+        f"queries at SF {MESH_ALL_SF}, {len(shapes['agg'])} shapes in the "
+        "phase")
+    out["kernel_checks"] = {
+        "build_group_ids": build_shape_checks(
+            [[n, lanes, h, c] for (n, lanes, h), c
+             in shapes["build"].items()], dev, "mesh"),
+        "multiway_probe": probe_shape_checks(
+            [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
+             in shapes["probe"].items()], dev, "mesh"),
+        "group_aggregate": agg_shape_checks(shapes["agg"], dev, "mesh"),
+    }
+    out["shapes"] = {k: len(v) for k, v in shapes.items()}
+    out["checks_s"] = time.perf_counter() - t_checks
+    log(f"[mesh] shapes checked: {out['shapes']} ({_since(t_phase)})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: ClickBench in x64 mode, in a subprocess
 # ---------------------------------------------------------------------------
 
 CLICKBENCH_ROWS = 99_997_497  # ClickBench's `hits` table
@@ -4485,7 +4748,7 @@ SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
           "window", "distributed", "tasks", "coordinator", "serving",
-          "resilience", "wire", "tools", "clickbench")
+          "resilience", "wire", "tools", "mesh", "clickbench")
 CLICKBENCH_TIMEOUT_S = 800
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -4596,6 +4859,8 @@ def main(argv=None) -> int:
                 results["wire"] = phase_wire(SF, CHECK_SF, SEED)
             elif phase == "tools":
                 results["tools"] = phase_tools(SF, SEED)
+            elif phase == "mesh":
+                results["mesh"] = phase_mesh(SF, SEED)
             else:
                 results["clickbench"] = phase_clickbench(CLICKBENCH_TIMEOUT_S)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
@@ -4626,12 +4891,13 @@ def main(argv=None) -> int:
              "resilience": ("resilience",),
              "wire": ("wire",),
              "tools": ("tools",),
+             "mesh": ("mesh",),
              "clickbench_x64": ("clickbench",),
              "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
                     for phase in ("distributed", "tasks", "coordinator",
                                   "serving", "resilience", "wire",
-                                  "tools", "clickbench")]
+                                  "tools", "mesh", "clickbench")]
     shape_checks.append(results.get("clickbench", {}).get("t8", {})
                         .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
@@ -4771,6 +5037,17 @@ def main(argv=None) -> int:
                     "events": len(r["events"])}
                 for arm, r in d["lockcheck"].items()},
             "crash_repro": d["crash_repro"], "shapes": d["shapes"],
+            "launches": d["launches"]}}))
+    if "mesh" in results:
+        d = results["mesh"]
+        print(json.dumps({"mesh": {
+            "queries": {q: {k: r[k] for k in (
+                "s", "cold_s", "per_task_s", "spans", "set_stage_plan",
+                "mesh_set_plan", "set_plan", "peak_gb", "per_task_peak_gb")}
+                for q, r in d["queries"].items()},
+            "warm_s": d["warm_s"], "per_task_s": d["per_task_s"],
+            "all22_s": d["all22"]["s"], "allocated": d["allocated"],
+            "spans_kept": d["spans_kept"], "shapes": d["shapes"],
             "launches": d["launches"]}}))
     if "clickbench" in results:
         cb = results["clickbench"]

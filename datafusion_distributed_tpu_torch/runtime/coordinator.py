@@ -29,7 +29,9 @@ departed-peer healing and straggler hedging. Every attempt of a task
 (a hedge included) runs on the device's one current stream. The same
 coordinator drives gRPC workers (runtime/grpc_worker.py), whose planes
 carry Arrow IPC bytes through the host, the co-located shm plane among
-them (`data_plane = shm`). Left out: mesh-worker span dispatch (A.4).
+them (`data_plane = shm`). Over mesh workers (runtime/mesh_worker.py)
+a stage's tasks ship as spans, one plan a worker's span of tasks
+(`_try_dispatch_span`).
 """
 
 from __future__ import annotations
@@ -499,6 +501,14 @@ class Coordinator:
     # the device of the executing plan's leaf tables (set per execute)
     _device = None
 
+    #: declarative concurrency model (tools/check_concurrency.py): the
+    #: span caches are shared by sibling-stage fan-out threads, and every
+    #: write outside execute's fresh reset must hold the named lock
+    _GUARDED_BY = {
+        "_span_shipped": "_span_lock",
+        "_span_ok_cache": "_span_lock",
+    }
+
 
     def _tr(self):
         """The current query's tracer (NULL_TRACER outside execute or with
@@ -599,9 +609,17 @@ class Coordinator:
         # pre-dates a spec rewrite and must be refreshed before trusted
         self._peer_url_map: dict = {}  # per-query: swept-by sweep_query
         self._peer_stale: set = set()  # per-query: swept-by sweep_query
+        # per-query caches (span plans are keyed by query_id; the plan-walk
+        # verdicts key by (query, stage)). The lock serializes span
+        # check-and-ship: concurrent stage tasks of one span must not
+        # double-ship (the span would run twice and the first shipment
+        # would leak).
+        self._span_shipped: dict = {}
+        self._span_ok_cache: dict = {}
         import time as _time
         import threading as _threading
 
+        self._span_lock = _threading.Lock()
         self._peer_heal_lock = _threading.Lock()
 
         # per-query cancel event: the FIRST fatal error sets it, and every
@@ -849,6 +867,16 @@ class Coordinator:
         # re-entrant no-ops after execute's finally)
         self._release_peer_tasks(query_id)
         self._drop_heal_state(query_id)
+        spans = getattr(self, "_span_shipped", None)
+        ok = getattr(self, "_span_ok_cache", None)
+        if spans or ok:
+            with self._span_lock:
+                for k in [k for k in (spans or ()) if k[0] == query_id]:
+                    spans.pop(k, None)
+                # the ok-cache shares the span lock with the shipment map:
+                # _try_dispatch_span checks and inserts under it
+                for k in [k for k in (ok or ()) if k[0] == query_id]:
+                    ok.pop(k, None)
         # query end is the leak-harness checkpoint: any tracked resource
         # still attributed to this query is a leak
         from datafusion_distributed_tpu_torch.runtime import leakcheck
@@ -3637,6 +3665,13 @@ class Coordinator:
             # endpoint that no longer exists would only re-grow the
             # health map the membership prune just cleaned
             self._record_worker_failure(url)
+        if self._stage_span_shipped(key_tuple[0], key_tuple[1]):
+            # this (query, stage) shipped as mesh SPANS: a span plan is
+            # shared across sibling tasks, so re-dispatching a lone task
+            # elsewhere is undefined. Keyed on what shipped, not on the
+            # width cache: a membership change resetting the cache
+            # mid-stage must not lift this guard
+            return False
         if state.attempt >= self._opt_int("max_task_retries"):
             self.faults.bump("retries_exhausted")
             self._event(
@@ -3885,6 +3920,10 @@ class Coordinator:
         ``ttl`` overrides the worker registry's idle-TTL for this entry
         (peer producers live until pulled or swept). ``exclude``: urls a
         retry must route around (the failed attempts' workers)."""
+        disp = self._try_dispatch_span(stage_plan, query_id, stage_id,
+                                       task_number, task_count, ttl=ttl)
+        if disp is not None:
+            return disp
         urls = self._routable_urls(exclude)
         if self.route_tasks is not None:
             url = self.route_tasks(query_id, stage_id, task_number, urls)
@@ -3978,6 +4017,98 @@ class Coordinator:
             if tr.active and isinstance(shipped, int):
                 dsp.set(wire_bytes=shipped)
         return worker, key, plan_obj, store
+
+    def _try_dispatch_span(self, stage_plan, query_id, stage_id,
+                           task_number, task_count, ttl=None):
+        """Meshes-as-workers dispatch: when every worker owns several
+        devices (`MeshWorker.mesh_width`), a stage's tasks ship as
+        contiguous SPANS — worker k gets tasks [kW, (k+1)W) as ONE span
+        plan, decoded and checked once for its W tasks. Per-task keys stay
+        the data-plane address, so peer pulls and streams work unchanged
+        between workers. Returns None when span dispatch does not apply
+        (mixed cluster, custom routing, span-inexpressible plans)."""
+        if self.route_tasks is not None:
+            return None
+        tok = self._note_membership()
+        cached_w = getattr(self, "_mesh_span_width", None)
+        if cached_w is not None and cached_w[0] == tok:
+            span_w = cached_w[1]
+        else:
+            # cached per membership token (stored WITH the token and
+            # ignored on mismatch, as _workers_peer_capable's verdict)
+            urls0 = self.resolver.get_urls()
+            widths = [
+                getattr(self.channels.get_worker(u), "mesh_width", 0)
+                for u in urls0
+            ]
+            span_w = min(widths) if widths and all(
+                w > 0 for w in widths
+            ) else 0
+            self._mesh_span_width = (tok, span_w)
+        if span_w <= 0:
+            return None
+        from datafusion_distributed_tpu_torch.runtime.mesh_worker import (
+            span_specializable,
+            span_specialized,
+        )
+
+        if not hasattr(self, "_span_lock"):
+            # a direct call without execute: these bare writes come before
+            # any sibling-stage thread shares this coordinator (as
+            # execute's per-query resets do)
+            self._span_lock = threading.Lock()
+            self._span_shipped = {}
+            self._span_ok_cache = {}
+        # keyed by (query, stage): per-task prepared plans are transient
+        # objects (id() recycles within a query) but share one structure
+        ok_key = (query_id, stage_id)
+        with self._span_lock:
+            ok = self._span_ok_cache.get(ok_key)
+            if ok is None:
+                ok = self._span_ok_cache[ok_key] = span_specializable(
+                    stage_plan
+                )
+        if not ok:
+            return None
+        span = task_number // span_w
+        key = TaskKey(query_id, stage_id, task_number)
+        lo, hi = span * span_w, min((span + 1) * span_w, task_count)
+        ship_key = (query_id, stage_id, lo)
+        with self._span_lock:
+            hit = self._span_shipped.get(ship_key)
+            if hit is None:
+                # route from live membership only when SHIPPING the span;
+                # sibling tasks reuse the shipped worker below, so a
+                # membership change between siblings cannot split one
+                # span's tasks across two workers
+                urls = self.resolver.get_urls()
+                url = urls[(stage_id + span) % len(urls)]
+                worker = self.channels.get_worker(url)
+                from datafusion_distributed_tpu_torch.runtime.codec import (
+                    collect_table_ids,
+                    staging_attribution,
+                )
+
+                with staging_attribution(query_id):
+                    plan_obj = encode_plan(
+                        span_specialized(stage_plan, lo, hi),
+                        worker.table_store,
+                    )
+                try:
+                    worker.set_stage_plan(
+                        query_id, stage_id, lo, hi, task_count, plan_obj,
+                        config=self.config_options,
+                        headers=self.passthrough_headers,
+                        ttl=ttl,
+                    )
+                except BaseException:
+                    # a failed ship leaves no registry entry to own the
+                    # staged slices
+                    worker.table_store.remove(collect_table_ids(plan_obj))
+                    raise
+                hit = self._span_shipped[ship_key] = (plan_obj, worker)
+        plan_obj, worker = hit
+        return worker, key, plan_obj, worker.table_store
 
     def _record_task_progress(self, worker, key) -> None:
         tr = self._tr()

@@ -148,10 +148,10 @@ _SCRIPT = textwrap.dedent("""
               "adaptivity", "coordinator", "spill", "checkpoint",
               "result_cache", "serving", "chaos", "observability",
               "transport", "shm_plane", "grpc_worker", "lockcheck",
-              "work_unit_feed"):
+              "work_unit_feed", "mesh_worker"):
         importlib.import_module("datafusion_distributed_tpu_torch.runtime."
                                 + m)
-    for m in ("console", "cli"):
+    for m in ("console", "cli", "data.tpcdsgen"):
         importlib.import_module("datafusion_distributed_tpu_torch." + m)
     importlib.import_module("datafusion_distributed_tpu_torch.native")
     importlib.import_module("datafusion_distributed_tpu_torch.planner."
