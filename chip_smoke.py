@@ -74,7 +74,7 @@ Phases, each of which must pass:
    4 tasks: q1, q3, q5, q9, q18 and q21 with and without a sticky 2 s
    straggler on one worker, hedging off and on (warm wall per query, hedge
    counters, hedges in flight, the latency sketch's p99), each equal to
-   single-node; the 22 queries under a leave, a join and a drain with
+   single-node; q3, q9 and q21 under a leave, a join and a drain with
    transport faults, each on a fresh cluster, byte-identical to the
    no-churn run (fired kinds, re-shipped producers, retries, the drain,
    the card's allocated bytes before and after); the serving tier's
@@ -91,7 +91,7 @@ Phases, each of which must pass:
    copies and GB/s; wire bytes before and after compression; SetPlan bytes
    shipped; peak device memory; the card's allocated bytes before the
    cluster started and after its shutdown), each byte-identical to the
-   in-process run and equal to single-node; q3, q5 and q18 at SF 0.1
+   in-process run and equal to single-node; q3 at SF 0.1
    under data_plane default, stream and shm, stream and shm each with
    wire_compression auto and off, and q21 on shm with auto, byte-identical (segments published and
    released, bytes through shm), and q3 under a chaos segment_lost
@@ -127,7 +127,19 @@ Phases, each of which must pass:
    workers that keep their last spans (as the JAX package's do) hold
    after each query of the warm mix; kernels 1, 2 and 3 at every logged
    shape.
-16. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
+16. spmd — the SPMD tier: four rank processes of this script form a
+   gloo group on the card (NCCL refuses two ranks on one device), each
+   over the same TPC-H tables, and run collect_distributed_table(mesh=):
+   the 22 queries at SF 0.1 and q1, q3, q5, q9, q18, q21 at SF 1 (the
+   ranks' SF 1 tables in host memory, their slices moved to the card)
+   cold then warm, every rank's table byte-identical to rank 0's
+   in-process collect_distributed_table(4) on the card with equal retries
+   (seconds of both, each rank's peak allocated bytes, the bytes each
+   exchange kind sent); meanwhile the six at SF 1 over a one-rank NCCL
+   group in this process, each equal to
+   collect_distributed_table(1); kernels 1, 2 and 3 at every shape the
+   ranks logged.
+17. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
    import): the `hits` table at its published 99,997,497 rows, seed 3, all
    43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
    kernels 1 and 2 at every shape that run gave them (group builds on
@@ -144,8 +156,9 @@ The main phase, the window phase, the one-task staged path, each
 coordinator's second run, the serving tier's fair-share arm, the hedged
 straggler arm's warm run, each warm gRPC run of the wire phase, the tools
 phase's in-process runs (cli, tracing, console, feed), each warm run over
-the mesh workers and the ClickBench run each set the kernels' launch counts to 0 just before they run and read
-them just after.
+the mesh workers, each rank's warm SPMD runs and the ClickBench run each
+set the kernels' launch counts to 0 just before they run and read them
+just after.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, the script fails and prints no result.
@@ -163,6 +176,7 @@ import sys
 import tempfile
 import time
 import zlib
+from datetime import timedelta
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -2637,6 +2651,12 @@ RESILIENCE_CHURN_FAULTS = (
 )
 RESILIENCE_CHURN_RETRIES = 8
 #: tests/test_serving.py's chaos-and-churn mix
+#: the queries churned one by one: the five- and six-way joins and the
+#: anti-join of the hedging arms' mix, whose no-churn runs the hedging
+#: step already made, and in which the schedule fires all three
+#: membership kinds (churning all 22 took 32.5 s of the phase on the
+#: card; the time went to the spmd phase)
+RESILIENCE_CHURN_QUERIES = ("q3", "q9", "q21")
 RESILIENCE_SERVED = ("q1", "q6", "q3", "q6", "q1", "q3")
 RESILIENCE_CPU_TIMEOUT_S = 600
 #: the membership kinds the churn schedule fires when a query makes enough
@@ -2812,7 +2832,7 @@ def phase_resilience(sf: float, check_sf: float, seed: int) -> dict:
     most the budget), the latency sketch's p99 beside the warm run's task
     walls; every result equal to single-node. Launches are counted from 0 over the
     hedged straggler arm's warm run.
-    2. Churn: the 22 queries, each over a fresh DynamicCluster(4) under a
+    2. Churn: RESILIENCE_CHURN_QUERIES, each over a fresh DynamicCluster(4) under a
     leave, a join and a drain with transport faults: byte-identical to the
     same session's no-churn coordinated run, the drained worker removed,
     no staged slice left, the card's allocated bytes before the query and
@@ -2933,7 +2953,7 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
 
     # --- 2. churn -------------------------------------------------------------
     churn: dict = {}
-    for q in QUERIES:
+    for q in RESILIENCE_CHURN_QUERIES:
         base = plain.get(q)
         if base is None:
             base = _coordinated(ctx, sqls[q], False,
@@ -3122,10 +3142,13 @@ WIRE_TASKS = 4
 #: BY, the anti-join (the resilience phase's queries)
 WIRE_QUERIES = ("q1", "q3", "q5", "q9", "q18", "q21")
 #: the plane and codec variants, at WIRE_KNOB_SF
-WIRE_KNOB_QUERIES = ("q3", "q5", "q18", "q21")
+#: (q5's and q18's variants, 3.8 s on the card, went to the spmd phase:
+#: q18's exchanges take no partition stream at SF 0.1, and q5's planes
+#: are q3's)
+WIRE_KNOB_QUERIES = ("q3", "q21")
 #: queries that run only some of WIRE_PLANES' variants: q21's five took
 #: 23.5 s of a 184.6 s phase on the card, which the run's time limit does
-#: not hold beside the 22-query churn of the resilience phase; it keeps
+#: not hold beside the resilience phase's churn; it keeps
 #: the shm plane, where its stream's segments carry lineitem's dictionaries
 WIRE_KNOB_ONLY = {"q21": (("shm", "auto"),)}
 WIRE_KNOB_SF = 0.1
@@ -4297,7 +4320,407 @@ def phase_mesh(sf: float, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 16: ClickBench in x64 mode, in a subprocess
+# phase 16: the SPMD tier, gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SPMD_RANKS = 4  # gloo ranks on the one card: NCCL refuses two on one device
+SPMD_ALL_SF = 0.1  # (a) all 22 queries
+SPMD_QUERIES = RESILIENCE_HEDGE_QUERIES  # (b) over the ranks, (c) on NCCL
+SPMD_COLLECTIVE_TIMEOUT_S = 240  # every group's collectives
+SPMD_TIMEOUT_S = 300  # the ranks' wall, startup included
+
+
+def _dump_tables(tables: dict, path: Path) -> None:
+    """The registered tables as host buffers, every padded row (so that a
+    rank's tables have the capacities the plans were sized on), in one
+    pickle."""
+    out = {}
+    for name, t in tables.items():
+        out[name] = (t.names, int(t.num_rows), [
+            (c.data.cpu().numpy(),
+             None if c.validity is None else c.validity.cpu().numpy(),
+             c.dtype.value,
+             None if c.dictionary is None else c.dictionary.values)
+            for c in t.columns])
+    path.write_bytes(pickle.dumps(out, protocol=5))
+
+
+def _spmd_session(path: str, device):
+    """A session over the tables `_dump_tables` wrote, on ``device``."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops.table import (
+        Column,
+        Dictionary,
+        Table,
+    )
+    from datafusion_distributed_tpu_torch.schema import DataType
+    from datafusion_distributed_tpu_torch.sql.context import SessionContext
+
+    ctx = SessionContext(device=device)
+    for name, (names, rows, cols) in pickle.loads(
+            Path(path).read_bytes()).items():
+        ctx.register_table(name, Table(tuple(names), tuple(
+            Column(torch.from_numpy(d).to(device),
+                   None if v is None else torch.from_numpy(v).to(device),
+                   DataType(dt),
+                   None if vals is None else Dictionary(vals))
+            for d, v, dt, vals in cols),
+            torch.tensor(rows, dtype=torch.int32, device=device)))
+    return ctx
+
+
+def spmd_rank(job_path: str, rank: int) -> int:
+    """One rank of the spmd phase (`--spmd-rank JOB RANK`): a process of a
+    gloo group on the card that runs (a) and (b) of `phase_spmd` through
+    ``collect_distributed_table(mesh=make_mesh())`` and pickles what it
+    saw. Rank 0 also runs each query in process at the same task count."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+    from datafusion_distributed_tpu_torch.parallel import exchange as ex
+    from datafusion_distributed_tpu_torch.runtime.mesh_executor import (
+        make_mesh,
+    )
+
+    t_start = time.perf_counter()
+    job = json.loads(Path(job_path).read_text())
+    dist.init_process_group(
+        "gloo", init_method=f"file://{job['init']}", rank=rank,
+        world_size=job["world"],
+        timeout=timedelta(seconds=SPMD_COLLECTIVE_TIMEOUT_S))
+    out: dict = {"rank": rank}
+    try:
+        mesh = make_mesh(device=job["device"])
+        ready = Path(job["ready"])
+        while not ready.exists():
+            if time.perf_counter() - t_start > SPMD_TIMEOUT_S:
+                raise RuntimeError("the tables were never written")
+            time.sleep(0.05)
+        out["startup_s"] = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        small = _spmd_session(job["tables"]["small"], mesh.device)
+        # the SF 1 tables stay in host memory: execute_on_mesh moves each
+        # rank's slices to the card (as the JAX package's executor places
+        # each task's slices on its device); four ranks' copies of the
+        # tables beside four q21 working sets do not fit one card
+        big = _spmd_session(job["tables"]["big"], "cpu")
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        hk.reset_launch_counts()
+        ex.reset_spmd_stats()
+
+        def run(ctx, q: str, **kw) -> tuple:
+            df = ctx.sql((QUERY_DIR / f"{q}.sql").read_text())
+            t0 = time.perf_counter()
+            try:
+                got = df.collect_distributed_table(**kw).to_numpy()
+            except Exception as e:
+                raise RuntimeError(f"{q} with {kw}: {type(e).__name__}: "
+                                   f"{e}") from e
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            # the ranks share the card: hand freed blocks back to it
+            torch.cuda.empty_cache()
+            return got, s, df.last_retry_count
+
+        def spmd(ctx, q: str) -> tuple:
+            return run(ctx, q, mesh=mesh)
+
+        def in_process(ctx, q: str) -> tuple:
+            return run(ctx, q, num_tasks=mesh.size)
+
+        # (a) all 22 queries at SPMD_ALL_SF
+        shapes = {"build": {}, "probe": {}, "agg": {}}
+        t0 = time.perf_counter()
+        out["a"] = {q: dict(zip(("result", "s", "retries"), spmd(small, q)))
+                    for q in QUERIES}
+        out["a_s"] = time.perf_counter() - t0
+        _drain_shapes(hk, shapes)
+        if rank == 0:
+            out["a_inproc"] = {
+                q: dict(zip(("result", "s", "retries"),
+                            in_process(small, q)))
+                for q in QUERIES}
+        del small
+        gc.collect()
+        torch.cuda.empty_cache()
+        done = Path(job["nccl_done"])
+        while not done.exists():  # (c) in the phase's process is over
+            if time.perf_counter() - t_start > SPMD_TIMEOUT_S:
+                raise RuntimeError("the one-rank NCCL runs never ended")
+            time.sleep(0.05)
+        hk.reset_launch_counts()  # the in-process arm's are not the path's
+        # (b) the six queries at SF 1, cold then warm
+        out["b"] = {}
+        launches: dict = {}
+        for q in SPMD_QUERIES:
+            cold, cold_s, _r = spmd(big, q)
+            _drain_shapes(hk, shapes)
+            ex.reset_spmd_stats()
+            torch.cuda.reset_peak_memory_stats()
+            warm, s, retries = spmd(big, q)
+            for k, v in hk.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + v
+            _drain_shapes(hk, shapes)
+            log(f"[spmd rank {rank}] {q}: cold {cold_s:.3f}s, warm {s:.3f}s, "
+                f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            out["b"][q] = {
+                "result": warm, "identical_to_cold": _identical(cold, warm),
+                "cold_s": cold_s, "s": s, "retries": retries,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "sent_bytes": ex.spmd_stats()}
+        out["launches"] = launches
+        out["shapes"] = shapes
+        if rank == 0:
+            # the in-process arm on the card, as a user's session runs it
+            card = _spmd_session(job["tables"]["big"], mesh.device)
+            out["b_inproc"] = {}
+            for q in SPMD_QUERIES:
+                cold, cold_s, _r = in_process(card, q)
+                torch.cuda.reset_peak_memory_stats()
+                warm, s, retries = in_process(card, q)
+                out["b_inproc"][q] = {
+                    "result": warm, "cold_s": cold_s, "s": s,
+                    "retries": retries,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+        dist.barrier()
+    except Exception as e:  # noqa: BLE001 - reported to the phase
+        import traceback
+
+        traceback.print_exc()
+        out["failed"] = f"{type(e).__name__}: {e}"
+    finally:
+        Path(job["out"].format(rank=rank)).write_bytes(pickle.dumps(out))
+        dist.destroy_process_group()
+    return 1 if "failed" in out else 0
+
+
+def _nccl_world_of_one(tables: str, tmp: Path) -> dict:
+    """(c): the six queries through ``collect_distributed_table(mesh=)``
+    on a one-rank NCCL group, each equal to collect_distributed_table(1)
+    byte for byte (its plan has no exchange left: the run's collectives
+    are the plan check and the flags' all_reduce)."""
+    import torch
+    import torch.distributed as dist
+
+    from datafusion_distributed_tpu_torch.runtime.mesh_executor import (
+        make_mesh,
+    )
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp / 'nccl'}", rank=0, world_size=1,
+        timeout=timedelta(seconds=SPMD_COLLECTIVE_TIMEOUT_S))
+    try:
+        mesh = make_mesh(device=f"cuda:{torch.cuda.current_device()}")
+        ctx = _spmd_session(tables, mesh.device)
+        out = {}
+        for q, sql in _queries(SPMD_QUERIES):
+            df = ctx.sql(sql)
+            t0 = time.perf_counter()
+            got = df.collect_distributed_table(mesh=mesh).to_numpy()
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            ref = ctx.sql(sql).collect_distributed_table(1).to_numpy()
+            check(_identical(got, ref), f"{q} over NCCL at world size 1 "
+                  "differs from collect_distributed_table(1)")
+            out[q] = {"s": s, "retries": df.last_retry_count,
+                      "rows": len(next(iter(got.values())))}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_spmd(sf: float, seed: int) -> dict:
+    """The SPMD tier on the card: a staged plan as one program over a
+    torch.distributed group, one rank a task.
+
+    SPMD_RANKS rank processes (this script with ``--spmd-rank``) form a
+    gloo group on the card, each over the same TPC-H tables (written once
+    by this process) through ``collect_distributed_table(mesh=)``:
+    (a) the 22 queries at SF SPMD_ALL_SF, each rank's table byte-identical
+    to rank 0's in-process ``collect_distributed_table(SPMD_RANKS)`` with
+    equal retries; (b) SPMD_QUERIES at SF ``sf`` cold then warm, each
+    rank's session over the tables in host memory (execute_on_mesh moves
+    its slices to the card; four copies on the card do not fit beside four
+    q21 working sets) (seconds, each rank's peak allocated bytes and the
+    bytes each exchange kind sent, launches counted from 0 over the warm
+    runs), beside rank 0's in-process runs on the card, byte-identical.
+    Meanwhile (as the ranks load and run (a)) this process runs (c): SPMD_QUERIES
+    at SF ``sf`` over a one-rank NCCL group, each equal to
+    ``collect_distributed_table(1)``; the ranks start (b) once it is done,
+    and this process then holds no table on the card. Then kernels 1, 2 and 3 at every
+    shape the ranks and (c) logged, against their plain versions. A rank
+    that fails or outlives SPMD_TIMEOUT_S fails the phase."""
+    import gc
+    import shutil
+
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dftpu-spmd-"))
+    job = tmp / "job.json"
+    job.write_text(json.dumps({
+        "init": str(tmp / "gloo"), "world": SPMD_RANKS,
+        "device": f"cuda:{torch.cuda.current_device()}",
+        "ready": str(tmp / "ready"), "nccl_done": str(tmp / "nccl_done"),
+        "out": str(tmp / "rank{rank}.pkl"),
+        "tables": {"small": str(tmp / "small.pkl"),
+                   "big": str(tmp / "big.pkl")}}))
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(SPMD_RANKS)]
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--spmd-rank",
+         str(job), str(r)], stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=str(Path(__file__).resolve().parent), env=env)
+        for r in range(SPMD_RANKS)]
+    out: dict = {}
+    try:
+        _dump_tables(_session("cuda", SPMD_ALL_SF, seed).catalog.tables,
+                     tmp / "small.pkl")
+        _dump_tables(_session("cuda", sf, seed).catalog.tables,
+                     tmp / "big.pkl")
+        # four ranks' q21 working sets at SF 1 take nearly the whole card:
+        # this process keeps no table on it (the clickbench phase, next,
+        # clears them too)
+        _TABLES.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["parent_allocated"] = torch.cuda.memory_allocated()
+        (tmp / "ready").touch()
+        out["dump_s"] = time.perf_counter() - t_phase
+        log(f"[spmd] {SPMD_RANKS} ranks started; tables written in "
+            f"{out['dump_s']:.1f}s; this process holds "
+            f"{out['parent_allocated']} B on the card")
+        # (c) while the ranks load their tables and run (a) at SF 0.1; the
+        # ranks start (b) once it is done
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out["nccl"] = _nccl_world_of_one(str(tmp / "big.pkl"), tmp)
+        out["nccl_s"] = time.perf_counter() - t0
+        shapes = {"build": {}, "probe": {}, "agg": {}}
+        _drain_shapes(hk, shapes)
+        gc.collect()
+        torch.cuda.empty_cache()
+        (tmp / "nccl_done").touch()
+        log(f"[spmd] (c) {len(out['nccl'])} queries at SF {sf} over NCCL "
+            f"at world size 1 equal to collect_distributed_table(1): "
+            f"{out['nccl']} ({_since(t_phase)})")
+        deadline = t_phase + SPMD_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"rank {r} outlived {SPMD_TIMEOUT_S}s")
+        for lf in logs:
+            lf.close()
+        ranks = []
+        for r, p in enumerate(procs):
+            path = tmp / f"rank{r}.pkl"
+            res = pickle.loads(path.read_bytes()) if path.exists() else {}
+            if p.returncode != 0 or "failed" in res:
+                tail = (tmp / f"rank{r}.log").read_text()[-3000:]
+                raise RuntimeError(
+                    f"rank {r} exited {p.returncode}: {res.get('failed')}\n"
+                    f"{tail}")
+            ranks.append(res)
+        log(f"[spmd] {SPMD_RANKS} ranks done ({_since(t_phase)})")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for lf in logs:
+            lf.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["rank_s"] = {k: [r[k] for r in ranks]
+                     for k in ("startup_s", "load_s", "a_s")}
+
+    # (a) the 22 queries against rank 0's in-process runs
+    ref = ranks[0]["a_inproc"]
+    for q in QUERIES:
+        for r, res in enumerate(ranks):
+            check(_identical(res["a"][q]["result"], ref[q]["result"]),
+                  f"{q} at SF {SPMD_ALL_SF}: rank {r}'s SPMD table differs "
+                  "from the in-process run")
+            check(res["a"][q]["retries"] == ref[q]["retries"],
+                  f"{q} at SF {SPMD_ALL_SF}: rank {r} retried "
+                  f"{res['a'][q]['retries']} times, in process "
+                  f"{ref[q]['retries']}")
+    out["a"] = {q: {"s": max(r["a"][q]["s"] for r in ranks),
+                    "inproc_s": ref[q]["s"], "retries": ref[q]["retries"]}
+                for q in QUERIES}
+    log(f"[spmd] (a) 22 queries at SF {SPMD_ALL_SF} over {SPMD_RANKS} gloo "
+        f"ranks byte-identical to in-process on every rank "
+        f"({_since(t_phase)})")
+
+    # (b) the six at SF 1
+    ref = ranks[0]["b_inproc"]
+    out["b"] = {}
+    for q in SPMD_QUERIES:
+        for r, res in enumerate(ranks):
+            got = res["b"][q]
+            check(got["identical_to_cold"],
+                  f"{q}: rank {r}'s cold and warm SPMD runs differ")
+            check(_identical(got["result"], ref[q]["result"]),
+                  f"{q} at SF {sf}: rank {r}'s SPMD table differs from the "
+                  "in-process run")
+            check(got["retries"] == ref[q]["retries"],
+                  f"{q} at SF {sf}: rank {r} retries differ")
+        sent: dict = {}
+        for res in ranks:
+            for k, v in res["b"][q]["sent_bytes"].items():
+                sent[k] = sent.get(k, 0) + v
+        out["b"][q] = {
+            "cold_s": max(r["b"][q]["cold_s"] for r in ranks),
+            "s": max(r["b"][q]["s"] for r in ranks),
+            "inproc_cold_s": ref[q]["cold_s"], "inproc_s": ref[q]["s"],
+            "retries": ref[q]["retries"],
+            "peak_gb": [r["b"][q]["peak_bytes"] / 1e9 for r in ranks],
+            "inproc_peak_gb": ref[q]["peak_bytes"] / 1e9,
+            "sent_bytes": sent}
+        log(f"[spmd] (b) {q}: {out['b'][q]} ({_since(t_phase)})")
+    out["warm_s"] = sum(r["s"] for r in out["b"].values())
+    out["inproc_s"] = sum(r["inproc_s"] for r in out["b"].values())
+    launches: dict = {}
+    for res in ranks:
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for kind in shapes:
+            for key, c in res["shapes"][kind].items():
+                shapes[kind][key] = shapes[kind].get(key, 0) + c
+    for k in ("build_group_ids", "multiway_probe"):
+        check(launches.get(k, 0) > 0,
+              f"kernel {k} was not launched by the ranks' warm runs")
+    out["launches"] = launches
+    log(f"[spmd] SF {sf} warm {out['warm_s']:.2f}s over {SPMD_RANKS} ranks "
+        f"against {out['inproc_s']:.2f}s in process; launches {launches} "
+        f"({_since(t_phase)})")
+
+    # kernels 1, 2 and 3 at every shape the ranks and (c) logged
+    dev = torch.device("cuda")
+    out["kernel_checks"] = {
+        "build_group_ids": build_shape_checks(
+            [[n, lanes, h, c] for (n, lanes, h), c
+             in shapes["build"].items()], dev, "spmd"),
+        "multiway_probe": probe_shape_checks(
+            [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
+             in shapes["probe"].items()], dev, "spmd"),
+        "group_aggregate": agg_shape_checks(shapes["agg"], dev, "spmd"),
+    }
+    out["shapes"] = {k: len(v) for k, v in shapes.items()}
+    log(f"[spmd] shapes checked: {out['shapes']} ({_since(t_phase)})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: ClickBench in x64 mode, in a subprocess
 # ---------------------------------------------------------------------------
 
 CLICKBENCH_ROWS = 99_997_497  # ClickBench's `hits` table
@@ -4748,7 +5171,7 @@ SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
           "window", "distributed", "tasks", "coordinator", "serving",
-          "resilience", "wire", "tools", "mesh", "clickbench")
+          "resilience", "wire", "tools", "mesh", "spmd", "clickbench")
 CLICKBENCH_TIMEOUT_S = 800
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -4777,6 +5200,8 @@ def main(argv=None) -> int:
                     metavar="SF", help=argparse.SUPPRESS)
     ap.add_argument("--crash-worker", type=float, default=None,
                     metavar="SF", help=argparse.SUPPRESS)
+    ap.add_argument("--spmd-rank", nargs=2, default=None,
+                    metavar=("JOB", "RANK"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -4803,6 +5228,8 @@ def main(argv=None) -> int:
         return lockcheck_worker(args.lockcheck_worker, args.out)
     if args.crash_worker is not None:
         return crash_worker(args.crash_worker, args.out)
+    if args.spmd_rank is not None:
+        return spmd_rank(args.spmd_rank[0], int(args.spmd_rank[1]))
     if args.clickbench_worker:
         try:
             return clickbench_worker(args.out)
@@ -4861,6 +5288,8 @@ def main(argv=None) -> int:
                 results["tools"] = phase_tools(SF, SEED)
             elif phase == "mesh":
                 results["mesh"] = phase_mesh(SF, SEED)
+            elif phase == "spmd":
+                results["spmd"] = phase_spmd(SF, SEED)
             else:
                 results["clickbench"] = phase_clickbench(CLICKBENCH_TIMEOUT_S)
         except Exception as e:  # noqa: BLE001 - report every phase, then fail
@@ -4892,12 +5321,13 @@ def main(argv=None) -> int:
              "wire": ("wire",),
              "tools": ("tools",),
              "mesh": ("mesh",),
+             "spmd": ("spmd",),
              "clickbench_x64": ("clickbench",),
              "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
                     for phase in ("distributed", "tasks", "coordinator",
                                   "serving", "resilience", "wire",
-                                  "tools", "mesh", "clickbench")]
+                                  "tools", "mesh", "spmd", "clickbench")]
     shape_checks.append(results.get("clickbench", {}).get("t8", {})
                         .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
@@ -5049,6 +5479,13 @@ def main(argv=None) -> int:
             "all22_s": d["all22"]["s"], "allocated": d["allocated"],
             "spans_kept": d["spans_kept"], "shapes": d["shapes"],
             "launches": d["launches"]}}))
+    if "spmd" in results:
+        d = results["spmd"]
+        print(json.dumps({"spmd": {
+            "b": d["b"], "warm_s": d["warm_s"], "inproc_s": d["inproc_s"],
+            "a_s": max(d["rank_s"]["a_s"]), "nccl": d["nccl"],
+            "rank_s": d["rank_s"], "dump_s": d["dump_s"],
+            "shapes": d["shapes"], "launches": d["launches"]}}))
     if "clickbench" in results:
         cb = results["clickbench"]
         print(json.dumps({"clickbench": {

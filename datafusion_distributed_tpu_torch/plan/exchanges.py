@@ -13,29 +13,40 @@ The planner (planner/distributed.py) places them, sizes them and stamps
 their stage ids; the verifier checks them. Their capacities, rebuilds and
 display strings equal the reference's.
 
-An exchange runs inside a multi-task run (runtime/mesh_executor.py), whose
-task contexts share one exchange cache: the first task to reach it runs
-its child for every producer task, routes the rows with the data plane
-(parallel/exchange.py), and caches the consumer tables (a shuffle's as a
-sequence that gathers each when it is taken); each task then takes its
-own. Outside such a run an exchange raises. A one-task staged plan has no
-exchange left (`_prepare` elides every 1:1 boundary).
+An exchange runs inside a multi-task run (runtime/mesh_executor.py). In
+the one-process run (`execute_tasks`) the task contexts share one exchange
+cache: the first task to reach it runs its child for every producer task,
+routes the rows with the data plane (parallel/exchange.py), and caches the
+consumer tables (a shuffle's as a sequence that gathers each when it is
+taken); each task then takes its own. In an SPMD run (`execute_on_mesh`,
+the context's config carries the `TaskMesh`) each rank runs its own
+producer subtree and the exchange's collective (the `*_spmd` functions),
+memoized in its own cache. Outside such a run an exchange raises. A
+one-task staged plan has no exchange left (`_prepare` elides every 1:1
+boundary).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
-from datafusion_distributed_tpu_torch.ops.table import Column, Table
+from datafusion_distributed_tpu_torch.ops.table import Column, Dictionary, Table
 from datafusion_distributed_tpu_torch.parallel.exchange import (
+    _broadcast_object,
     broadcast_exchange,
+    broadcast_exchange_spmd,
     coalesce_exchange,
+    coalesce_exchange_spmd,
     group_coalesce_exchange,
+    group_coalesce_exchange_spmd,
     live_prefix,
     range_shuffle_exchange,
+    range_shuffle_exchange_spmd,
     shuffle_exchange,
+    shuffle_exchange_spmd,
 )
 from datafusion_distributed_tpu_torch.plan.physical import (
     ExecContext,
@@ -81,6 +92,9 @@ class ExchangeExec(ExecutionPlan):
         """This task's consumer table. The exchange routes once per run,
         for every task (see ExecContext.exchange_cache); each task records
         its overflow flag once, however often the tree reaches it."""
+        mesh = ctx.config.get("mesh")
+        if mesh is not None:
+            return self._execute_spmd(ctx, mesh)
         routed = ctx.exchange_cache.get(self.node_id)
         if routed is None:
             if not ctx.peers:
@@ -99,6 +113,41 @@ class ExchangeExec(ExecutionPlan):
             if overflow is not None:
                 ctx.record_overflow(self, overflow)
         return tables[task]
+
+    def _execute_spmd(self, ctx: ExecContext, mesh) -> Table:
+        """One rank of an SPMD run: this rank's producer table through the
+        exchange's collective, once per run; its overflow flag and (as the
+        reference's mesh records it) its output_rows metric recorded
+        once."""
+        routed = ctx.exchange_cache.get(self.node_id)
+        if routed is None:
+            if self.num_tasks != mesh.size:
+                raise RuntimeError(
+                    f"{self.display()} over {self.num_tasks} tasks in an "
+                    f"SPMD run of {mesh.size} ranks")
+            routed = self._route_spmd(
+                self.child.execute(ctx), mesh,
+                ctx.config["exchange_positions"][self.node_id],
+                ctx.config["exchange_labels"])
+            ctx.exchange_cache[self.node_id] = routed
+            if routed[1] is not None:
+                ctx.record_overflow(self, routed[1])
+            ctx.record_metric(self, "output_rows", routed[0].num_rows)
+        # the memo goes once the tree has reached the exchange as often as
+        # it will: a consumer table is padded to its full capacity, and
+        # holding every exchange's for the whole run does not fit
+        left = ctx.config["exchange_reaches"]
+        left[self.node_id] -= 1
+        if left[self.node_id] <= 0:
+            del ctx.exchange_cache[self.node_id]
+        return routed[0]
+
+    def _route_spmd(self, table: Table, mesh, position: int,
+                    labels: list) -> tuple:
+        """This rank's producer table -> (its consumer table, the overflow
+        flag or None); ``position`` is the exchange's place among the
+        plan's exchanges, ``labels`` theirs by place."""
+        raise NotImplementedError
 
     def _producers(self, peers: list) -> tuple:
         """Every producer task's table, in task order, and their padded
@@ -166,6 +215,10 @@ class ShuffleExchangeExec(ExchangeExec):
         return shuffle_exchange(producers, self.key_names, self.num_tasks,
                                 self.per_dest_capacity, capacity)
 
+    def _route_spmd(self, table, mesh, position, labels):
+        return shuffle_exchange_spmd(table, self.key_names, mesh,
+                                     self.per_dest_capacity, position, labels)
+
     def display(self):
         return (
             f"ShuffleExchange keys=[{', '.join(self.key_names)}] "
@@ -205,6 +258,11 @@ class RangeShuffleExchangeExec(ExchangeExec):
                                       self.num_tasks, self.per_dest_capacity,
                                       capacity=capacity)
 
+    def _route_spmd(self, table, mesh, position, labels):
+        return range_shuffle_exchange_spmd(
+            table, self.sort_keys, mesh, self.per_dest_capacity,
+            position=position, labels=labels)
+
     def display(self):
         keys = ", ".join(
             f"{k.name}{'' if k.ascending else ' DESC'}" for k in self.sort_keys
@@ -230,11 +288,15 @@ class PartitionReplicatedExec(ExchangeExec):
         return False  # each task keeps rows of its own whole table
 
     def _route(self, producers, capacity):
-        out = []
-        for task, t in enumerate(producers):
-            idx = torch.arange(t.capacity, device=t.device)
-            out.append(t.compact((idx % self.num_tasks) == task))
-        return out, None
+        return [self._keep(t, task)
+                for task, t in enumerate(producers)], None
+
+    def _route_spmd(self, table, mesh, position, labels):
+        return self._keep(table, mesh.rank), None
+
+    def _keep(self, table: Table, task: int) -> Table:
+        idx = torch.arange(table.capacity, device=table.device)
+        return table.compact((idx % self.num_tasks) == task)
 
     def display(self):
         return f"PartitionReplicated tasks={self.num_tasks}"
@@ -276,6 +338,12 @@ class CoalesceExchangeExec(ExchangeExec):
         return coalesce_exchange(producers, self.num_tasks,
                                  capacity), None
 
+    def _route_spmd(self, table, mesh, position, labels):
+        if self.num_consumers > 1:
+            return group_coalesce_exchange_spmd(
+                table, mesh, self.num_consumers, position, labels), None
+        return coalesce_exchange_spmd(table, mesh, position, labels), None
+
     def display(self):
         m = (f" consumers={self.num_consumers}"
              if self.num_consumers > 1 else "")
@@ -295,6 +363,9 @@ class BroadcastExchangeExec(ExchangeExec):
     def _route(self, producers, capacity):
         return broadcast_exchange(producers, self.num_tasks,
                                   capacity), None
+
+    def _route_spmd(self, table, mesh, position, labels):
+        return broadcast_exchange_spmd(table, mesh, position, labels), None
 
     def display(self):
         return f"BroadcastExchange tasks={self.num_tasks}"
@@ -330,6 +401,9 @@ class IsolatedArmExec(ExecutionPlan):
         the arm's overflow flags recorded as false."""
         if ctx.task.task_count <= 1:
             return self.child.execute(ctx)
+        mesh = ctx.config.get("mesh")
+        if mesh is not None:
+            return self._execute_spmd(ctx, mesh)
         if not ctx.peers:
             raise RuntimeError(
                 "IsolatedArmExec executed outside a multi-task run: a "
@@ -349,6 +423,55 @@ class IsolatedArmExec(ExecutionPlan):
                    c.dtype, c.dictionary)
             for c in out.columns)
         return Table(out.names, cols, out.num_rows.new_zeros(()))
+
+    def _execute_spmd(self, ctx: ExecContext, mesh) -> Table:
+        """One rank of an SPMD run, as the reference's mesh arm: every rank
+        runs the arm's exchanges (their collectives need every rank); the
+        assigned rank alone runs the rest of the arm and broadcasts what
+        the others need to stand in for it: the output's columns, capacity
+        and dictionaries, and the names of the flags and metrics its run
+        recorded. Every other rank returns the empty table of that shape,
+        with those flags recorded as false and those metrics as 0."""
+        for ex in self.child.collect(lambda n: n.is_exchange):
+            ex.execute(ctx)
+        spec = None
+        if mesh.rank == self.assigned_task:
+            flags = len(ctx.overflow_flags)
+            metrics = len(ctx.metrics) if ctx.metrics is not None else 0
+            out = self.child.execute(ctx)
+            pos = ctx.config["node_positions"]
+            spec = (
+                out.names, out.capacity,
+                [(str(c.data.dtype).removeprefix("torch."), c.dtype,
+                  c.validity is not None,
+                  None if c.dictionary is None else list(c.dictionary.values))
+                 for c in out.columns],
+                [name for name, _ in ctx.overflow_flags[flags:]],
+                [(pos.get(nid, -1), name)
+                 for nid, name, _ in (ctx.metrics or [])[metrics:]],
+            )
+        spec = _broadcast_object(mesh, spec, self.assigned_task)
+        if mesh.rank == self.assigned_task:
+            return out
+        names, capacity, cols, flag_names, metric_keys = spec
+        dev = mesh.device
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        ctx.overflow_flags.extend((name, false) for name in flag_names)
+        if ctx.metrics is not None:
+            nodes = ctx.config["nodes"]
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            ctx.metrics.extend((nodes[p].node_id if 0 <= p < len(nodes)
+                                else -1, name, zero)
+                               for p, name in metric_keys)
+        return Table(tuple(names), tuple(
+            Column(torch.zeros(capacity, dtype=getattr(torch, dt),
+                               device=dev),
+                   torch.zeros(capacity, dtype=torch.bool, device=dev)
+                   if valid else None, dtype,
+                   None if values is None
+                   else Dictionary(np.asarray(values, dtype=object)))
+            for dt, dtype, valid, values in cols),
+            torch.zeros((), dtype=torch.int32, device=dev))
 
     def _assigned_arm(self, actx: ExecContext) -> tuple:
         """The arm computed once, on the assigned task's own context

@@ -22,6 +22,10 @@ The distributed planner is ported: ``df.distributed_plan(T)`` and
 verifier's diagnostics, and ``df.collect_distributed_table(1)`` runs the
 one-task staged plan (fused multiway joins included) on the session's
 device; ``df.collect_distributed_table(T)`` runs it over T tasks.
+Under torchrun, ``df.collect_distributed_table(mesh=make_mesh())``
+(runtime/mesh_executor.py) runs it as one SPMD program, one rank a task,
+its exchanges as collectives; every rank builds the same session over the
+same tables and calls the same SQL.
 ``df.collect_coordinated_table(num_tasks=T)`` runs it through the
 coordinator/worker runtime, consulting the whole-result cache first when
 ``SET distributed.result_cache`` is on (``ctx.result_cache()``); the
@@ -46,6 +50,7 @@ from datafusion_distributed_tpu_torch.plan.physical import (
     execute_plan,
 )
 from datafusion_distributed_tpu_torch.runtime.mesh_executor import (
+    execute_on_mesh,
     execute_tasks,
 )
 from datafusion_distributed_tpu_torch.schema import Field, Schema
@@ -548,7 +553,8 @@ class DataFrame:
     # -- the staged (distributed) plan ---------------------------------------
     def distributed_plan(self, num_tasks: int = 8, config=None,
                          planner_config: Optional[PlannerConfig] = None,
-                         executing: bool = False, coordinator=None):
+                         executing: bool = False, coordinator=None,
+                         mesh=None):
         """The staged plan for ``num_tasks`` tasks, verified and cached per
         session. ``config`` (a DistributedConfig) defaults to the session's
         `SET distributed.*` options. ``executing`` marks the plan that
@@ -556,10 +562,13 @@ class DataFrame:
         the same staged path, it is verified for a program over
         ``num_tasks`` tasks, and it is cached apart from the plan that
         EXPLAIN renders (the reference's mesh and mesh-less entries).
-        With ``coordinator`` (`collect_coordinated_table`) the scalar
-        subqueries run through that coordinator instead: f32 sums are only
-        bitwise-reproducible under an identical task split (TPC-H q15
-        compares them for equality)."""
+        With ``mesh`` (a `runtime.mesh_executor.TaskMesh`: the SPMD run)
+        the scalar subqueries run through `execute_on_mesh` on the same
+        mesh, the plan is verified for the mesh's size, and it is cached
+        apart again. With ``coordinator`` (`collect_coordinated_table`) the
+        scalar subqueries run through that coordinator instead: f32 sums
+        are only bitwise-reproducible under an identical task split (TPC-H
+        q15 compares them for equality)."""
         from datafusion_distributed_tpu_torch.plan.verify import (
             enforce_verification,
         )
@@ -589,17 +598,21 @@ class DataFrame:
         )
         verify_kw = dict(
             options=self.ctx.config.distributed_options,
-            mesh_axis_size=cfg.num_tasks if executing else None,
+            mesh_axis_size=(mesh.size if mesh is not None
+                            else cfg.num_tasks if executing else None),
             context="distributed plan",
         )
         key = ("dist", cfg_key, self._pcfg_key(pcfg), executing,
-               coordinator is not None)
+               coordinator is not None, mesh is not None)
         plan = self._plan_cache_get(key)
         if plan is not None:
             enforce_verification(plan, **verify_kw)
             return plan
         subquery_executor = None
-        if executing:
+        if mesh is not None:
+            def subquery_executor(p):
+                return execute_on_mesh(distribute_plan(p, cfg), mesh)
+        elif executing:
             def subquery_executor(p):
                 return execute_tasks(distribute_plan(p, cfg), cfg.num_tasks)
         elif coordinator is not None:
@@ -615,15 +628,31 @@ class DataFrame:
         enforce_verification(plan, **verify_kw)
         return plan
 
-    def collect_distributed_table(self, num_tasks: Optional[int] = None
-                                  ) -> Table:
+    def collect_distributed_table(self, num_tasks: Optional[int] = None,
+                                  mesh=None) -> Table:
         """Run the staged plan for ``num_tasks`` tasks (None: 1, the
         session's one device) on the session's device, every stage at that
         many tasks, with the overflow retry of `collect_table` (shuffle
         capacities widen too). The tasks and the exchanges between them run
         in `runtime/mesh_executor.execute_tasks`; the result is task 0's
-        copy of the replicated root, as on the reference's mesh."""
-        t = 1 if num_tasks is None else int(num_tasks)
+        copy of the replicated root, as on the reference's mesh.
+
+        With ``mesh`` (`runtime.mesh_executor.make_mesh()`, one rank a
+        task over a torch.distributed process group) the plan runs as one
+        SPMD program (`execute_on_mesh`) at the mesh's size (``num_tasks``
+        must then be None or equal to it), and every rank returns the
+        replicated root. The SPMD contract: every rank builds the same
+        session over the same tables and calls the same SQL, so that each
+        plans the same staged plan and reaches the same collectives in the
+        same order. An overflow raises on every rank at once (the flags
+        are reduced across them), so every rank retries together."""
+        if mesh is not None:
+            if num_tasks is not None and int(num_tasks) != mesh.size:
+                raise ValueError(
+                    f"num_tasks={num_tasks} on a mesh of {mesh.size} ranks")
+            t = mesh.size
+        else:
+            t = 1 if num_tasks is None else int(num_tasks)
         if t < 1:
             raise ValueError(f"num_tasks must be at least 1, got {t}")
         pcfg = self.ctx.config.planner
@@ -633,9 +662,11 @@ class DataFrame:
         last_err: Optional[Exception] = None
         for attempt in range(self.ctx.config.overflow_retries + 1):
             try:
-                plan = self.distributed_plan(t, dcfg, pcfg, executing=True)
+                plan = self.distributed_plan(t, dcfg, pcfg, executing=True,
+                                             mesh=mesh)
                 _overflow_retry_guard(plan, attempt, last_err)
-                out = execute_tasks(plan, t)
+                out = (execute_on_mesh(plan, mesh) if mesh is not None
+                       else execute_tasks(plan, t))
                 self.last_retry_count = attempt
                 return out
             except RuntimeError as e:
@@ -651,13 +682,13 @@ class DataFrame:
                 )
         raise last_err  # type: ignore[misc]
 
-    def collect_distributed(self, num_tasks: Optional[int] = None):
+    def collect_distributed(self, num_tasks: Optional[int] = None,
+                            mesh=None):
         """`collect_distributed_table` -> pyarrow Table."""
         from datafusion_distributed_tpu_torch.io.parquet import table_to_arrow
 
-        return table_to_arrow(
-            self._strip_quals(self.collect_distributed_table(num_tasks))
-        )
+        return table_to_arrow(self._strip_quals(
+            self.collect_distributed_table(num_tasks, mesh=mesh)))
 
     def _result_cache_key(self, num_tasks: int):
         """Whole-result cache key for this query at the session's live

@@ -10,7 +10,9 @@ straggling worker and a query under membership churn give the plain
 results, and the card's allocated bytes return to their baseline once
 the cluster is released. A query over four localhost gRPC workers on the
 card, on the default and the shm plane, equals the in-process run. The
-table layer counts each copy it makes between card and host.
+table layer counts each copy it makes between card and host. Two gloo
+ranks sharing the card run q3 as one SPMD program (`execute_on_mesh`),
+byte-identical to the in-process staged run.
 
 This file imports neither jax nor the JAX package, so it also runs where
 they are absent, as on a machine with the card:
@@ -721,3 +723,30 @@ def test_copy_counters_count_each_table_copy(dev):
     # k, s, their validities and the row count
     assert (again["h2d_copies"], again["d2h_copies"]) == (5, 0)
     _assert_same(moved.to_numpy(), t.to_numpy())
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """q3 at SF 0.01 over two gloo ranks on one card (NCCL refuses two
+    ranks on one device, so the group stages its collectives through the
+    host): both ranks return the same table, byte-identical to the
+    in-process `collect_distributed_table(2)` on the card."""
+    import importlib.util
+    from pathlib import Path
+
+    # loaded by path: this file runs with --noconftest, and a site package
+    # named `tests` may shadow the repo's
+    spec = importlib.util.spec_from_file_location(
+        "torch_spmd_rank", Path(__file__).with_name("torch_spmd_rank.py"))
+    ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ranks)
+    res = ranks.run_ranks(
+        2, [{"name": "tpch", "kind": "tpch", "sf": 0.01, "queries": ["q3"],
+             "in_process": True}], tmp_path / "ranks",
+        device=f"cuda:{torch.cuda.current_device()}", timeout_s=300)
+    got = [r["tpch"] for r in res]
+    for r in got:
+        assert "failed" not in r, r.get("traceback")
+    assert got[0]["q3"]["in_process"]["difference"] == ""
+    assert got[0]["q3"]["rows"] == got[1]["q3"]["rows"] > 0
+    _assert_same(got[0]["q3"]["result"], got[1]["q3"]["result"])
