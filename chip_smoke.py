@@ -51,12 +51,15 @@ Phases, each of which must pass:
    peak memory, retries and the plane of every exchange, per query); q3,
    q5, q18 and q21 under each data-plane knob at SF 0.1 (on the bulk
    plane q21 does not fit the card at SF 1), byte-identical; the
-   device-to-host copies of q2 and q3 by Python call stack, on a session
+   device-to-host copies of q3 by Python call stack, on a session
    whose planner statistics are cold and again once they are cached;
    kernels 1
    and 2 at every shape the coordinated runs logged, against their plain
    versions; at SF 0.01 both coordinators on "cuda" against "cpu" (a CPU
-   subprocess that runs meanwhile).
+   subprocess that runs meanwhile); the same four queries at SF 0.1 with
+   the planner's partial-aggregate push-down off, against the default
+   (float sums at test_rtol(), everything else exact, capacities
+   included; warm seconds and exchange bytes of both).
 11. serving — TPC-H SF 1 through ServingSession over InMemoryCluster(4)
    at 4 tasks: each query served alone (admission estimate, measured
    peak staged bytes, allocator peak); a closed loop of 8 clients (client
@@ -65,13 +68,13 @@ Phases, each of which must pass:
    result byte-identical to the sequential coordinated run; the result
    cache off and on over 32 seeded Poisson arrivals of q1 and three q6
    variants (hit rate, p99; a hit is the cold run's table); a prepared
-   q6 through PreparedStatement.submit; q18 and q21 under a worker memory
-   budget below their peak (spill count and bytes, byte-identical); q3
+   q6 through PreparedStatement.submit; q18 under a worker memory
+   budget below its peak (spill count and bytes, byte-identical); q3
    killed at its root stage and recover()ed from its checkpoints; kernels
    1 and 2 at every logged shape; at SF 0.01 five served queries on
    "cuda" against "cpu" (a CPU subprocess that runs meanwhile).
 12. resilience — TPC-H SF 1 through Coordinator over DynamicCluster(4) at
-   4 tasks: q1, q3, q5, q9, q18 and q21 with and without a sticky 2 s
+   4 tasks: q3, q9, q18 and q21 with and without a sticky 2 s
    straggler on one worker, hedging off and on (warm wall per query, hedge
    counters, hedges in flight, the latency sketch's p99), each equal to
    single-node; q3, q9 and q21 under a leave, a join and a drain with
@@ -82,10 +85,15 @@ Phases, each of which must pass:
    read through the ObservabilityService; q3 resumed from checkpoints
    after a worker holding them left; kernels 1, 2 and 3 at every logged
    shape; at SF 0.01 churned q3 and hedged q1 on "cuda" against "cpu" (a
-   CPU subprocess that runs meanwhile).
+   CPU subprocess that runs meanwhile); the leak arms: the serving tier's
+   served q1/q6/q3 mix, q3 churned and q3 hedged over the straggler, at
+   SF 0.1, cold then warm, in a subprocess with the leak harness armed
+   through DFTPU_LEAK_CHECK=strict and in one with DFTPU_LEAK_CHECK=0
+   (survivors swept, which must be 0; what the harness tracked; its cost
+   in warm seconds per arm).
 13. wire — coordinated TPC-H over real 127.0.0.1 gRPC sockets
    (start_localhost_cluster(4): four gRPC servers in this process, every
-   worker on the card) at 4 tasks: q1, q3, q5, q9, q18 and q21 at SF 1,
+   worker on the card) at 4 tasks: q1, q3, q5, q9 and q18 at SF 1,
    cold then warm, over gRPC and over InMemoryCluster(4) on the same
    session (warm seconds of both; device-to-host and host-to-device bytes,
    copies and GB/s; wire bytes before and after compression; SetPlan bytes
@@ -125,7 +133,7 @@ Phases, each of which must pass:
    mesh workers, each equal to single-node; the card's allocated bytes
    before the cluster, after the runs and after its release, and what
    workers that keep their last spans (as the JAX package's do) hold
-   after each query of the warm mix; kernels 1, 2 and 3 at every logged
+   after q3 and q9 of the warm mix; kernels 1, 2 and 3 at every logged
    shape.
 16. spmd — the SPMD tier: four rank processes of this script form a
    gloo group on the card (NCCL refuses two ranks on one device), each
@@ -146,9 +154,12 @@ Phases, each of which must pass:
    `hits`'s int64 keys through the (lo, hi) lane split, up to 2^28 slots),
    bit-exact against their plain versions; the 43 queries over 8 tasks on
    its first 2^26 rows (8 tasks' buffers on one card do not fit at the
-   full size), cold and warm, against single-node on those rows, and
-   kernels 1 and 2 at their shapes; and at 20,000 rows on "cuda" against
-   "cpu", results and the staged plans for 8 tasks.
+   full size), once each after their single-node runs, against
+   single-node on those rows, and
+   kernels 1 and 2 at their shapes; at 20,000 rows on "cuda" against
+   "cpu", results and the staged plans for 8 tasks; and, in the same x64
+   process, TPC-H q3 and q18 at SF 0.1 through the coordinator over
+   InMemoryCluster(4), cold then warm, against single-node.
 
 The check phase also runs q22 and q13 over `orders` without the customers
 whose key is divisible by 3, card against CPU (7 and 22 rows at SF 0.01).
@@ -1696,8 +1707,9 @@ COORD_KERNELS = ("build_group_ids", "multiway_probe")
 COORD_ADAPTIVE_SF = 0.1
 #: the queries whose device-to-host copies are traced to their Python
 #: call stacks (the copies of ~5 MB a query that static coordinated runs
-#: of these showed)
-COORD_D2H_TRACED = ("q2", "q3")
+#: of q2 and q3 showed; q2's copies came from the same stacks as q3's, so
+#: only q3 is traced, and the time went to the leak arms)
+COORD_D2H_TRACED = ("q3",)
 COORD_CPU_TIMEOUT_S = 600
 
 
@@ -1730,6 +1742,50 @@ def _coordinated(ctx, sql: str, adaptive: bool, cluster, opts=None,
               f"worker {w.url} kept {len(w.table_store.tables)} staged "
               f"tables and {len(w.registry)} tasks after the query")
     return out, coord, df
+
+
+def _pushdown_arm(ctx, sql: str, cluster, on: bool) -> dict:
+    """``sql`` coordinated with the planner's partial-aggregate push-down
+    (the session option `distributed.partial_agg_pushdown`) on or off:
+    cold then warm on the default plane (the warm result, its capacity and
+    row count, both walls), then once on the peerless plane
+    (`peer_shuffle=False`), where the coordinator measures the bytes each
+    shuffle moved and records the planner's predicted bytes beside them."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator,
+    )
+
+    opts = ctx.config.distributed_options
+    opts["partial_agg_pushdown"] = on
+    try:
+        out: dict = {}
+        for run in ("cold", "warm"):
+            coord = Coordinator(resolver=cluster, channels=cluster,
+                                config_options=ctx.config.distributed_snapshot())
+            t0 = time.perf_counter()
+            table = ctx.sql(sql).collect_coordinated_table(
+                coordinator=coord, num_tasks=COORD_TASKS)
+            result = table.to_numpy()
+            torch.cuda.synchronize()
+            out[f"{run}_s"] = time.perf_counter() - t0
+        out.update(result=result, capacity=table.capacity,
+                   rows=int(table.num_rows))
+        _res, coord, _df = _coordinated(ctx, sql, False, cluster,
+                                        {"peer_shuffle": False})
+        metrics = coord.stream_metrics.values()
+        out["exchange_bytes"] = sum(v.get("exchange_bytes", 0)
+                                    for v in metrics)
+        out["predicted_bytes"] = sum(v.get("predicted_exchange_bytes", 0)
+                                     for v in metrics)
+    finally:
+        opts.pop("partial_agg_pushdown", None)
+    for w in cluster.workers.values():
+        check(not w.table_store.tables and len(w.registry) == 0,
+              f"worker {w.url} kept staged tables or tasks after the "
+              "push-down arm")
+    return out
 
 
 def _planes(coord) -> dict:
@@ -1905,7 +1961,7 @@ def coord_cpu_worker(sf: float, out_path: str) -> int:
 
 
 def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
-    """0. q2 and q3's device-to-host copies by call stack (COORD_D2H_TRACED).
+    """0. The device-to-host copies of COORD_D2H_TRACED by call stack.
     1. The 22 queries, S1 and S2 through collect_coordinated_table(
     num_tasks=4) over InMemoryCluster(4), with Coordinator and then
     AdaptiveCoordinator (at SF COORD_ADAPTIVE_SF), twice each: the runs byte-identical, each equal to
@@ -1917,7 +1973,11 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
     one single-node run, sync calls (PyTorch's sync debug mode) and
     device-to-host bytes (the profiler's CUDA activity).
     2. q3, q5, q18 and q21 under each knob variant of COORD_KNOBS, static,
-    at SF COORD_KNOB_SF: byte-identical to the default run.
+    at SF COORD_KNOB_SF: byte-identical to the default run; then with the
+    planner's partial-aggregate push-down off, against the default: float
+    sums at test_rtol(), everything else exactly, capacities and row
+    counts included, with warm seconds and the peerless plane's measured
+    exchange bytes of both.
     3. Kernels 1 and 2 at every build and probe shape the coordinated runs
     logged, bit for bit against their plain versions.
     4. At SF ``check_sf``: both coordinators on the card against the CPU
@@ -1949,7 +2009,7 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
     runs: dict = {}
     by_mode: dict = {}
     _log_d2h_event()
-    # what copies ~5 MB to the host in the first static run of q2 and q3:
+    # what copies ~5 MB to the host in the first static run of q3 (and q2):
     # each query on a fresh session (cold planner statistics, as in the
     # measured run below), its synchronizing calls' stacks, the
     # statistics' samples, then the device-to-host bytes (the profiler's
@@ -2045,8 +2105,29 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
             check(_identical(got, default), f"{q}: {name} differs from "
                   f"the default coordinated run at SF {COORD_KNOB_SF}")
             knobs[f"{q} {name}"] = _planes(coord)
-    del knob_ctx
     log(f"[coordinator] knob variants byte-identical: {knobs} "
+        f"({_since(t_phase)})")
+    # the planner's push-down off: float sums at rtol (the partial/final
+    # merge reassociates them), everything else exact, capacities included
+    pushdown: dict = {}
+    for q, sql in _queries(COORD_KNOB_QUERIES):
+        on = _pushdown_arm(knob_ctx, sql, cluster, True)
+        off = _pushdown_arm(knob_ctx, sql, cluster, False)
+        diff = _close(off["result"], on["result"], rtol)
+        check(diff == "", f"{q}: partial_agg_pushdown=false differs from "
+              f"the default coordinated run in {diff}")
+        check((off["capacity"], off["rows"]) == (on["capacity"], on["rows"]),
+              f"{q}: partial_agg_pushdown=false gives capacity "
+              f"{off['capacity']} and {off['rows']} rows, the default "
+              f"{on['capacity']} and {on['rows']}")
+        pushdown[q] = {
+            arm: {k: v for k, v in r.items() if k != "result"}
+            for arm, r in (("default", on), ("partial_agg_pushdown=false",
+                                             off))}
+        pushdown[q]["identical"] = _identical(off["result"], on["result"])
+        log(f"[coordinator] {q} at SF {COORD_KNOB_SF}: {pushdown[q]}")
+    del knob_ctx
+    log(f"[coordinator] partial_agg_pushdown=false equals the default "
         f"({_since(t_phase)})")
     del ctx, runs, cut
     torch.cuda.empty_cache()
@@ -2087,6 +2168,7 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
 
     return {
         "queries": per_query, "ties": ties, "knobs": knobs, "d2h": d2h,
+        "pushdown": pushdown,
         "adaptive_sf": COORD_ADAPTIVE_SF,
         "launches": by_mode["static"]["launches"],
         "adaptive_launches": by_mode["adaptive"]["launches"],
@@ -2137,7 +2219,10 @@ SERVING_BURST_SEED = 11
 SERVING_Q6_BINDINGS = ({"qty": 24, "lo": 0.05, "hi": 0.07},
                        {"qty": 30, "lo": 0.02, "hi": 0.09},
                        {"qty": 10, "lo": 0.04, "hi": 0.06})
-SERVING_BUDGET_QUERIES = ("q18", "q21")
+#: (with q21 beside q18, 3.5 GB spilled in 20 s of the phase; the budget,
+#: half q18's peak, is the same without it, and the time went to the leak
+#: arms)
+SERVING_BUDGET_QUERIES = ("q18",)
 SERVING_SOLO = ("q1", "q6", "q21", "q3", "q18")
 SERVING_CHECK_QUERIES = ("q1", "q3", "q6", "q18", "q21")
 #: a handle that does not resolve within this many seconds fails the phase
@@ -2349,8 +2434,9 @@ def phase_serving(sf: float, check_sf: float, seed: int) -> dict:
     table itself; every result byte-identical to the cache-off run of its
     variant. A prepared q6 through PreparedStatement.submit, three
     bindings, each equal to its execute().
-    4. q18 and q21 under a worker memory budget of half the smaller of
-    their unconstrained peak staged bytes: spill engages (count, bytes),
+    4. SERVING_BUDGET_QUERIES under a worker memory budget of half the
+    smaller of their unconstrained peak staged bytes: spill engages
+    (count, bytes),
     results byte-identical, no spill file and no staged slice left.
     5. q3 killed at its root stage with a CheckpointStore, then recover()
     on a fresh ServingSession over the same workers: stages restore, the
@@ -2358,7 +2444,9 @@ def phase_serving(sf: float, check_sf: float, seed: int) -> dict:
     6. Kernels 1 and 2 at every build and probe shape the phase logged,
     bit for bit against their plain versions.
     7. At SF ``check_sf`` SERVING_CHECK_QUERIES served on the card against
-    the CPU (a subprocess that runs meanwhile)."""
+    the CPU (a subprocess that runs meanwhile).
+    (The served mix runs with the leak harness armed in the resilience
+    phase's `leak_arms`.)"""
     cpu_out = Path(tempfile.mkdtemp()) / "serving_cpu.pkl"
     cpu_worker = subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()),
@@ -2628,7 +2716,9 @@ def _serving_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
 
 RESILIENCE_WORKERS = 4
 RESILIENCE_TASKS = 4
-RESILIENCE_HEDGE_QUERIES = ("q1", "q3", "q5", "q9", "q18", "q21")
+#: (q1 and q5 in the four arms took ~20 s of the phase, which went to the
+#: leak arms; the straggler costs them the same 2 s as q3 and q18)
+RESILIENCE_HEDGE_QUERIES = ("q3", "q9", "q18", "q21")
 #: the worker-pinned sticky straggler the hedger exists for
 RESILIENCE_STRAGGLER = {"site": "execute", "kind": "straggler",
                         "delay_s": 2.0, "rate": 1.0,
@@ -2739,6 +2829,137 @@ def _fanned_session(device: str, sf: float, seed: int):
     return ctx
 
 
+#: the arms that run with the port's leak harness armed through its switch
+#: (DFTPU_LEAK_CHECK=strict: a tracked resource alive at its query's end
+#: raises) and unarmed (=0), each setting in a subprocess of its own, since
+#: the package arms the harness at import: the serving tier's served mix
+#: (RESILIENCE_SERVED), and the churn and straggler-with-hedging arms of
+#: this phase, each cold then warm, at this scale (the subprocess generates
+#: its own tables). One pair of subprocesses runs all three: a pair takes
+#: ~36 s on the card, most of it process start and table generation.
+LEAK_SF = 0.1
+LEAK_QUERY = "q3"  # the churned and the hedged query
+LEAK_ARMS = ("served", "churn", "hedging")
+LEAK_TIMEOUT_S = 300
+
+
+def leakcheck_worker(out_path: str) -> int:
+    """The arms of LEAK_ARMS on the card at SF LEAK_SF, cold then
+    warm, each result equal to single-node, under whatever DFTPU_LEAK_CHECK
+    the environment sets (the package arms the harness at import). Writes
+    the walls, the survivors the harness swept and what it tracked as JSON;
+    under strict a survivor raises at its query's end and fails the
+    worker."""
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.runtime import leakcheck
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.serving import (
+        ServingSession,
+    )
+
+    mode = os.environ.get("DFTPU_LEAK_CHECK", "0")
+    check(leakcheck.enabled() == (mode not in ("", "0")),
+          f"DFTPU_LEAK_CHECK={mode}: harness installed "
+          f"{leakcheck.enabled()}")
+    check(leakcheck.strict() == (mode.lower() == "strict"),
+          f"DFTPU_LEAK_CHECK={mode}: strict {leakcheck.strict()}")
+    rtol = precision.test_rtol()
+    ctx = _fanned_session("cuda", LEAK_SF, SEED)
+    sqls = dict(_queries(sorted(set(RESILIENCE_SERVED) | {LEAK_QUERY})))
+    want = {q: _run(ctx, sql) for q, sql in sqls.items()}
+
+    def served() -> list:
+        cluster = InMemoryCluster(RESILIENCE_WORKERS)
+        with ServingSession(ctx, cluster=cluster,
+                            num_tasks=RESILIENCE_TASKS) as srv:
+            handles = [(q, srv.submit(sqls[q])) for q in RESILIENCE_SERVED]
+            got = [(q, _served(h)) for q, h in handles]
+        _serving_leaks(cluster, "the served leak arm")
+        return got
+
+    def churn() -> list:
+        r = _churned(ctx, sqls[LEAK_QUERY], SEED)
+        check(r["leaked"] == 0 and r["drained"],
+              f"churned {LEAK_QUERY}: {r['leaked']} staged entries left, "
+              f"drained {r['drained']}")
+        return [(LEAK_QUERY, r["result"])]
+
+    hedged = _hedge_arm(ctx, SEED, True, RESILIENCE_HEDGE_KNOBS)
+
+    def hedging() -> list:
+        return [(LEAK_QUERY, hedged(sqls[LEAK_QUERY]))]
+
+    arms = {"served": served, "churn": churn, "hedging": hedging}
+    out: dict = {"mode": mode, "installed": leakcheck.enabled(),
+                 "strict": leakcheck.strict(), "sf": LEAK_SF, "arms": {}}
+    for arm in LEAK_ARMS:
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = arms[arm]()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            for q, g in got:
+                diff, _tied = _close_or_ties(g, want[q], rtol)
+                check(diff == "", f"{arm} {q} differs from single-node in "
+                      f"{diff}")
+        out["arms"][arm] = {"cold_s": walls[0], "warm_s": walls[1],
+                            "queries": len(got)}
+    faults = hedged.coord.faults.as_dict()
+    check(faults.get("hedges_issued", 0) >= 1,
+          f"the hedged leak arm issued no hedge: {faults}")
+    rep = leakcheck.report(include_static=False)
+    out.update(
+        swept=len(rep["leaks"]),
+        live_attributed=sum(1 for r in rep["live"]
+                            if r["query_id"] is not None),
+        live=len(rep["live"]), counts=rep["counts"],
+        unmatched_releases=rep["unmatched_releases"])
+    check(out["swept"] == 0 and out["live_attributed"] == 0,
+          f"the leak harness swept {out['swept']} survivors and still "
+          f"tracks {out['live_attributed']} resources of finished queries")
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def leak_arms() -> dict:
+    """LEAK_ARMS in a subprocess unarmed (DFTPU_LEAK_CHECK=0), then in one
+    armed strict: -> both reports and the harness's cost, the armed warm
+    seconds over the unarmed ones, per arm. A survivor, a wrong result or
+    a subprocess that fails fails the phase."""
+    runs = {}
+    for mode in ("0", "strict"):
+        out_path = Path(tempfile.mkdtemp()) / "leak_worker.json"
+        env = dict(os.environ, DFTPU_LEAK_CHECK=mode)
+        env.pop("DFTPU_LEAK_CHECK_ARTIFACT", None)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--leakcheck-worker", "--out", str(out_path)],
+            stdout=subprocess.DEVNULL, env=env, timeout=LEAK_TIMEOUT_S)
+        check(proc.returncode == 0, f"the leak arms "
+              f"(DFTPU_LEAK_CHECK={mode}) exited {proc.returncode}")
+        runs[mode] = {**json.loads(out_path.read_text()),
+                      "process_s": time.perf_counter() - t0}
+    armed, plain = runs["strict"], runs["0"]
+    check(armed["installed"] and armed["strict"] and not plain["installed"],
+          f"the switch: armed {armed['installed']}/{armed['strict']}, "
+          f"unarmed {plain['installed']}")
+    cost = {arm: armed["arms"][arm]["warm_s"] / plain["arms"][arm]["warm_s"]
+            for arm in armed["arms"]}
+    log(f"[resilience] leak harness armed (DFTPU_LEAK_CHECK=strict) against "
+        f"unarmed at SF {LEAK_SF}: swept {armed['swept']} survivors, "
+        f"tracked {armed['counts']}; warm armed/unarmed {cost}; "
+        f"armed {armed['arms']}, unarmed {plain['arms']}")
+    return {"armed": armed, "unarmed": plain, "cost": cost,
+            "swept": armed["swept"]}
+
+
 def resilience_cpu_worker(sf: float, out_path: str) -> int:
     """The CPU's side of the resilience phase's card-against-CPU check at
     SF ``sf``: q3 under the churn schedule (with its fired membership
@@ -2846,7 +3067,13 @@ def phase_resilience(sf: float, check_sf: float, seed: int) -> dict:
     5. At SF ``check_sf`` q3 churned and q1 hedged against the CPU (a
     subprocess that runs meanwhile).
     6. Kernels 1, 2 and 3 at every shape the phase logged, bit for bit
-    against their plain versions."""
+    against their plain versions.
+    7. The leak arms (`leak_arms`), at SF LEAK_SF, cold then warm: the
+    serving tier's served mix RESILIENCE_SERVED, LEAK_QUERY churned as in
+    2 and hedged over the straggler as in 1, in a subprocess with the leak
+    harness armed strict through DFTPU_LEAK_CHECK and in one unarmed: no
+    survivor swept, each result equal to single-node, the harness's cost
+    per arm."""
     cpu_out = Path(tempfile.mkdtemp()) / "resilience_cpu.pkl"
     cpu_worker = subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()),
@@ -2989,9 +3216,10 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
         if r["allocated_after"] != r["allocated_before"]]
 
     # --- 3. serving under chaos and churn ---------------------------------
-    served_base = {q: plain.get(q) for q in set(RESILIENCE_SERVED)}
-    served_base["q6"] = _coordinated(ctx, sqls["q6"], False,
-                                     DynamicCluster(RESILIENCE_WORKERS))[0]
+    served_base = {
+        q: plain[q] if q in plain else _coordinated(
+            ctx, sqls[q], False, DynamicCluster(RESILIENCE_WORKERS))[0]
+        for q in set(RESILIENCE_SERVED)}
     cluster = DynamicCluster(RESILIENCE_WORKERS)
     urls = cluster.get_urls()
     plan = chaos.FaultPlan(seed, [
@@ -3129,6 +3357,10 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
     }
     out["shapes"] = {k: len(v) for k, v in shapes.items()}
     log(f"[resilience] shapes checked: {out['shapes']} ({_since(t_phase)})")
+
+    # --- 7. churn and hedging with the leak harness armed and unarmed ------
+    out["leak"] = leak_arms()
+    log(f"[resilience] leak arms done ({_since(t_phase)})")
     return out
 
 
@@ -3139,8 +3371,10 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
 WIRE_WORKERS = 4
 WIRE_TASKS = 4
 #: the SF 1 arm: scans, the five-way join, the six-way join, the big GROUP
-#: BY, the anti-join (the resilience phase's queries)
-WIRE_QUERIES = ("q1", "q3", "q5", "q9", "q18", "q21")
+#: BY (the mesh phase's queries but q21: its SF 1 runs over gRPC took
+#: 64.0 s of a 153.4 s phase on the card, and that time went to the leak
+#: arms; q21 still crosses the wire at WIRE_KNOB_SF, on shm)
+WIRE_QUERIES = ("q1", "q3", "q5", "q9", "q18")
 #: the plane and codec variants, at WIRE_KNOB_SF
 #: (q5's and q18's variants, 3.8 s on the card, went to the spmd phase:
 #: q18's exchanges take no partition stream at SF 0.1, and q5's planes
@@ -4075,7 +4309,11 @@ def phase_tools(sf: float, seed: int) -> dict:
 MESH_WORKERS = 2  # mesh workers of the cluster
 MESH_WIDTH = 4  # local tasks (devices) a worker
 MESH_TASKS = 8  # tasks a stage: one span of 4 on each worker
-MESH_QUERIES = RESILIENCE_HEDGE_QUERIES  # the resilience and wire cells' mix
+#: scans, the five- and six-way joins, the big GROUP BY, the anti-join
+MESH_QUERIES = ("q1", "q3", "q5", "q9", "q18", "q21")
+#: the queries rerun over workers that keep their spans, as the JAX
+#: package's do (the retention peaks at q9, 21.3 GB after it on the card)
+MESH_KEPT_QUERIES = ("q3", "q9")
 MESH_ALL_SF = 0.1  # all 22 queries over the mesh workers
 
 
@@ -4143,9 +4381,10 @@ def phase_mesh(sf: float, seed: int) -> dict:
     2. All 22 queries at SF MESH_ALL_SF over the mesh workers, each equal
     to single-node.
     3. The card's allocated bytes before the cluster, after the runs and
-    after the cluster is released; then the warm mix once more over mesh
-    workers that keep their last spans as the JAX package's do (no release
-    when a span's tasks are gone): the bytes they hold after each query.
+    after the cluster is released; then MESH_KEPT_QUERIES once more over
+    mesh workers that keep their last spans as the JAX package's do (no
+    release when a span's tasks are gone): the bytes they hold after each
+    query.
     4. Kernels 1, 2 and 3 at every shape the phase logged (the
     single-node reference runs excluded), bit for bit against their plain
     versions; kernel 3's launches are reported by part."""
@@ -4279,8 +4518,8 @@ def phase_mesh(sf: float, seed: int) -> dict:
         kw.registry.on_evict = functools.partial(Worker._on_task_evict, kw)
     del kw
     retained = {}
-    for q, sql in sqls.items():
-        got = _mesh_coordinated(ctx, sql, kept, spans_kept=True)
+    for q in MESH_KEPT_QUERIES:
+        got = _mesh_coordinated(ctx, sqls[q], kept, spans_kept=True)
         diff, _tied = _close_or_ties(got, single[q], rtol)
         check(diff == "", f"{q} with spans kept differs from single-node "
               f"in {diff}")
@@ -4325,7 +4564,7 @@ def phase_mesh(sf: float, seed: int) -> dict:
 
 SPMD_RANKS = 4  # gloo ranks on the one card: NCCL refuses two on one device
 SPMD_ALL_SF = 0.1  # (a) all 22 queries
-SPMD_QUERIES = RESILIENCE_HEDGE_QUERIES  # (b) over the ranks, (c) on NCCL
+SPMD_QUERIES = MESH_QUERIES  # (b) over the ranks, (c) on NCCL
 SPMD_COLLECTIVE_TIMEOUT_S = 240  # every group's collectives
 SPMD_TIMEOUT_S = 300  # the ranks' wall, startup included
 
@@ -4859,6 +5098,9 @@ def clickbench_worker(out_path: str) -> int:
     log(f"[clickbench] {CLICKBENCH_CHECK_ROWS} rows: {len(queries)} queries "
         "equal on cuda and cpu, and so are their staged plans for "
         f"{STAGED_CLICKBENCH_TASKS} tasks")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    x64_coordinated = _x64_coordinated()
     Path(out_path).write_text(json.dumps({
         "rows": rows, "setup_s": setup_s, "max_slots": slots,
         "overflow_retries": CLICKBENCH_RETRIES,
@@ -4868,9 +5110,53 @@ def clickbench_worker(out_path: str) -> int:
         "kernel_checks": kernel_checks,
         "warm_s": sum(v["second_s"] for v in per_query.values()),
         "peak_device_gb": peak_dev / 1e9, "peak_host_gb": peak_host / 1e9,
-        "t8": t8,
+        "t8": t8, "x64_coordinated": x64_coordinated,
     }))
     return 0
+
+
+#: the coordinated tier in x64 mode: these TPC-H queries over
+#: COORD_WORKERS in-memory workers at COORD_TASKS tasks, at this scale,
+#: each against its own single-node result (in the ClickBench worker, the
+#: run's x64 process)
+X64_COORD_QUERIES = ("q3", "q18")
+X64_COORD_SF = 0.1
+
+
+def _x64_coordinated() -> dict:
+    """X64_COORD_QUERIES through collect_coordinated_table(num_tasks=4)
+    over InMemoryCluster(4) at SF X64_COORD_SF in the process's x64 mode,
+    cold then warm, both equal to single-node (exactly, and at
+    test_rtol() where the sums were reassociated)."""
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+
+    check(precision.MODE == "x64", f"precision mode {precision.MODE}")
+    rtol = precision.test_rtol()
+    ctx = _session("cuda", X64_COORD_SF, SEED)
+    cluster = InMemoryCluster(COORD_WORKERS)
+    out = {}
+    for q, sql in _queries(X64_COORD_QUERIES):
+        t0 = time.perf_counter()
+        single = _run(ctx, sql)
+        single_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = _coordinated(ctx, sql, False, cluster)[0]
+            walls.append(time.perf_counter() - t0)
+            diff, tied = _close_or_ties(got, single, rtol)
+            check(diff == "", f"{q} coordinated in x64 mode differs from "
+                  f"single-node in {diff}")
+        out[q] = {"identical": _identical(got, single), "tied": tied,
+                  "cold_s": walls[0], "warm_s": walls[1],
+                  "single_s": single_s}
+        log(f"[clickbench] x64 coordinated {q} at SF {X64_COORD_SF} over "
+            f"{COORD_WORKERS} workers: {out[q]}")
+    _TABLES.pop(("cuda", X64_COORD_SF, SEED), None)
+    return out
 
 
 def _row_prefix(table, rows: int, device):
@@ -4895,11 +5181,14 @@ def _on_device(table, device, rows=None):
 
 
 def _clickbench_tasks(hits, queries, checked: set) -> dict:
-    """The 43 queries over 8 tasks on ``hits``, cold then warm, each held
-    against the same session's single-node result (a LIMIT query on its
-    ORDER BY columns); then kernels 1 and 2 at every shape the run logged
-    and not in ``checked`` (shapes the full-size run already held),
-    against their plain versions."""
+    """The 43 queries over 8 tasks on ``hits``, once each after the same
+    session's single-node runs (so the data is on the card and only the
+    staged plan is new), each held against the single-node result (a LIMIT
+    query on its ORDER BY columns); then kernels 1 and 2 at every shape
+    the run logged and not in ``checked`` (shapes the full-size run
+    already held), against their plain versions. (No cold pass over 8
+    tasks runs first: it took as long as this one, 26 s on the card, and
+    was compared with nothing.)"""
     import torch
 
     from datafusion_distributed_tpu_torch import precision
@@ -4922,26 +5211,17 @@ def _clickbench_tasks(hits, queries, checked: set) -> dict:
         single[q] = _run(ctx, sql)
         single_s[q] = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     hk.reset_launch_counts()
     t8: dict = {}
-    for q, sql in queries:
-        t0 = time.perf_counter()
-        _collect_tasks(ctx.sql(sql), TASKS)
-        t8[q] = {"cold_s": time.perf_counter() - t0}
-        log(f"[clickbench] {q} T={TASKS} cold: {t8[q]['cold_s']:.3f}s, "
-            f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    cold_peak = torch.cuda.max_memory_allocated()
     limit_cut = {}
     for q, sql in queries:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         df = ctx.sql(sql)
         got = _collect_tasks(df, TASKS)
-        t8[q].update(warm_s=time.perf_counter() - t0,
-                     single_s=single_s[q], retries=df.last_retry_count,
-                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        t8[q] = {"s": time.perf_counter() - t0, "single_s": single_s[q],
+                 "retries": df.last_retry_count,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         keys = _limit_keys(sql)
         ref = single[q]
         if keys is not None:
@@ -4964,8 +5244,8 @@ def _clickbench_tasks(hits, queries, checked: set) -> dict:
               f"kernel {k} was not launched by ClickBench at T={TASKS}")
     builds, probes = kernel_shapes(hk, f"clickbench T={TASKS}")
     peak = max(v["peak_gb"] for v in t8.values())
-    log(f"[clickbench] T={TASKS}, {rows} rows: warm "
-        f"{sum(v['warm_s'] for v in t8.values()):.3f}s, peak {peak:.2f} GB; "
+    log(f"[clickbench] T={TASKS}, {rows} rows: "
+        f"{sum(v['s'] for v in t8.values()):.3f}s, peak {peak:.2f} GB; "
         f"LIMIT queries compared on their ORDER BY columns: {limit_cut}")
     del ctx, single
     torch.cuda.empty_cache()
@@ -4977,10 +5257,9 @@ def _clickbench_tasks(hits, queries, checked: set) -> dict:
     return {"rows": rows, "queries": t8, "launches": launches,
             "build_shapes": builds, "probe_shapes": probes,
             "kernel_checks": checks,
-            "warm_s": sum(v["warm_s"] for v in t8.values()),
+            "s": sum(v["s"] for v in t8.values()),
             "single_s": sum(single_s.values()),
-            "cold_s": sum(v["cold_s"] for v in t8.values()),
-            "peak_device_gb": peak, "cold_peak_device_gb": cold_peak / 1e9,
+            "peak_device_gb": peak,
             "limit_keys": limit_cut}
 
 
@@ -5200,6 +5479,8 @@ def main(argv=None) -> int:
                     metavar="SF", help=argparse.SUPPRESS)
     ap.add_argument("--crash-worker", type=float, default=None,
                     metavar="SF", help=argparse.SUPPRESS)
+    ap.add_argument("--leakcheck-worker", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--spmd-rank", nargs=2, default=None,
                     metavar=("JOB", "RANK"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -5228,6 +5509,8 @@ def main(argv=None) -> int:
         return lockcheck_worker(args.lockcheck_worker, args.out)
     if args.crash_worker is not None:
         return crash_worker(args.crash_worker, args.out)
+    if args.leakcheck_worker:
+        return leakcheck_worker(args.out)
     if args.spmd_rank is not None:
         return spmd_rank(args.spmd_rank[0], int(args.spmd_rank[1]))
     if args.clickbench_worker:
@@ -5492,8 +5775,8 @@ def main(argv=None) -> int:
             **{k: cb[k] for k in ("rows", "setup_s", "warm_s",
                                   "peak_device_gb", "peak_host_gb")},
             "t8": {k: cb["t8"][k] for k in (
-                "rows", "warm_s", "single_s", "cold_s", "peak_device_gb",
-                "cold_peak_device_gb")}}}))
+                "rows", "s", "single_s", "peak_device_gb")},
+            "x64_coordinated": cb["x64_coordinated"]}}))
     print(json.dumps({"kernels": kernels}))
     print(results["card"])
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,19 @@ if _os.environ.get("DFTPU_LOCK_CHECK", "0") not in ("", "0"):
 
     _lockcheck.install()
 
+# Runtime resource-leak harness (runtime/leakcheck.py), the dynamic half of
+# the resource model that tools/check_resource_lifecycle.py checks
+# statically: installed under DFTPU_LEAK_CHECK=1 (or =strict, where a
+# survivor at query end raises), before any submodule import, so every
+# tracked acquisition (store entries, spill slots, shm segments, stream
+# pullers, checkpoint slices, result-cache entries) is witnessed.
+if _os.environ.get("DFTPU_LEAK_CHECK", "0") not in ("", "0"):
+    from datafusion_distributed_tpu_torch.runtime import (
+        leakcheck as _leakcheck,
+    )
+
+    _leakcheck.install()
+
 # Load libarrow on the importing thread. Arrow's default memory pool is the
 # mimalloc bundled in pyarrow, and mimalloc takes the thread that loads the
 # library for the process's main thread. The port imports pyarrow lazily,

@@ -32,8 +32,9 @@ schedules:
   query-scoped state).
 - ``report()`` / the ``DFTPU_LEAK_CHECK_ARTIFACT=<path>`` atexit dump
   merge the observed live/leaked sets with the DECLARED static model
-  (loaded from tools/check_resource_lifecycle.py when available), the
-  same merged-artifact shape lockcheck uses for lock edges.
+  (tools/check_resource_lifecycle.py run over this package's files when
+  the repo checkout is there), the same merged-artifact shape lockcheck
+  uses for lock edges.
 
 Zero-dependency on purpose: stdlib only, so the package ``__init__``
 can install it before any other submodule import.
@@ -283,9 +284,12 @@ def assert_clean(exclude_unattributed: bool = False) -> None:
 
 
 def _static_model():
-    """The DECLARED model from tools/check_resource_lifecycle.py, or
-    None outside a repo checkout — same importlib-spec loading seam
-    lockcheck uses for the static lock graph."""
+    """The DECLARED model that tools/check_resource_lifecycle.py builds
+    over this package's files, or None outside a repo checkout (same
+    importlib-spec loading seam lockcheck uses for the static lock graph).
+    Without ``files`` the tool would model the reference package. Each
+    kind also lists ``modules``: the files that declare its acquirers and
+    releasers."""
     path = os.path.join(_REPO_ROOT, "tools",
                         "check_resource_lifecycle.py")
     if not os.path.exists(path):
@@ -293,6 +297,10 @@ def _static_model():
     try:
         import importlib.util
         import sys
+
+        from datafusion_distributed_tpu_torch.runtime.lockcheck import (
+            _package_files,
+        )
 
         spec = importlib.util.spec_from_file_location(
             "_dftpu_resource_lint", path
@@ -303,11 +311,21 @@ def _static_model():
         sys.modules["_dftpu_resource_lint"] = mod
         try:
             spec.loader.exec_module(mod)
-            return mod.declared_model_json()
+            model = mod.build_model(files=_package_files())
+            kinds = mod.declared_model_json(model)
         finally:
             sys.modules.pop("_dftpu_resource_lint", None)
     except Exception:
         return None
+    where: dict = {}
+    for relpath, name in model.manager_classes | model.manager_funcs:
+        where.setdefault(name, set()).add(relpath.replace(os.sep, "/"))
+    for k in kinds.values():
+        k["modules"] = sorted(
+            {p for owner in k["acquirers"] + k["releasers"]
+             for p in where.get(owner.split(".")[0], ())}
+        )
+    return kinds
 
 
 def report(include_static: bool = True) -> dict:

@@ -474,3 +474,184 @@ def test_prepared_statement_execute_coordinated(env):
                                                  num_tasks=NT)
     assert a.equals(b)
     assert a.num_rows == 1
+
+
+# ---------------------------------------------------------------------------
+# the tiers above the coordinator, in x64 mode
+# ---------------------------------------------------------------------------
+
+
+def _x64_churned(P, ctx, q):
+    """``q`` over three workers under tests/test_torch_elasticity.py's
+    leave + join + drain schedule."""
+    co, chaos = P("runtime.coordinator"), P("runtime.chaos")
+    cluster = co.DynamicCluster(3)
+    urls = cluster.get_urls()
+    wrapped = chaos.wrap_cluster(cluster, chaos.FaultPlan(7, [], membership=[
+        chaos.MembershipEvent("leave", urls[1], site="execute", nth_call=0),
+        chaos.MembershipEvent("join", "mem://joiner-0", site="set_plan",
+                              nth_call=4),
+        chaos.MembershipEvent("drain", urls[2], site="execute",
+                              nth_call=3)]))
+    coord = co.Coordinator(resolver=wrapped, channels=wrapped,
+                           config_options={**ctx.config.distributed_snapshot(),
+                                           "max_task_retries": 6})
+    out = ctx.sql(_sql(q)).collect_coordinated_table(coordinator=coord,
+                                                     num_tasks=NT)
+    assert sorted(f["kind"] for f in wrapped.plan.fired) == [
+        "membership_drain", "membership_join", "membership_leave"], P
+    assert cluster.wait_drained(urls[2], timeout_s=10.0)
+    for w in cluster.workers.values():
+        assert not w.table_store.tables and len(w.registry) == 0, P
+    return out.to_numpy()
+
+
+def _x64_hedged(P, ctx, q):
+    """``q`` with hedging on over a sticky straggler on worker-1."""
+    co, chaos = P("runtime.coordinator"), P("runtime.chaos")
+    wrapped = chaos.wrap_cluster(co.InMemoryCluster(WORKERS), chaos.FaultPlan(
+        7, [chaos.FaultSpec(site="execute", kind="straggler", delay_s=0.4,
+                            workers=["worker-1"], rate=1.0)],
+        query_scoped=True))
+    coord = co.Coordinator(
+        resolver=wrapped, channels=wrapped,
+        config_options={**ctx.config.distributed_snapshot(), "hedging": True,
+                        "hedge_floor_s": 0.05, "hedge_budget": 4})
+    out = ctx.sql(_sql(q)).collect_coordinated_table(coordinator=coord,
+                                                     num_tasks=NT)
+    assert coord.faults.as_dict().get("hedges_issued", 0) >= 1, P
+    return out.to_numpy()
+
+
+def _x64_served(P, ctx, queries):
+    """``queries`` submitted at once from 4 threads to a ServingSession."""
+    import threading
+
+    results, errors = {}, []
+    with P("runtime.serving").ServingSession(
+            ctx, cluster=P("runtime.coordinator").InMemoryCluster(WORKERS),
+            num_tasks=NT) as srv:
+        def client(q):
+            try:
+                results[q] = srv.submit(_sql(q)).result_table(
+                    timeout=300).to_numpy()
+            except BaseException as e:  # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(q,))
+                   for q in queries]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    assert not errors, errors
+    return results
+
+
+def _x64_spilled(P, ctx, q):
+    """``q`` under a worker memory budget of half its unconstrained
+    per-worker peak: it spills, and no spill file is left."""
+    co = P("runtime.coordinator")
+
+    def run(**opts):
+        cluster = co.InMemoryCluster(WORKERS)
+        coord = co.Coordinator(
+            resolver=cluster, channels=cluster,
+            config_options={**ctx.config.distributed_snapshot(), **opts})
+        out = ctx.sql(_sql(q)).collect_coordinated_table(
+            coordinator=coord, num_tasks=NT)
+        return out, [w.table_store.stats() for w in cluster.workers.values()]
+
+    _, stats = run()
+    peak = max(s["peak_nbytes"] for s in stats)
+    out, stats = run(worker_memory_budget_bytes=max(peak // 2, 1))
+    assert sum(s["spills"] for s in stats) > 0, P
+    assert all(s["spill_files"] == 0 for s in stats), P
+    return out.to_numpy()
+
+
+def _x64_cached(P, ctx, q):
+    """``q`` submitted twice with the result cache on: the second is a
+    hit."""
+    ctx.sql("SET distributed.result_cache = true")
+    try:
+        first = ctx.sql(_sql(q)).collect_coordinated_table(
+            num_workers=WORKERS, num_tasks=NT)
+        again = ctx.sql(_sql(q)).collect_coordinated_table(
+            num_workers=WORKERS, num_tasks=NT)
+        assert ctx.result_cache().stats()["hits"] >= 1, P
+        assert identical(first.to_numpy(), again.to_numpy()), P
+    finally:
+        ctx.config.distributed_options.pop("result_cache", None)
+    return again.to_numpy()
+
+
+def _x64_coordinated(P, ctx, q, adaptive):
+    co = P("runtime.coordinator")
+    cluster = co.InMemoryCluster(WORKERS)
+    cls = co.AdaptiveCoordinator if adaptive else co.Coordinator
+    coord = cls(resolver=cluster, channels=cluster,
+                config_options=ctx.config.distributed_snapshot())
+    return ctx.sql(_sql(q)).collect_coordinated_table(
+        coordinator=coord, num_tasks=NT).to_numpy()
+
+
+#: each x64 group: label -> what runs it, in either package
+X64_TIERS = {
+    "coordinated": {
+        "q9 static": lambda P, c: _x64_coordinated(P, c, "q9", False),
+        "q9 adaptive": lambda P, c: _x64_coordinated(P, c, "q9", True),
+        "q3 churned": lambda P, c: _x64_churned(P, c, "q3"),
+        "q18 churned": lambda P, c: _x64_churned(P, c, "q18"),
+        "q3 hedged": lambda P, c: _x64_hedged(P, c, "q3"),
+    },
+    "serving": {
+        "served": lambda P, c: _x64_served(P, c, ("q3", "q18", "q3", "q9")),
+        "q18 spilled": lambda P, c: _x64_spilled(P, c, "q18"),
+        "q3 cached": lambda P, c: _x64_cached(P, c, "q3"),
+    },
+}
+
+
+def run_x64_tiers(group: str) -> None:
+    """Every run of ``group`` in both packages over the same TPC-H tables
+    (SF 0.002, seed 11), the port's held against the reference's."""
+    from datafusion_distributed_tpu_torch import precision
+    from tests.torch_port_helpers import PORT, REF, tpch_contexts
+
+    assert precision.MODE == "x64"
+    ctxs = tpch_contexts(sf=0.002, seed=11, bytes_per_task=1)
+    for label, fn in X64_TIERS[group].items():
+        ref, got = fn(REF, ctxs[REF]), fn(PORT, ctxs[PORT])
+        if label == "served":
+            assert sorted(got) == sorted(ref), label
+            for q in got:
+                assert_results_equal(ref[q], got[q], f"{label} {q} (x64)")
+        else:
+            assert_results_equal(ref, got, f"{label} (x64)")
+        print("X64", label, "equal", flush=True)
+
+
+@pytest.mark.parametrize("group", list(X64_TIERS))
+def test_coordinated_tiers_match_reference_in_x64_mode(group):
+    """Churned, served, spilled, cached and hedged coordinated runs, and
+    q9 coordinated static and adaptive as the anchor, in a
+    ``DFTPU_PRECISION=x64`` subprocess, each equal to the reference's run
+    in the same mode."""
+    import subprocess
+    import sys
+
+    script = (
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from tests.test_torch_coordinator import run_x64_tiers\n"
+        f"run_x64_tiers({group!r})\n"
+        "print('X64-TIERS-OK')\n")
+    env = dict(os.environ, DFTPU_PRECISION="x64", JAX_PLATFORMS="cpu",
+               PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, env=env, timeout=900, cwd=REPO)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "X64-TIERS-OK" in proc.stdout

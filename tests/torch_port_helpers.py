@@ -190,3 +190,115 @@ def assert_staged_plans_equal(jplan, tplan, num_tasks: int,
             tfp._canon_plan(tprep.plan), tf) == mask_subquery_floats(
             jfp._canon_plan(jprep.plan), jf), f"{what}: fingerprint differs"
         assert tf and np.allclose(tf, jf, rtol=tprec.test_rtol()), what
+
+
+class Pkg:
+    """One of the two packages: ``P("runtime.streams")`` is its module of
+    that path, ``P.table(arrow)`` an arrow table as its Table (on the CPU
+    in the port), ``P.ctx()`` a session on the CPU."""
+
+    def __init__(self, root: str, device=None):
+        self.root, self.device = root, device
+        self.name = "torch" if root.endswith("_torch") else "jax"
+
+    def __call__(self, path: str):
+        import importlib
+
+        return importlib.import_module(f"{self.root}.{path}")
+
+    def __repr__(self):
+        return self.name
+
+    def table(self, arrow, **kw):
+        if self.device is not None:
+            kw["device"] = self.device
+        return self("io.parquet").arrow_to_table(arrow, **kw)
+
+    def ctx(self):
+        ctx_cls = self("sql.context").SessionContext
+        return ctx_cls() if self.device is None else ctx_cls(
+            device=self.device)
+
+
+REF = Pkg("datafusion_distributed_tpu")
+PORT = Pkg("datafusion_distributed_tpu_torch", device="cpu")
+BOTH = (REF, PORT)
+
+
+def tpch_contexts(sf: float = 0.002, seed: int = 7, **distributed) -> dict:
+    """{REF: ctx, PORT: ctx} over the same generated TPC-H tables (the
+    reference generator's arrow tables), with ``distributed`` set as
+    session distributed options."""
+    from datafusion_distributed_tpu.data.tpchgen import gen_tpch
+
+    arrow = gen_tpch(sf=sf, seed=seed)
+    out = {}
+    for P in BOTH:
+        ctx = P.ctx()
+        ctx.config.distributed_options.update(distributed)
+        for name, tbl in arrow.items():
+            ctx.register_arrow(name, tbl)
+        out[P] = ctx
+    return out
+
+
+def assert_no_leaks(cluster) -> None:
+    """No staged table or task entry left on any worker of ``cluster``."""
+    for w in cluster.workers.values():
+        assert not w.table_store.tables, f"{w.url} leaked TableStore entries"
+        assert len(w.registry) == 0, f"{w.url} leaked registry entries"
+
+
+def coordinated(P, ctx, sql: str, cluster, **opts):
+    """``sql`` through ``P``'s Coordinator over ``cluster`` at 4 tasks, with
+    fast retries and the coordinator options ``opts`` -> (the result with
+    unqualified names, the coordinator)."""
+    df = ctx.sql(sql)
+    coord = P("runtime.coordinator").Coordinator(
+        resolver=cluster, channels=cluster,
+        config_options={"task_retry_backoff_s": 0.001, **opts})
+    out = df._strip_quals(
+        df.collect_coordinated_table(coordinator=coord, num_tasks=4))
+    return out, coord
+
+
+def assert_matches_reference(ref, got, what: str = "") -> None:
+    """A port Table against the reference's: names and capacity equal, the
+    rows as assert_results_equal holds them."""
+    assert got.names == ref.names, what
+    assert got.capacity == ref.capacity, what
+    assert_results_equal(ref.to_numpy(), got.to_numpy(), what)
+
+
+def record_shipped_plans(cluster) -> list:
+    """A list that gathers (stage, task, fingerprint) of every task plan
+    shipped to ``cluster``'s workers from now on, by the fingerprint its
+    encoder stamped on it."""
+    got = []
+    for w in cluster.workers.values():
+        real = w.set_plan
+
+        def set_plan(key, plan_obj, *a, _real=real, **kw):
+            got.append((key.stage_id, key.task_number, plan_obj.get("_fp")))
+            return _real(key, plan_obj, *a, **kw)
+
+        w.set_plan = set_plan
+    return got
+
+
+def sum_by_key_plan(P, n: int = 2048, num_tasks: int = 4):
+    """The reference suites' hand-built plan in package ``P``: a sum of a
+    normal column by 16 keys, staged for ``num_tasks`` tasks."""
+    import pyarrow as pa
+
+    phys = P("plan.physical")
+    dist = P("planner.distributed")
+    rng = np.random.default_rng(3)
+    t = P.table(pa.table({"k": rng.integers(0, 16, n),
+                          "v": rng.normal(size=n)}))
+    scan = phys.MemoryScanExec([t], t.schema())
+    agg = phys.HashAggregateExec(
+        "single", ["k"], [P("ops.aggregate").AggSpec("sum", "v", "sv")],
+        scan, 32)
+    return dist.distribute_plan(agg, dist.DistributedConfig(
+        num_tasks=num_tasks))
