@@ -74,10 +74,10 @@ Phases, each of which must pass:
    1 and 2 at every logged shape; at SF 0.01 five served queries on
    "cuda" against "cpu" (a CPU subprocess that runs meanwhile).
 12. resilience — TPC-H SF 1 through Coordinator over DynamicCluster(4) at
-   4 tasks: q3, q9, q18 and q21 with and without a sticky 2 s
+   4 tasks: q3, q9 and q18 with and without a sticky 2 s
    straggler on one worker, hedging off and on (warm wall per query, hedge
    counters, hedges in flight, the latency sketch's p99), each equal to
-   single-node; q3, q9 and q21 under a leave, a join and a drain with
+   single-node; q3 and q9 under a leave, a join and a drain with
    transport faults, each on a fresh cluster, byte-identical to the
    no-churn run (fired kinds, re-shipped producers, retries, the drain,
    the card's allocated bytes before and after); the serving tier's
@@ -91,9 +91,22 @@ Phases, each of which must pass:
    through DFTPU_LEAK_CHECK=strict and in one with DFTPU_LEAK_CHECK=0
    (survivors swept, which must be 0; what the harness tracked; its cost
    in warm seconds per arm).
+12b. adaptive — over InMemoryCluster(4) at 4 tasks, the tables on the card:
+   the skew split, the partial-aggregate bail-out and the mid-query replan
+   forced against the adaptations off (synthetic shapes of 2^20 rows,
+   lineitem at SF 0.1 partitioned by its status columns, TPC-H q18 and q9
+   at SF 0.1), each cold then warm: equal results, the adaptation records,
+   the counters and the warm seconds; an execution deadline over a worker
+   that hangs on the root stage, on a streamed stage and as a straggler:
+   rerouted, equal to single-node, and once the abandoned attempts end no
+   staged slice and the card's allocated bytes as before; a quarantined
+   worker routed around and its half-open probe admitted; a corrupt plan
+   refused without retries; at SF 1 a LIMIT of 100,000 rows over 8
+   streamed tasks against one chunk a task, and a stream budget's peak
+   bytes in flight; kernels 1-3 at every logged shape.
 13. wire — coordinated TPC-H over real 127.0.0.1 gRPC sockets
    (start_localhost_cluster(4): four gRPC servers in this process, every
-   worker on the card) at 4 tasks: q1, q3, q5, q9 and q18 at SF 1,
+   worker on the card) at 4 tasks: q1, q3, q5 and q9 at SF 1,
    cold then warm, over gRPC and over InMemoryCluster(4) on the same
    session (warm seconds of both; device-to-host and host-to-device bytes,
    copies and GB/s; wire bytes before and after compression; SetPlan bytes
@@ -125,7 +138,7 @@ Phases, each of which must pass:
    stream and shm planes), each equal to single-node.
 15. mesh — meshes-as-workers: TPC-H through Coordinator over
    InMemoryMeshCluster(2, 4, devices=[cuda] * 8) at 8 tasks, so that each
-   stage ships one span plan to each worker: q1, q3, q5, q9, q18 and q21
+   stage ships one span plan to each worker: q1, q3, q5, q9 and q18
    at SF 1, cold then warm, beside the same queries over
    InMemoryCluster(2) with per-task dispatch (warm seconds of both, spans
    run per worker, set_stage_plan against set_plan calls, peak device
@@ -138,12 +151,12 @@ Phases, each of which must pass:
 16. spmd — the SPMD tier: four rank processes of this script form a
    gloo group on the card (NCCL refuses two ranks on one device), each
    over the same TPC-H tables, and run collect_distributed_table(mesh=):
-   the 22 queries at SF 0.1 and q1, q3, q5, q9, q18, q21 at SF 1 (the
+   the 22 queries at SF 0.1 and q1, q3, q5, q9, q18 at SF 1 (the
    ranks' SF 1 tables in host memory, their slices moved to the card)
    cold then warm, every rank's table byte-identical to rank 0's
    in-process collect_distributed_table(4) on the card with equal retries
    (seconds of both, each rank's peak allocated bytes, the bytes each
-   exchange kind sent); meanwhile the six at SF 1 over a one-rank NCCL
+   exchange kind sent); meanwhile the five at SF 1 over a one-rank NCCL
    group in this process, each equal to
    collect_distributed_table(1); kernels 1, 2 and 3 at every shape the
    ranks logged.
@@ -2717,8 +2730,9 @@ def _serving_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
 RESILIENCE_WORKERS = 4
 RESILIENCE_TASKS = 4
 #: (q1 and q5 in the four arms took ~20 s of the phase, which went to the
-#: leak arms; the straggler costs them the same 2 s as q3 and q18)
-RESILIENCE_HEDGE_QUERIES = ("q3", "q9", "q18", "q21")
+#: leak arms, and q21 ~24 s, which went to the adaptive phase; the
+#: straggler costs them the same 2 s as q3 and q18)
+RESILIENCE_HEDGE_QUERIES = ("q3", "q9", "q18")
 #: the worker-pinned sticky straggler the hedger exists for
 RESILIENCE_STRAGGLER = {"site": "execute", "kind": "straggler",
                         "delay_s": 2.0, "rate": 1.0,
@@ -2745,8 +2759,9 @@ RESILIENCE_CHURN_RETRIES = 8
 #: anti-join of the hedging arms' mix, whose no-churn runs the hedging
 #: step already made, and in which the schedule fires all three
 #: membership kinds (churning all 22 took 32.5 s of the phase on the
-#: card; the time went to the spmd phase)
-RESILIENCE_CHURN_QUERIES = ("q3", "q9", "q21")
+#: card; the time went to the spmd phase; q21, ~10 s with its no-churn run
+#: once it left the hedging mix, went to the adaptive phase)
+RESILIENCE_CHURN_QUERIES = ("q3", "q9")
 RESILIENCE_SERVED = ("q1", "q6", "q3", "q6", "q1", "q3")
 RESILIENCE_CPU_TIMEOUT_S = 600
 #: the membership kinds the churn schedule fires when a query makes enough
@@ -3048,7 +3063,8 @@ def phase_resilience(sf: float, check_sf: float, seed: int) -> dict:
 
     1. Hedging: RESILIENCE_HEDGE_QUERIES in four arms (no fault or a
     sticky 2 s straggler on worker-1; hedging off or on with a 0.25 s floor
-    and a budget of 2), each cold then warm on one coordinator and cluster:
+    and a budget of 2), each on one coordinator and cluster, the hedged
+    arms cold then warm, the unhedged ones warm only:
     warm wall per query, the hedge counters, the most hedges in flight (at
     most the budget), the latency sketch's p99 beside the warm run's task
     walls; every result equal to single-node. Launches are counted from 0 over the
@@ -3129,7 +3145,9 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
         arm = _hedge_arm(ctx, seed, straggler, opts)
         coord = arm.coord
         walls = {}
-        for run in ("cold", "warm"):
+        # a hedged arm's cold run fills the latency sketch its warm run
+        # hedges by; an unhedged arm needs no warm-up in a warm process
+        for run in ("cold", "warm") if opts.get("hedging") else ("warm",):
             if name == "straggler_on" and run == "warm":
                 _drain_shapes(hk, shapes)
             if run == "warm":
@@ -3153,7 +3171,7 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
         task_walls = sorted(m["elapsed_s"] for m in coord.metrics.values()
                             if m.get("elapsed_s") is not None)
         arms[name] = {
-            "warm_s": walls["warm"], "cold_s": walls["cold"],
+            "warm_s": walls["warm"], "cold_s": walls.get("cold"),
             "warm_sum_s": sum(walls["warm"].values()), **counters,
             "peak_hedges_in_flight": peak,
             "sketch_p99_s": coord.latency.percentile(0.99),
@@ -3365,6 +3383,606 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12b: the adaptive, fault-tolerant and streaming surfaces
+# ---------------------------------------------------------------------------
+
+ADAPTIVE_SF = 0.1  # the TPC-H inputs of (a), (b) and (c)
+ADAPTIVE_ROWS = 1 << 20  # the synthetic shapes of (a)
+ADAPTIVE_WORKERS = 4
+ADAPTIVE_TASKS = 4
+#: every adaptation armed, and every one off (tests/test_adaptivity.py)
+ADAPT_ON = {"skew_split_factor": 1.5, "skew_split_min_rows": 8,
+            "partial_agg_bailout_ratio": 0.8,
+            "replan_cardinality_factor": 1.5}
+ADAPT_OFF = {"skew_split_factor": 0.0, "partial_agg_bailout_ratio": 0.0,
+             "replan_cardinality_factor": 0.0}
+#: the bulk shuffle plane, where the skew split and the bail-out act
+ADAPT_BULK = {"pipelined_shuffle": False, "data_plane": "unary"}
+#: the TPC-H queries that fire the bail-out and the replan
+#: (tests/test_torch_adaptivity.py): q18's `group by l_orderkey` reduces
+#: its input four-fold, so a bail-out ratio of 0.2 bails out on it
+ADAPTIVE_TPCH = {
+    "q18": ({**ADAPT_BULK, **ADAPT_ON, "partial_agg_bailout_ratio": 0.2,
+             "stage_parallelism": 4},
+            ("partial_agg_bailout", "replanned_stages")),
+    "q9": ({**ADAPT_ON, "pipelined_shuffle": False, "stage_parallelism": 4},
+           ("replanned_stages",)),
+}
+ADAPTIVE_COUNTERS = ("dftpu_skew_splits", "dftpu_partial_agg_bailouts",
+                     "dftpu_replans")
+#: (b): worker-1 sleeps DEADLINE_DELAY_S on the faulted call, against an
+#: execution deadline of DEADLINE_S; ships have DISPATCH_DEADLINE_S
+DEADLINE_DELAY_S = 2.0
+DEADLINE_S = 1.0
+DISPATCH_DEADLINE_S = 30.0
+DEADLINE_SETTLE_S = 60.0  # the most an abandoned attempt may take to end
+DEADLINE_QUERY = "q3"
+#: (c): the breaker's cool-down, passed on an injected clock: a quarantine
+#: that lapses while the queries run in real time would admit the probe
+#: into the second query
+QUARANTINE_S = 60.0
+#: (d): at SF 1, a LIMIT over 8 streamed tasks, and a stream budget
+STREAM_LIMIT = 100_000
+STREAM_TASKS = 8
+STREAM_CHUNK_ROWS = 65_536
+STREAM_BUDGET = 32 << 20  # about three 65,536-row chunks of lineitem
+STREAM_BUDGET_LIMIT = 1_000_000
+
+
+def _adaptivity_counts() -> dict:
+    from datafusion_distributed_tpu_torch.runtime.telemetry import (
+        DEFAULT_REGISTRY,
+    )
+
+    snap = DEFAULT_REGISTRY.snapshot()
+    return {n: sum(v for _, v in snap.get(n, {}).get("samples", []))
+            for n in ADAPTIVE_COUNTERS}
+
+
+def _adapted(coord) -> dict:
+    """Each stage's adaptation record in the coordinator's stream metrics."""
+    keys = ("skew_splits", "skew_partition_rows", "partial_agg_bailout",
+            "partial_agg_ratio", "replanned_stages")
+    out = {}
+    for (_q, sid), sm in coord.stream_metrics.items():
+        got = {k: sm[k] for k in keys if k in sm}
+        if got:
+            out[sid] = got
+    return out
+
+
+def _adaptive_arm(run) -> dict:
+    """``run()`` -> (numpy result, coordinator), cold then warm: the warm
+    result, its seconds, its adaptation records and counter deltas."""
+    import torch
+
+    run()
+    before = _adaptivity_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, coord = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = _adaptivity_counts()
+    return {"result": res, "s": wall, "adapted": _adapted(coord),
+            "counters": {k: after[k] - before[k] for k in before}}
+
+
+def _skewed_plan(slices, dev):
+    """A hash shuffle on ``k`` over a scan of ``slices`` (arrow tables, one
+    a task) into a coalesce (tests/test_adaptivity.py's hand-built shape)."""
+    from datafusion_distributed_tpu_torch.io.parquet import arrow_to_table
+    from datafusion_distributed_tpu_torch.ops.table import round_up_pow2
+    from datafusion_distributed_tpu_torch.plan.exchanges import (
+        CoalesceExchangeExec,
+        ShuffleExchangeExec,
+    )
+    from datafusion_distributed_tpu_torch.plan.physical import MemoryScanExec
+
+    tasks = [arrow_to_table(s, device=dev) for s in slices]
+    scan = MemoryScanExec(tasks, tasks[0].schema())
+    cap = round_up_pow2(2 * max(s.num_rows for s in slices))
+    ex = ShuffleExchangeExec(scan, ["k"], len(slices), per_dest_capacity=cap)
+    ex.producer_tasks = len(slices)
+    ex.stage_id = 1
+    root = CoalesceExchangeExec(ex, len(slices))
+    root.stage_id = 2
+    return root
+
+
+def _skew_inputs(sf: float, seed: int) -> dict:
+    """name -> slices: one hot slice of 3/4 of ADAPTIVE_ROWS beside three
+    cold ones, and TPC-H lineitem partitioned by (l_returnflag,
+    l_linestatus), where the 'NO' partition holds about half the rows."""
+    import pyarrow as pa
+
+    from datafusion_distributed_tpu_torch.data import tpchgen
+
+    rng = np.random.default_rng(seed)
+
+    def mk(n):
+        return pa.table({"k": rng.integers(0, 64, n).astype(np.int64),
+                         "v": rng.random(n)})
+
+    hot = 3 * ADAPTIVE_ROWS // 4
+    cold = (ADAPTIVE_ROWS - hot) // 3
+    li = tpchgen.gen_tpch(sf=sf, seed=seed)["lineitem"]
+
+    def decoded(name):
+        d = li.dictionaries[name]
+        return np.asarray(getattr(d, "values", d),
+                          dtype=object)[np.asarray(li.data[name])]
+
+    flag, status = decoded("l_returnflag"), decoded("l_linestatus")
+    t = pa.table({k: np.asarray(li.data[c]) for k, c in (
+        ("k", "l_orderkey"), ("v", "l_extendedprice"), ("q", "l_quantity"))})
+    status_slices = [
+        t.take(pa.array(np.nonzero((flag == f) & (status == s))[0]))
+        for f, s in (("A", "F"), ("N", "F"), ("N", "O"), ("R", "F"))]
+    return {"synthetic": [mk(hot), mk(cold), mk(cold), mk(cold)],
+            "lineitem_by_status": status_slices}
+
+
+def _adapt_coord(cluster, ctx=None, **opts):
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        Coordinator,
+    )
+
+    base = ctx.config.distributed_snapshot() if ctx is not None else {}
+    return Coordinator(resolver=cluster, channels=cluster, config_options={
+        **base, "task_retry_backoff_s": 0.001, **opts})
+
+
+def _no_slices(cluster, what: str) -> None:
+    for w in cluster.workers.values():
+        check(not w.table_store.tables and len(w.registry) == 0,
+              f"{what}: worker {w.url} kept {len(w.table_store.tables)} "
+              f"staged tables and {len(w.registry)} tasks")
+
+
+def _adaptations_on_card(ctx, seed: int, dev) -> dict:
+    """(a): each adaptation forced, against its arm with the adaptations
+    off, cold then warm."""
+    import pyarrow as pa
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+
+    out: dict = {}
+
+    def plan_run(slices, opts):
+        def run():
+            cluster = InMemoryCluster(ADAPTIVE_WORKERS)
+            coord = _adapt_coord(cluster, stage_parallelism=1,
+                                 **ADAPT_BULK, **opts)
+            res = coord.execute(_skewed_plan(slices, dev)).to_numpy()
+            _no_slices(cluster, "the skewed plan")
+            return res, coord
+        return run
+
+    for name, slices in _skew_inputs(ADAPTIVE_SF, seed).items():
+        off = _adaptive_arm(plan_run(slices, ADAPT_OFF))
+        on = _adaptive_arm(plan_run(slices, {"skew_split_factor": 1.5,
+                                             "skew_split_min_rows": 64}))
+        hot = max(s.num_rows for s in slices)
+        check(_identical(on["result"], off["result"]),
+              f"skew split {name}: the split result differs")
+        split = [a for a in on["adapted"].values() if a.get("skew_splits")]
+        check(bool(split) and split[0]["skew_partition_rows"] == hot
+              and on["counters"]["dftpu_skew_splits"] >= 1,
+              f"skew split {name}: no split of the {hot}-row slice "
+              f"({on['adapted']}, {on['counters']})")
+        check(not off["adapted"], f"skew split {name}: the off arm adapted")
+        out[f"skew_{name}"] = {"rows": sum(s.num_rows for s in slices),
+                               "hot_rows": hot, "off_s": off["s"],
+                               "on_s": on["s"], "adapted": on["adapted"],
+                               "counters": on["counters"]}
+        log(f"[adaptive] skew split {name}: {out[f'skew_{name}']}")
+
+    rng = np.random.default_rng(seed)
+    n = ADAPTIVE_ROWS
+    ctx.register_arrow("adapt_u", pa.table({
+        "k": np.arange(n, dtype=np.int64), "v": rng.random(n)}))
+    ctx.register_arrow("adapt_a", pa.table({
+        "k": (np.arange(n) % 37).astype(np.int64), "v": rng.random(n)}))
+    ctx.register_arrow("adapt_b", pa.table({
+        "k": np.arange(37, dtype=np.int64), "w": rng.random(37)}))
+    sqls = {
+        "bailout": ("SELECT k, SUM(v) AS s FROM adapt_u GROUP BY k "
+                    "ORDER BY k"),
+        "replan": ("SELECT adapt_a.k, SUM(adapt_a.v * adapt_b.w) AS s FROM "
+                   "adapt_a JOIN adapt_b ON adapt_a.k = adapt_b.k WHERE "
+                   "adapt_a.v < 0.01 GROUP BY adapt_a.k ORDER BY adapt_a.k"),
+    }
+    arms = {"bailout": ({**ADAPT_BULK, "partial_agg_bailout_ratio": 0.0},
+                        {**ADAPT_BULK, "partial_agg_bailout_ratio": 0.5},
+                        "partial_agg_bailout"),
+            "replan": ({**ADAPT_BULK, **ADAPT_OFF},
+                       {**ADAPT_BULK, "replan_cardinality_factor": 1.5},
+                       "replanned_stages")}
+    queries = dict(_queries(ADAPTIVE_TPCH))
+    for q, (opts, _kinds) in ADAPTIVE_TPCH.items():
+        sqls[q] = queries[q]
+        arms[q] = ({**opts, **ADAPT_OFF}, opts, None)
+    ctx.config.distributed_options.update(bytes_per_task=1,
+                                          broadcast_joins=False)
+    for name, sql in sqls.items():
+        off_opts, on_opts, kind = arms[name]
+
+        def sql_run(opts):
+            def run():
+                cluster = InMemoryCluster(ADAPTIVE_WORKERS)
+                coord = _adapt_coord(cluster, ctx, **opts)
+                df = ctx.sql(sql)
+                res = df.collect_coordinated_table(
+                    coordinator=coord,
+                    num_tasks=ADAPTIVE_TASKS).to_numpy()
+                _no_slices(cluster, name)
+                return res, coord
+            return run
+
+        off = _adaptive_arm(sql_run(off_opts))
+        on = _adaptive_arm(sql_run(on_opts))
+        kinds = ((kind,) if kind is not None
+                 else ADAPTIVE_TPCH[name][1])
+        fired = {k for a in on["adapted"].values() for k in a}
+        check(set(kinds) <= fired, f"{name}: {kinds} did not all fire "
+              f"({on['adapted']})")
+        identical = _identical(on["result"], off["result"])
+        if "partial_agg_bailout" in kinds:
+            # partial states round a float sum where the raw rows do not
+            # (tests/test_adaptivity.py compares it so too)
+            diff = _close(on["result"], off["result"],
+                          precision.test_rtol())
+            check(diff == "", f"{name}: the bail-out differs in {diff}")
+        else:
+            check(identical, f"{name}: the adapted result differs")
+        check(not off["adapted"], f"{name}: the off arm adapted")
+        for k, c in (("partial_agg_bailout",
+                      "dftpu_partial_agg_bailouts"),
+                     ("replanned_stages", "dftpu_replans")):
+            if k in kinds:
+                check(on["counters"][c] >= 1,
+                      f"{name}: {c} did not count ({on['counters']})")
+        out[name] = {"off_s": off["s"], "on_s": on["s"],
+                     "identical": identical, "adapted": on["adapted"],
+                     "counters": on["counters"]}
+        log(f"[adaptive] {name}: {out[name]}")
+    return out
+
+
+def _settled(before: int, deadline: float) -> tuple:
+    """Wait until the abandoned attempts' threads end and the card's
+    allocated bytes are back to ``before`` -> (seconds waited, threads
+    still alive, allocated bytes)."""
+    import gc
+    import threading
+
+    import torch
+
+    t0 = time.perf_counter()
+    while True:
+        alive = [t for t in threading.enumerate()
+                 if t.name == "dftpu-deadline" and t.is_alive()]
+        gc.collect()
+        torch.cuda.synchronize()
+        now = torch.cuda.memory_allocated()
+        if (not alive and now == before) or time.perf_counter() > deadline:
+            return time.perf_counter() - t0, len(alive), now
+        time.sleep(0.1)
+
+
+def _deadlines_on_card(ctx, sql: str, single: dict, seed: int) -> dict:
+    """(b): one worker of 4 sleeps DEADLINE_DELAY_S on the first execute of
+    a stage, or worker-1 on every execute, under the execution, dispatch
+    and first-chunk deadlines."""
+    import gc
+
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.runtime import chaos
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+
+    rtol = precision.test_rtol()
+    deadlines = {"task_timeout_s": DEADLINE_S,
+                 "dispatch_timeout_s": DISPATCH_DEADLINE_S}
+    #: name -> (the faulted stages, kind, coordinator options)
+    arms = {"root_bulk": ([-1], "delay", {}),
+            "first_chunk": ([0], "delay", {"peer_shuffle": False,
+                                           "pipelined_shuffle": False}),
+            "straggler": (None, "straggler", {})}
+    out: dict = {}
+    for name, (stages, kind, opts) in arms.items():
+        # without the fault: the peak of a healthy run of the same arm
+        cluster = InMemoryCluster(ADAPTIVE_WORKERS)
+        coord = _adapt_coord(cluster, ctx, **deadlines, **opts)
+        ctx.sql(sql).collect_coordinated_table(coordinator=coord,
+                                               num_tasks=ADAPTIVE_TASKS)
+        del coord, cluster
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cluster = InMemoryCluster(ADAPTIVE_WORKERS)
+        coord = _adapt_coord(cluster, ctx, **deadlines, **opts)
+        ctx.sql(sql).collect_coordinated_table(coordinator=coord,
+                                               num_tasks=ADAPTIVE_TASKS)
+        torch.cuda.synchronize()
+        healthy_peak = torch.cuda.max_memory_allocated() - before
+        del coord
+        _no_slices(cluster, f"deadline {name} (healthy)")
+        del cluster
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cluster = InMemoryCluster(ADAPTIVE_WORKERS)
+        slow = cluster.get_urls()[1]
+        # a delay hits whichever worker runs the stage's first task; the
+        # straggler is worker-1, sticky
+        spec = chaos.FaultSpec(
+            site="execute", kind=kind, delay_s=DEADLINE_DELAY_S, rate=1.0,
+            workers=[slow] if kind == "straggler" else None, stages=stages,
+            max_total=None if kind == "straggler" else 1)
+        plan = chaos.FaultPlan(seed, [spec])
+        coord = _adapt_coord(chaos.wrap_cluster(cluster, plan), ctx,
+                             **deadlines, **opts)
+        t0 = time.perf_counter()
+        got = ctx.sql(sql).collect_coordinated_table(
+            coordinator=coord, num_tasks=ADAPTIVE_TASKS).to_numpy()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        faults = {k: v for k, v in coord.faults.as_dict().items() if v}
+        diff = _close(got, single, rtol)
+        check(diff == "", f"deadline {name}: differs from single-node in "
+              f"{diff}")
+        check(faults.get("task_timeouts", 0) >= 1 and bool(plan.fired),
+              f"deadline {name}: no attempt timed out ({faults})")
+        check(faults.get("tasks_rerouted", 0) >= 1,
+              f"deadline {name}: the timed-out task was not rerouted "
+              f"({faults})")
+        del coord, got
+        waited, alive, after = _settled(
+            before, time.perf_counter() + DEADLINE_SETTLE_S)
+        peak = torch.cuda.max_memory_allocated() - before
+        check(alive == 0, f"deadline {name}: {alive} abandoned attempts "
+              f"still running after {waited:.1f}s")
+        _no_slices(cluster, f"deadline {name}, abandoned attempts ended")
+        check(after == before, f"deadline {name}: {after - before} bytes "
+              "still allocated on the card after the abandoned attempts")
+        out[name] = {"s": wall, "faults": faults, "fired": len(plan.fired),
+                     "settle_s": waited, "allocated_before": before,
+                     "allocated_after": after, "peak_bytes": peak,
+                     "healthy_peak_bytes": healthy_peak}
+        log(f"[adaptive] deadline {name}: {out[name]}")
+        del cluster, plan
+    return out
+
+
+def _breaker_on_card(ctx, sql: str, single: dict, seed: int) -> dict:
+    """(c): a flaky worker quarantined and routed around, its half-open
+    probe admitted once the cool-down has passed; a corrupt plan failing
+    fast as the classified fatal error."""
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.runtime import chaos, health
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+    from datafusion_distributed_tpu_torch.runtime.errors import (
+        PlanIntegrityError,
+        is_retryable,
+    )
+
+    rtol = precision.test_rtol()
+    cluster = InMemoryCluster(ADAPTIVE_WORKERS)
+    bad = cluster.get_urls()[0]
+    # every call to the bad worker fails: a success would close its
+    # circuit, and one in flight when it trips would race the check
+    plan = chaos.FaultPlan(seed, [
+        chaos.FaultSpec(site=site, kind="crash", rate=1.0, workers=[bad])
+        for site in ("execute", "set_plan")])
+    coord = _adapt_coord(chaos.wrap_cluster(cluster, plan), ctx,
+                         quarantine_threshold=1,
+                         quarantine_seconds=QUARANTINE_S,
+                         max_task_retries=4,
+                         peer_shuffle=False, pipelined_shuffle=False)
+    lapsed = [0.0]
+    coord.health = health.HealthTracker(
+        health.HealthPolicy(failure_threshold=1,
+                            quarantine_seconds=QUARANTINE_S),
+        clock=lambda: time.monotonic() + lapsed[0])
+    states, fired, trips = [], [], []
+    for i in range(3):
+        if i == 2:
+            lapsed[0] = QUARANTINE_S * 1.5  # the cool-down passes
+        n0 = len(plan.fired)
+        got = ctx.sql(sql).collect_coordinated_table(
+            coordinator=coord, num_tasks=ADAPTIVE_TASKS).to_numpy()
+        diff = _close(got, single, rtol)
+        check(diff == "", f"breaker query {i}: differs in {diff}")
+        fired.append(len(plan.fired) - n0)
+        states.append(coord.health.state_of(bad))
+        trips.append(coord.health.snapshot()[bad]["trips"])
+    _no_slices(cluster, "the breaker queries")
+    faults = {k: v for k, v in coord.faults.as_dict().items() if v}
+    check(states == [health.OPEN] * 3 and fired[0] >= 1
+          and faults.get("workers_quarantined"),
+          f"the flaky worker was not quarantined ({states}, {fired}, "
+          f"{faults})")
+    check(fired[1] == 0, f"the quarantined worker was sent {fired[1]} "
+          "calls of the second query")
+    check(fired[2] == 1 and trips == [1, 1, 2],
+          f"not one half-open probe after the cool-down ({fired}, trips "
+          f"{trips})")
+    out = {"states": states, "bad_worker_calls": fired, "trips": trips,
+           "faults": faults}
+
+    cluster = InMemoryCluster(ADAPTIVE_WORKERS)
+    plan = chaos.FaultPlan(seed, [chaos.FaultSpec(
+        site="set_plan", kind="corrupt_plan", rate=1.0, max_total=1)])
+    coord = _adapt_coord(chaos.wrap_cluster(cluster, plan), ctx)
+    err = None
+    try:
+        ctx.sql(sql).collect_coordinated_table(coordinator=coord,
+                                               num_tasks=ADAPTIVE_TASKS)
+    except PlanIntegrityError as e:  # the expected refusal; others raise
+        err = e
+    check(err is not None, "the corrupt plan was not refused")
+    check("DFTPU043" in str(err) and not is_retryable(err),
+          f"the corrupt plan failed as {type(err).__name__}: {err}")
+    check(coord.faults.get("task_retries") == 0
+          and coord.faults.get("fatal_failures") == 1,
+          f"the corrupt plan was retried ({coord.faults.as_dict()})")
+    _no_slices(cluster, "the corrupt plan")
+    out["corrupt_plan"] = {"error": type(err).__name__,
+                           "fired": [f["kind"] for f in plan.fired]}
+    log(f"[adaptive] breaker and corrupt plan: {out}")
+    return out
+
+
+def _streaming_on_card(sf: float, seed: int) -> dict:
+    """(d): at SF 1, the LIMIT early exit over STREAM_TASKS tasks against
+    the bulk plane's granularity (one chunk a task), and the stream
+    budget's peak bytes in flight."""
+    from datafusion_distributed_tpu_torch.planner.statistics import row_width
+    from datafusion_distributed_tpu_torch.runtime.coordinator import (
+        InMemoryCluster,
+    )
+
+    ctx = _session("cuda", sf, seed)
+    ctx.config.distributed_options["size_tasks_to_data"] = False
+    out: dict = {}
+    sql = f"select * from lineitem limit {STREAM_LIMIT}"
+    width = row_width(ctx.sql(sql).physical_plan().schema())
+    for name, chunk in (("stream", STREAM_CHUNK_ROWS), ("bulk", 1 << 30)):
+        runs = []
+        for _ in range(2):  # cold, warm
+            cluster = InMemoryCluster(STREAM_TASKS)
+            coord = _adapt_coord(cluster, ctx, stream_chunk_rows=chunk)
+            t0 = time.perf_counter()
+            got = ctx.sql(sql).collect_coordinated_table(
+                coordinator=coord, num_tasks=STREAM_TASKS)
+            rows = int(got.num_rows)
+            wall = time.perf_counter() - t0
+            _no_slices(cluster, f"the LIMIT on the {name} plane")
+            (s,) = coord.stream_metrics.values()
+            runs.append({"s": wall, "rows": rows, "capacity": got.capacity,
+                         "streamed_rows": s["rows"], "chunks": s["chunks"],
+                         "bytes_streamed": s["bytes_streamed"],
+                         "early_exit": s["early_exit"]})
+        check(all(r["rows"] == STREAM_LIMIT for r in runs),
+              f"the LIMIT on the {name} plane returned {runs}")
+        out[name] = {"cold": runs[0], "warm": runs[1]}
+    check(out["stream"]["warm"]["early_exit"]
+          and out["stream"]["warm"]["streamed_rows"]
+          < STREAM_LIMIT + STREAM_TASKS * STREAM_CHUNK_ROWS,
+          f"the LIMIT streamed {out['stream']['warm']}")
+    out["row_width"] = width
+    out["fetch_capped_bytes"] = STREAM_TASKS * STREAM_LIMIT * width
+
+    budget_sql = f"select * from lineitem limit {STREAM_BUDGET_LIMIT}"
+    cluster = InMemoryCluster(ADAPTIVE_WORKERS)
+    coord = _adapt_coord(cluster, ctx,
+                         worker_connection_buffer_budget_bytes=STREAM_BUDGET,
+                         stream_chunk_rows=STREAM_CHUNK_ROWS)
+    t0 = time.perf_counter()
+    got = ctx.sql(budget_sql).collect_coordinated_table(
+        coordinator=coord, num_tasks=STREAM_TASKS)
+    wall = time.perf_counter() - t0
+    _no_slices(cluster, "the budgeted stream")
+    stats = list(coord.stream_metrics.values())
+    chunk_bytes = STREAM_CHUNK_ROWS * width
+    peak = max(s["peak_in_flight"] for s in stats)
+    check(int(got.num_rows) == STREAM_BUDGET_LIMIT,
+          f"the budgeted stream returned {int(got.num_rows)} rows")
+    check(peak <= STREAM_BUDGET + chunk_bytes,
+          f"{peak} bytes in flight over a budget of {STREAM_BUDGET} plus "
+          f"one chunk of {chunk_bytes}")
+    out["budget"] = {"s": wall, "budget": STREAM_BUDGET,
+                     "chunk_bytes": chunk_bytes, "peak_in_flight": peak,
+                     "bytes_streamed": sum(s["bytes_streamed"]
+                                           for s in stats),
+                     "chunks": sum(s["chunks"] for s in stats)}
+    log(f"[adaptive] streaming: {out}")
+    return out
+
+
+def phase_adaptive(sf: float, seed: int) -> dict:
+    """The coordinated runtime's adaptive, fault-tolerant and streaming
+    surfaces on the card, the tables on the card, over InMemoryCluster(4)
+    at 4 tasks (tests/test_torch_adaptivity.py, test_torch_fault_tolerance.py
+    and test_torch_streaming.py hold them against the reference on the CPU).
+
+    (a) The skew split on a hand-built shuffle of ADAPTIVE_ROWS rows with
+    one hot slice and on TPC-H lineitem (SF ADAPTIVE_SF) partitioned by its
+    status columns; the bail-out on ADAPTIVE_ROWS all-distinct keys; the
+    replan on the selective join of ADAPTIVE_ROWS rows; ADAPTIVE_TPCH at
+    SF ADAPTIVE_SF: each arm cold then warm, forced and off, equal (byte
+    for byte, the bail-out at test_rtol()), with the adaptation records,
+    the counters and the warm seconds.
+    (b) Deadlines: worker-1 of 4 sleeps DEADLINE_DELAY_S in one execute of
+    the root stage, of a streamed stage, or in every execute (a
+    straggler), under task_timeout_s = DEADLINE_S and dispatch_timeout_s:
+    rerouted, equal to single-node; once the abandoned attempts end, no
+    staged slice and the card's allocated bytes as before the query; the
+    peak allocated bytes with the abandoned attempt and without.
+    (c) A flaky worker quarantined, routed around, its half-open probe
+    admitted after the cool-down; a corrupt plan refused as DFTPU043 with
+    no retries.
+    (d) At SF ``sf``: STREAM_LIMIT rows over STREAM_TASKS streamed tasks
+    against one chunk a task; STREAM_BUDGET_LIMIT rows through a
+    STREAM_BUDGET budget, peak in flight within one chunk of it.
+    (e) Kernels 1-3 at every shape the phase logged."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    shapes: dict = {"build": {}, "probe": {}, "agg": {}}
+    out: dict = {}
+    ctx = _session("cuda", ADAPTIVE_SF, seed)
+    hk.reset_launch_counts()
+    out["adaptations"] = _adaptations_on_card(ctx, seed, dev)
+    out["launches"] = dict(hk.LAUNCHES)
+    for k in ("build_group_ids", "multiway_probe"):
+        check(out["launches"].get(k, 0) > 0,
+              f"kernel {k} was not launched by the adaptation arms")
+    _drain_shapes(hk, shapes)
+    log(f"[adaptive] (a) done ({_since(t_phase)})")
+
+    sql = dict(_queries((DEADLINE_QUERY,)))[DEADLINE_QUERY]
+    fanned = _fanned_session("cuda", ADAPTIVE_SF, seed)
+    single = _run(fanned, sql)
+    out["deadlines"] = _deadlines_on_card(fanned, sql, single, seed)
+    log(f"[adaptive] (b) done ({_since(t_phase)})")
+    out["breaker"] = _breaker_on_card(fanned, sql, single, seed)
+    log(f"[adaptive] (c) done ({_since(t_phase)})")
+    del fanned, ctx
+    out["streaming"] = _streaming_on_card(sf, seed)
+    log(f"[adaptive] (d) done ({_since(t_phase)})")
+
+    _drain_shapes(hk, shapes)
+    out["kernel_checks"] = {
+        "build_group_ids": build_shape_checks(
+            [[n, lanes, h, c] for (n, lanes, h), c
+             in shapes["build"].items()], dev, "adaptive"),
+        "multiway_probe": probe_shape_checks(
+            [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
+             in shapes["probe"].items()], dev, "adaptive"),
+        "group_aggregate": agg_shape_checks(shapes["agg"], dev, "adaptive"),
+    }
+    out["shapes"] = {k: len(v) for k, v in shapes.items()}
+    log(f"[adaptive] shapes checked: {out['shapes']} ({_since(t_phase)})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the wire tier (gRPC workers, the shm plane, native regroup)
 # ---------------------------------------------------------------------------
 
@@ -3373,8 +3991,10 @@ WIRE_TASKS = 4
 #: the SF 1 arm: scans, the five-way join, the six-way join, the big GROUP
 #: BY (the mesh phase's queries but q21: its SF 1 runs over gRPC took
 #: 64.0 s of a 153.4 s phase on the card, and that time went to the leak
-#: arms; q21 still crosses the wire at WIRE_KNOB_SF, on shm)
-WIRE_QUERIES = ("q1", "q3", "q5", "q9", "q18")
+#: arms; q21 still crosses the wire at WIRE_KNOB_SF, on shm; q18's SF 1
+#: runs, ~24 s, went to the adaptive phase: q18 still crosses the wire in
+#: the card-against-CPU check at SF 0.01)
+WIRE_QUERIES = ("q1", "q3", "q5", "q9")
 #: the plane and codec variants, at WIRE_KNOB_SF
 #: (q5's and q18's variants, 3.8 s on the card, went to the spmd phase:
 #: q18's exchanges take no partition stream at SF 0.1, and q5's planes
@@ -3568,7 +4188,7 @@ def phase_wire(sf: float, check_sf: float, seed: int) -> dict:
     shipped; peak device memory of the warm gRPC run; the card's allocated
     bytes before the query's cluster started and after its shutdown. Each
     gRPC result byte-identical to the in-process run and equal to
-    single-node. Launches are counted from 0 over the six warm gRPC runs.
+    single-node. Launches are counted from 0 over the warm gRPC runs.
     2. SF WIRE_KNOB_SF: WIRE_KNOB_QUERIES under each plane and wire
     compression of WIRE_PLANES (WIRE_KNOB_ONLY's under theirs),
     byte-identical to the in-process run;
@@ -4309,8 +4929,11 @@ def phase_tools(sf: float, seed: int) -> dict:
 MESH_WORKERS = 2  # mesh workers of the cluster
 MESH_WIDTH = 4  # local tasks (devices) a worker
 MESH_TASKS = 8  # tasks a stage: one span of 4 on each worker
-#: scans, the five- and six-way joins, the big GROUP BY, the anti-join
-MESH_QUERIES = ("q1", "q3", "q5", "q9", "q18", "q21")
+#: scans, the five- and six-way joins, the big GROUP BY (the anti-join
+#: q21 until PR 16: its SF 1 runs over the mesh workers and the SPMD ranks,
+#: ~30 s, went to the adaptive phase; it still runs in both phases' 22
+#: queries at SF 0.1)
+MESH_QUERIES = ("q1", "q3", "q5", "q9", "q18")
 #: the queries rerun over workers that keep their spans, as the JAX
 #: package's do (the retention peaks at q9, 21.3 GB after it on the card)
 MESH_KEPT_QUERIES = ("q3", "q9")
@@ -4693,7 +5316,7 @@ def spmd_rank(job_path: str, rank: int) -> int:
                 raise RuntimeError("the one-rank NCCL runs never ended")
             time.sleep(0.05)
         hk.reset_launch_counts()  # the in-process arm's are not the path's
-        # (b) the six queries at SF 1, cold then warm
+        # (b) the SPMD_QUERIES at SF 1, cold then warm
         out["b"] = {}
         launches: dict = {}
         for q in SPMD_QUERIES:
@@ -4739,7 +5362,7 @@ def spmd_rank(job_path: str, rank: int) -> int:
 
 
 def _nccl_world_of_one(tables: str, tmp: Path) -> dict:
-    """(c): the six queries through ``collect_distributed_table(mesh=)``
+    """(c): the SPMD_QUERIES through ``collect_distributed_table(mesh=)``
     on a one-rank NCCL group, each equal to collect_distributed_table(1)
     byte for byte (its plan has no exchange left: the run's collectives
     are the plan check and the flags' all_reduce)."""
@@ -4899,7 +5522,7 @@ def phase_spmd(sf: float, seed: int) -> dict:
         f"ranks byte-identical to in-process on every rank "
         f"({_since(t_phase)})")
 
-    # (b) the six at SF 1
+    # (b) the SPMD_QUERIES at SF 1
     ref = ranks[0]["b_inproc"]
     out["b"] = {}
     for q in SPMD_QUERIES:
@@ -5450,7 +6073,8 @@ SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
           "window", "distributed", "tasks", "coordinator", "serving",
-          "resilience", "wire", "tools", "mesh", "spmd", "clickbench")
+          "resilience", "adaptive", "wire", "tools", "mesh", "spmd",
+          "clickbench")
 CLICKBENCH_TIMEOUT_S = 800
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -5565,6 +6189,8 @@ def main(argv=None) -> int:
                 results["serving"] = phase_serving(SF, CHECK_SF, SEED)
             elif phase == "resilience":
                 results["resilience"] = phase_resilience(SF, CHECK_SF, SEED)
+            elif phase == "adaptive":
+                results["adaptive"] = phase_adaptive(SF, SEED)
             elif phase == "wire":
                 results["wire"] = phase_wire(SF, CHECK_SF, SEED)
             elif phase == "tools":
@@ -5601,6 +6227,7 @@ def main(argv=None) -> int:
              "coordinated_adaptive": ("coordinator",),
              "serving": ("serving",),
              "resilience": ("resilience",),
+             "adaptive": ("adaptive",),
              "wire": ("wire",),
              "tools": ("tools",),
              "mesh": ("mesh",),
@@ -5609,8 +6236,9 @@ def main(argv=None) -> int:
              "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
                     for phase in ("distributed", "tasks", "coordinator",
-                                  "serving", "resilience", "wire",
-                                  "tools", "mesh", "spmd", "clickbench")]
+                                  "serving", "resilience", "adaptive",
+                                  "wire", "tools", "mesh", "spmd",
+                                  "clickbench")]
     shape_checks.append(results.get("clickbench", {}).get("t8", {})
                         .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
@@ -5712,6 +6340,16 @@ def main(argv=None) -> int:
             "served": d["served"], "resume": d["resume"],
             "card_cpu": d["card_cpu"], "shapes": d["shapes"],
             "launches": d["launches"]}}))
+    if "adaptive" in results:
+        d = results["adaptive"]
+        print(json.dumps({"adaptive": {
+            "adaptations": {k: {x: r[x] for x in (
+                "off_s", "on_s", "adapted", "counters")}
+                for k, r in d["adaptations"].items()},
+            "deadlines": d["deadlines"], "breaker": d["breaker"],
+            "streaming": {k: d["streaming"][k] for k in (
+                "stream", "bulk", "budget", "fetch_capped_bytes")},
+            "shapes": d["shapes"], "launches": d["launches"]}}))
     if "wire" in results:
         d = results["wire"]
         print(json.dumps({"wire": {

@@ -270,16 +270,18 @@ def assert_matches_reference(ref, got, what: str = "") -> None:
     assert_results_equal(ref.to_numpy(), got.to_numpy(), what)
 
 
-def record_shipped_plans(cluster) -> list:
-    """A list that gathers (stage, task, fingerprint) of every task plan
-    shipped to ``cluster``'s workers from now on, by the fingerprint its
-    encoder stamped on it."""
+def record_shipped_plans(cluster, observe=None) -> list:
+    """A list that gathers (stage, task, observed) of every task plan
+    shipped to ``cluster``'s workers from now on: ``observe(encoded
+    plan)``, by default the fingerprint its encoder stamped on it."""
+    if observe is None:
+        observe = lambda plan_obj: plan_obj.get("_fp")  # noqa: E731
     got = []
     for w in cluster.workers.values():
         real = w.set_plan
 
         def set_plan(key, plan_obj, *a, _real=real, **kw):
-            got.append((key.stage_id, key.task_number, plan_obj.get("_fp")))
+            got.append((key.stage_id, key.task_number, observe(plan_obj)))
             return _real(key, plan_obj, *a, **kw)
 
         w.set_plan = set_plan
@@ -302,3 +304,67 @@ def sum_by_key_plan(P, n: int = 2048, num_tasks: int = 4):
         scan, 32)
     return dist.distribute_plan(agg, dist.DistributedConfig(
         num_tasks=num_tasks))
+
+
+class ChunkOrder:
+    """Serializes the chunks of a coordinated stage's streamed tasks into a
+    fixed arrival order: ``"task0_first"`` lets the lowest live task yield
+    every chunk before the next one starts; ``"round_robin"`` passes the
+    turn to the next live task after each chunk. A task's turn ends when
+    the consumer asks for its next chunk (so the chunk already went
+    through the consumer queue), and a cancelled stream stops waiting."""
+
+    ORDERS = ("task0_first", "round_robin")
+
+    def __init__(self, num_tasks: int, order: str):
+        import threading
+
+        assert order in self.ORDERS, order
+        self.order = order
+        self._cv = threading.Condition()
+        self._live = list(range(num_tasks))
+        self._pos = 0
+
+    def _owner(self):
+        return self._live[self._pos] if self._live else None
+
+    def wrap(self, stream, task: int, cancel):
+        try:
+            for item in stream:
+                with self._cv:
+                    while self._owner() != task and not (
+                            cancel is not None and cancel.is_set()):
+                        self._cv.wait(0.05)
+                yield item
+                with self._cv:
+                    if self.order == "round_robin" and self._live:
+                        self._pos = (self._pos + 1) % len(self._live)
+                    self._cv.notify_all()
+        finally:
+            with self._cv:
+                i = self._live.index(task)
+                self._live.pop(i)
+                if i < self._pos:
+                    self._pos -= 1
+                if self._pos >= len(self._live):
+                    self._pos = 0
+                self._cv.notify_all()
+
+
+def force_chunk_order(cluster, num_tasks: int, order: str) -> ChunkOrder:
+    """Wrap every worker's ``execute_task_stream`` of ``cluster`` so that
+    the chunks of a streamed stage of ``num_tasks`` tasks reach the
+    coordinator in ``order`` (ChunkOrder). Round robin needs every task
+    executing at once: the coordinator runs at most one streamed task a
+    worker, so the cluster needs a worker per task."""
+    assert order != "round_robin" or len(cluster.workers) >= num_tasks
+    seq = ChunkOrder(num_tasks, order)
+    for w in cluster.workers.values():
+        real = w.execute_task_stream
+
+        def stream(key, *a, _real=real, cancel=None, **kw):
+            return seq.wrap(_real(key, *a, cancel=cancel, **kw),
+                            key.task_number, cancel)
+
+        w.execute_task_stream = stream
+    return seq
