@@ -131,8 +131,8 @@ Phases, each of which must pass:
    under a GROUP BY, equal to the GROUP BY over the whole table (each
    unit's four timestamps); kernels 1, 2 and 3 at every logged shape; the
    served q1/q6 mix over two gRPC workers at SF 0.1 in a subprocess with
-   DFTPU_LOCK_CHECK=0 and in one with DFTPU_LOCK_CHECK=1 (warm seconds of
-   both; observed lock-order edges, static or new, hold outliers and
+   DFTPU_LOCK_CHECK=0 and, at the same time, in one with
+   DFTPU_LOCK_CHECK=1 (warm seconds of both; observed lock-order edges, static or new, hold outliers and
    events; a lock-order cycle fails it); and, in a subprocess with jax
    blocked, a star query over three fresh gRPC clusters in a row (the shm,
    stream and shm planes), each equal to single-node.
@@ -148,6 +148,17 @@ Phases, each of which must pass:
    workers that keep their last spans (as the JAX package's do) hold
    after q3 and q9 of the warm mix; kernels 1, 2 and 3 at every logged
    shape.
+15b. examples — the port's examples (datafusion_distributed_tpu_torch/
+   examples/, one a file of examples/) through their run(), each at
+   8,388,608 rows with its own key domains (the work-unit feed as 4
+   parquet files of 2^21 rows), cold then warm (seconds, peak allocated
+   bytes, the example's own observable: clamped rows, routing decisions
+   by stage, each worker's drain wait and the epochs, wire bytes and
+   codec, span plans run), warm equal to cold; each at 20,000 rows on
+   "cuda" against "cpu" in this process (frames at precision.test_rtol(),
+   plans, clamped rows, routes, epochs, the refusal, fed rows and sums,
+   the console's sections exactly); kernels 1, 2 and 3 at every logged
+   shape. The two SPMD examples also run over the spmd phase's ranks.
 16. spmd — the SPMD tier: four rank processes of this script form a
    gloo group on the card (NCCL refuses two ranks on one device), each
    over the same TPC-H tables, and run collect_distributed_table(mesh=):
@@ -158,8 +169,11 @@ Phases, each of which must pass:
    (seconds of both, each rank's peak allocated bytes, the bytes each
    exchange kind sent); meanwhile the five at SF 1 over a one-rank NCCL
    group in this process, each equal to
-   collect_distributed_table(1); kernels 1, 2 and 3 at every shape the
-   ranks logged.
+   collect_distributed_table(1); the port's two SPMD examples
+   (custom_partial_reduction_tree with 4 leaf tasks and 2 groups,
+   mesh_spmd_query) at 8,388,608 rows over the ranks, every rank's result
+   byte-identical to rank 0's in-process run at 4 tasks; kernels 1, 2 and
+   3 at every shape the ranks logged.
 17. clickbench — in a DFTPU_PRECISION=x64 subprocess (the mode is fixed at
    import): the `hits` table at its published 99,997,497 rows, seed 3, all
    43 queries of benchmarks/queries/clickbench/ twice, byte-identical; then
@@ -180,7 +194,8 @@ The main phase, the window phase, the one-task staged path, each
 coordinator's second run, the serving tier's fair-share arm, the hedged
 straggler arm's warm run, each warm gRPC run of the wire phase, the tools
 phase's in-process runs (cli, tracing, console, feed), each warm run over
-the mesh workers, each rank's warm SPMD runs and the ClickBench run each
+the mesh workers, each example's warm run, each rank's warm SPMD runs
+and the ClickBench run each
 set the kernels' launch counts to 0 just before they run and read them
 just after.
 The line before the last is a JSON object with every kernel's numbers; the
@@ -2942,25 +2957,55 @@ def leakcheck_worker(out_path: str) -> int:
     return 0
 
 
+def _side_by_side(runs: dict, timeout_s: float) -> dict:
+    """This script once for each entry of ``runs`` (name -> (its
+    arguments, its environment)), all started at once, each writing JSON
+    to the ``--out`` it is given: -> name -> that JSON and the process's
+    wall seconds (``process_s``). One that fails or outlasts
+    ``timeout_s`` fails the phase; none is left running."""
+    procs = {}
+    try:
+        for name, (args, env) in runs.items():
+            out_path = Path(tempfile.mkdtemp()) / "worker.json"
+            t0 = time.perf_counter()
+            procs[name] = (out_path, t0, subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), *args,
+                 "--out", str(out_path)],
+                stdout=subprocess.DEVNULL, env=env))
+        deadline = time.perf_counter() + timeout_s
+        walls: dict = {}
+        while len(walls) < len(procs):
+            check(time.perf_counter() < deadline,
+                  f"{sorted(set(procs) - set(walls))} outlasted {timeout_s} s")
+            for name, (_out_path, t0, proc) in procs.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            time.sleep(0.05)
+        out = {}
+        for name, (out_path, _t0, proc) in procs.items():
+            check(proc.returncode == 0,
+                  f"{runs[name][0]} ({name}) exited {proc.returncode}")
+            out[name] = {**json.loads(out_path.read_text()),
+                         "process_s": walls[name]}
+        return out
+    finally:
+        for _out_path, _t0, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def leak_arms() -> dict:
-    """LEAK_ARMS in a subprocess unarmed (DFTPU_LEAK_CHECK=0), then in one
-    armed strict: -> both reports and the harness's cost, the armed warm
-    seconds over the unarmed ones, per arm. A survivor, a wrong result or
-    a subprocess that fails fails the phase."""
+    """LEAK_ARMS in a subprocess unarmed (DFTPU_LEAK_CHECK=0) and, at the
+    same time, in one armed strict: -> both reports and the harness's
+    cost, the armed warm seconds over the unarmed ones, per arm. A
+    survivor, a wrong result or a subprocess that fails fails the phase."""
     runs = {}
     for mode in ("0", "strict"):
-        out_path = Path(tempfile.mkdtemp()) / "leak_worker.json"
         env = dict(os.environ, DFTPU_LEAK_CHECK=mode)
         env.pop("DFTPU_LEAK_CHECK_ARTIFACT", None)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()),
-             "--leakcheck-worker", "--out", str(out_path)],
-            stdout=subprocess.DEVNULL, env=env, timeout=LEAK_TIMEOUT_S)
-        check(proc.returncode == 0, f"the leak arms "
-              f"(DFTPU_LEAK_CHECK={mode}) exited {proc.returncode}")
-        runs[mode] = {**json.loads(out_path.read_text()),
-                      "process_s": time.perf_counter() - t0}
+        runs[mode] = (["--leakcheck-worker"], env)
+    runs = _side_by_side(runs, LEAK_TIMEOUT_S)
     armed, plain = runs["strict"], runs["0"]
     check(armed["installed"] and armed["strict"] and not plain["installed"],
           f"the switch: armed {armed['installed']}/{armed['strict']}, "
@@ -4630,22 +4675,6 @@ def crash_worker(sf: float, out_path: str) -> int:
     return 0
 
 
-def _tools_subprocess(flag: str, sf: float, lock_check: str) -> dict:
-    """This script in a subprocess with ``flag`` at SF ``sf`` and
-    DFTPU_LOCK_CHECK=``lock_check``: -> its JSON, with its wall seconds."""
-    out_path = Path(tempfile.mkdtemp()) / "tools_worker.json"
-    env = dict(os.environ, DFTPU_LOCK_CHECK=lock_check)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), flag, str(sf),
-         "--out", str(out_path)],
-        stdout=subprocess.DEVNULL, env=env, timeout=TOOLS_SUB_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0,
-          f"{flag} (DFTPU_LOCK_CHECK={lock_check}) exited {proc.returncode}")
-    return {**json.loads(out_path.read_text()), "process_s": wall}
-
-
 def _plain_text(frame: str) -> str:
     return re.sub(r"\x1b\[[0-9;]*m", "", frame)
 
@@ -4672,10 +4701,10 @@ def phase_tools(sf: float, seed: int) -> dict:
     5. Kernels 1, 2 and 3 at every shape parts 1-4 logged, bit for bit
     against their plain versions.
     6. lockcheck: the served mix of `lockcheck_worker` at SF TOOLS_LOCK_SF
-    in a subprocess with DFTPU_LOCK_CHECK=0, then in one with
-    DFTPU_LOCK_CHECK=1 (observed edges, static or new; hold outliers;
+    in a subprocess with DFTPU_LOCK_CHECK=0 and, at the same time, in one
+    with DFTPU_LOCK_CHECK=1 (observed edges, static or new; hold outliers;
     events; no lock-order cycle).
-    7. The crash repro of `crash_worker` in a subprocess at SF
+    7. Meanwhile, the crash repro of `crash_worker` in a subprocess at SF
     TOOLS_CRASH_SF."""
     import contextlib
     import gc
@@ -4900,9 +4929,17 @@ def phase_tools(sf: float, seed: int) -> dict:
     out["shapes"] = {k: len(v) for k, v in shapes.items()}
     log(f"[tools] shapes checked: {out['shapes']} ({_since(t_phase)})")
 
-    # --- 6. the lock-order harness off and on ------------------------------
-    lock = {arm: _tools_subprocess("--lockcheck-worker", TOOLS_LOCK_SF, env)
-            for arm, env in (("off", "0"), ("on", "1"))}
+    # --- 6 and 7: the lock-order harness off and on, side by side (the
+    # same work at the same time), and the crash repro meanwhile
+    runs = _side_by_side({
+        "off": (["--lockcheck-worker", str(TOOLS_LOCK_SF)],
+                dict(os.environ, DFTPU_LOCK_CHECK="0")),
+        "on": (["--lockcheck-worker", str(TOOLS_LOCK_SF)],
+               dict(os.environ, DFTPU_LOCK_CHECK="1")),
+        "crash": (["--crash-worker", str(TOOLS_CRASH_SF)],
+                  dict(os.environ, DFTPU_LOCK_CHECK="0")),
+    }, TOOLS_SUB_TIMEOUT_S)
+    lock = {"off": runs["off"], "on": runs["on"]}
     check(not lock["off"]["installed"] and lock["on"]["installed"],
           f"the harness installed: off {lock['off']['installed']}, on "
           f"{lock['on']['installed']}")
@@ -4913,10 +4950,7 @@ def phase_tools(sf: float, seed: int) -> dict:
     out["lockcheck"] = lock
     log(f"[tools] lockcheck off / on: warm {lock['off']['warm_s']:.3f} / "
         f"{lock['on']['warm_s']:.3f} s; {lock['on']} ({_since(t_phase)})")
-
-    # --- 7. the crash repro -------------------------------------------------
-    out["crash_repro"] = _tools_subprocess("--crash-worker", TOOLS_CRASH_SF,
-                                           "0")
+    out["crash_repro"] = runs["crash"]
     log(f"[tools] three fresh gRPC clusters, jax blocked: "
         f"{out['crash_repro']} ({_since(t_phase)})")
     return out
@@ -5182,6 +5216,125 @@ def phase_mesh(sf: float, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15b: the port's examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLE_ROWS = 1 << 23  # lineitem's padded capacity at TPC-H SF 1
+EXAMPLE_CHECK_ROWS = 20_000  # card against CPU
+#: the SPMD pair: the in-process examples here, over the ranks in `spmd`
+EXAMPLES_SPMD = ("custom_partial_reduction_tree", "mesh_spmd_query")
+
+
+def phase_examples() -> dict:
+    """The port's examples (`datafusion_distributed_tpu_torch/examples/`)
+    on the card, each through its ``run()`` as a user calls it.
+
+    Every ``run()`` returns ``{"frames", "facts", "observed"}``
+    (`examples/_common.py`).
+    1. Each at EXAMPLE_ROWS rows (its own key domains; the work-unit feed
+    as 4 parquet files of EXAMPLE_ROWS / 4 rows), cold then warm: seconds
+    of both, the warm run's peak allocated bytes above what was allocated
+    before it, its frames' rows, its facts (but the plan texts) and what
+    it observed; the warm run's frames and facts equal to the cold run's.
+    Launches are counted from 0 over the warm runs.
+    2. Each at EXAMPLE_CHECK_ROWS rows on "cuda" and on "cpu" in this
+    process: frames equal (ints, strings and row order exact, floats at
+    precision.test_rtol()), and the facts (plans, clamped rows, routes,
+    epochs, the refusal, fed rows and sums, the console's sections)
+    exactly.
+    3. Kernels 1, 2 and 3 at every shape the card's runs logged, against
+    their plain versions.
+    The SPMD pair runs over the ranks in the spmd phase."""
+    import importlib
+
+    import torch
+
+    from datafusion_distributed_tpu_torch import precision
+    from datafusion_distributed_tpu_torch.examples import EXAMPLES
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+
+    t_phase = time.perf_counter()
+    rtol = precision.test_rtol()
+    shapes = {"build": {}, "probe": {}, "agg": {}}
+    launches: dict = {}
+    out: dict = {"rows": EXAMPLE_ROWS, "examples": {}}
+    hk.reset_launch_counts()
+    for name in EXAMPLES:
+        mod = importlib.import_module(
+            f"datafusion_distributed_tpu_torch.examples.{name}")
+
+        def run(device, n):
+            t0 = time.perf_counter()
+            r = mod.run(device=device, n=n)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        cold, cold_s = run("cuda", EXAMPLE_ROWS)
+        _drain_shapes(hk, shapes)
+        # the run's own peak: above what earlier phases left allocated
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        warm, s = run("cuda", EXAMPLE_ROWS)
+        mine = dict(hk.LAUNCHES)
+        for k, v in mine.items():
+            launches[k] = launches.get(k, 0) + v
+        _drain_shapes(hk, shapes)
+        rec = {"cold_s": cold_s, "s": s,
+               "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+               "launches": mine,
+               "rows": {k: len(next(iter(f.values())))
+                        for k, f in warm["frames"].items()},
+               "facts": {k: v for k, v in warm["facts"].items()
+                         if k != "plan"},
+               "observed": warm["observed"]}
+        for key, f in warm["frames"].items():
+            check(_identical(f, cold["frames"][key]),
+                  f"{name}: the warm run's {key} differs from the cold run's")
+        check(warm["facts"] == cold["facts"],
+              f"{name}: the warm run's facts differ from the cold run's")
+        del cold, warm
+        # card against CPU at EXAMPLE_CHECK_ROWS
+        card, _s = run("cuda", EXAMPLE_CHECK_ROWS)
+        _drain_shapes(hk, shapes)
+        host, _s = run("cpu", EXAMPLE_CHECK_ROWS)
+        hk.reset_launch_counts()
+        for key, f in card["frames"].items():
+            diff = _close(f, host["frames"][key], rtol)
+            check(diff == "", f"{name} at {EXAMPLE_CHECK_ROWS} rows: the "
+                  f"card's {key} differs from the CPU's in {diff}")
+        check(card["facts"] == host["facts"],
+              f"{name} at {EXAMPLE_CHECK_ROWS} rows: the card's facts "
+              f"{card['facts']} differ from the CPU's {host['facts']}")
+        rec["card_cpu_equal"] = True
+        out["examples"][name] = rec
+        del card, host
+        torch.cuda.empty_cache()
+        log(f"[examples] {name}: {rec} ({_since(t_phase)})")
+    out["launches"] = launches
+    for k in ("build_group_ids", "multiway_probe"):
+        check(launches.get(k, 0) > 0,
+              f"kernel {k} was not launched by the examples' warm runs")
+    log(f"[examples] launches over the warm runs: {launches}")
+
+    t_checks = time.perf_counter()
+    dev = torch.device("cuda")
+    out["kernel_checks"] = {
+        "build_group_ids": build_shape_checks(
+            [[n, lanes, h, c] for (n, lanes, h), c
+             in shapes["build"].items()], dev, "examples"),
+        "multiway_probe": probe_shape_checks(
+            [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
+             in shapes["probe"].items()], dev, "examples"),
+        "group_aggregate": agg_shape_checks(shapes["agg"], dev, "examples"),
+    }
+    out["shapes"] = {k: len(v) for k, v in shapes.items()}
+    out["checks_s"] = time.perf_counter() - t_checks
+    log(f"[examples] shapes checked: {out['shapes']} ({_since(t_phase)})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 16: the SPMD tier, gloo ranks sharing the card
 # ---------------------------------------------------------------------------
 
@@ -5335,9 +5488,32 @@ def spmd_rank(job_path: str, rank: int) -> int:
                 "cold_s": cold_s, "s": s, "retries": retries,
                 "peak_bytes": torch.cuda.max_memory_allocated(),
                 "sent_bytes": ex.spmd_stats()}
+        # the port's two SPMD examples at EXAMPLE_ROWS over the ranks
+        examples = _examples_spmd()
+        out["examples"] = {}
+        for name, mod in examples.items():
+            t0 = time.perf_counter()
+            got = mod.run(device=mesh.device, n=EXAMPLE_ROWS, mesh=mesh)
+            torch.cuda.synchronize()
+            out["examples"][name] = {"result": got["frames"]["result"],
+                                     "plan": got["facts"]["plan"],
+                                     "s": time.perf_counter() - t0}
+            _drain_shapes(hk, shapes)
+            torch.cuda.empty_cache()
         out["launches"] = launches
         out["shapes"] = shapes
         if rank == 0:
+            # the examples in process on the card, at the ranks' task count
+            out["examples_inproc"] = {}
+            for name, mod in examples.items():
+                kw = ({"coordinated": False}
+                      if name == "custom_partial_reduction_tree" else {})
+                got = mod.run(device=mesh.device, n=EXAMPLE_ROWS,
+                              num_tasks=mesh.size, **kw)
+                out["examples_inproc"][name] = {
+                    "result": got["frames"]["result"],
+                    "plan": got["facts"]["plan"]}
+                torch.cuda.empty_cache()
             # the in-process arm on the card, as a user's session runs it
             card = _spmd_session(job["tables"]["big"], mesh.device)
             out["b_inproc"] = {}
@@ -5359,6 +5535,14 @@ def spmd_rank(job_path: str, rank: int) -> int:
         Path(job["out"].format(rank=rank)).write_bytes(pickle.dumps(out))
         dist.destroy_process_group()
     return 1 if "failed" in out else 0
+
+
+def _examples_spmd() -> dict:
+    import importlib
+
+    return {name: importlib.import_module(
+        f"datafusion_distributed_tpu_torch.examples.{name}")
+        for name in EXAMPLES_SPMD}
 
 
 def _nccl_world_of_one(tables: str, tmp: Path) -> dict:
@@ -5550,6 +5734,25 @@ def phase_spmd(sf: float, seed: int) -> dict:
         log(f"[spmd] (b) {q}: {out['b'][q]} ({_since(t_phase)})")
     out["warm_s"] = sum(r["s"] for r in out["b"].values())
     out["inproc_s"] = sum(r["inproc_s"] for r in out["b"].values())
+
+    # the port's SPMD examples at EXAMPLE_ROWS against rank 0's in-process
+    # run at the same task count
+    out["examples"] = {}
+    for name in EXAMPLES_SPMD:
+        ref = ranks[0]["examples_inproc"][name]
+        for r, res in enumerate(ranks):
+            got = res["examples"][name]
+            check(_identical(got["result"], ref["result"]),
+                  f"example {name}: rank {r}'s SPMD result differs from the "
+                  "in-process run")
+            check(got["plan"] == ref["plan"],
+                  f"example {name}: rank {r}'s staged plan differs")
+        out["examples"][name] = {
+            "s": max(res["examples"][name]["s"] for res in ranks),
+            "rows": len(next(iter(ref["result"].values())))}
+    log(f"[spmd] the examples over {SPMD_RANKS} ranks at {EXAMPLE_ROWS} "
+        f"rows byte-identical to in-process: {out['examples']} "
+        f"({_since(t_phase)})")
     launches: dict = {}
     for res in ranks:
         for k, v in res["launches"].items():
@@ -6073,8 +6276,8 @@ SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock, ahead of timed calls
 SF = 1.0  # main path: the smallest official TPC-H scale
 PHASES = ("build", "kernels", "main", "check", "profile", "session",
           "window", "distributed", "tasks", "coordinator", "serving",
-          "resilience", "adaptive", "wire", "tools", "mesh", "spmd",
-          "clickbench")
+          "resilience", "adaptive", "wire", "tools", "mesh", "examples",
+          "spmd", "clickbench")
 CLICKBENCH_TIMEOUT_S = 800
 CHECK_SF = 0.01  # card against CPU
 SEED = 7
@@ -6197,6 +6400,8 @@ def main(argv=None) -> int:
                 results["tools"] = phase_tools(SF, SEED)
             elif phase == "mesh":
                 results["mesh"] = phase_mesh(SF, SEED)
+            elif phase == "examples":
+                results["examples"] = phase_examples()
             elif phase == "spmd":
                 results["spmd"] = phase_spmd(SF, SEED)
             else:
@@ -6231,14 +6436,15 @@ def main(argv=None) -> int:
              "wire": ("wire",),
              "tools": ("tools",),
              "mesh": ("mesh",),
+             "examples": ("examples",),
              "spmd": ("spmd",),
              "clickbench_x64": ("clickbench",),
              "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
                     for phase in ("distributed", "tasks", "coordinator",
                                   "serving", "resilience", "adaptive",
-                                  "wire", "tools", "mesh", "spmd",
-                                  "clickbench")]
+                                  "wire", "tools", "mesh", "examples",
+                                  "spmd", "clickbench")]
     shape_checks.append(results.get("clickbench", {}).get("t8", {})
                         .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
@@ -6400,12 +6606,18 @@ def main(argv=None) -> int:
             "all22_s": d["all22"]["s"], "allocated": d["allocated"],
             "spans_kept": d["spans_kept"], "shapes": d["shapes"],
             "launches": d["launches"]}}))
+    if "examples" in results:
+        d = results["examples"]
+        print(json.dumps({"examples": {
+            "rows": d["rows"], "examples": d["examples"],
+            "shapes": d["shapes"], "launches": d["launches"]}}, default=str))
     if "spmd" in results:
         d = results["spmd"]
         print(json.dumps({"spmd": {
             "b": d["b"], "warm_s": d["warm_s"], "inproc_s": d["inproc_s"],
             "a_s": max(d["rank_s"]["a_s"]), "nccl": d["nccl"],
             "rank_s": d["rank_s"], "dump_s": d["dump_s"],
+            "examples": d["examples"],
             "shapes": d["shapes"], "launches": d["launches"]}}))
     if "clickbench" in results:
         cb = results["clickbench"]

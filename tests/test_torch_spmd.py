@@ -25,6 +25,7 @@ need it starts them; the others wait and read its results):
 - (iii) the mesh cases of tests/test_torch_tasks.py at 4 ranks: union-arm
   isolation, the range sort, the pre-injected reduction tree and the
   shuffle-overflow retry;
+- the port's two SPMD examples (tests/test_torch_examples.py holds them);
 - (v) ranks given different SQL raise the fingerprint error together,
   well inside the group's timeout;
 - (vi) ``make_mesh()`` without CUDA and without ``device="cpu"`` raises.
@@ -75,6 +76,7 @@ CASES = [
      "in_process": True},
     {"name": "mesh", "kind": "mesh", "names": list(MESH_CASES)},
     {"name": "metrics", "kind": "metrics"},
+    {"name": "examples", "kind": "examples"},
     {"name": "different sql", "kind": "different_sql", "sf": 0.01},
     {"name": "no cuda", "kind": "make_mesh_without_cuda"},
 ]

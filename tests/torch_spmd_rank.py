@@ -365,6 +365,26 @@ def run_metrics_case(mesh) -> dict:
     return metrics_by_position(plan, store.per_task)
 
 
+def run_examples_case(mesh) -> dict:
+    """The port's two SPMD examples (custom_partial_reduction_tree,
+    mesh_spmd_query) at their own sizes over ``mesh``, and on rank 0 in
+    process at the mesh's task count."""
+    from datafusion_distributed_tpu_torch.examples import (
+        custom_partial_reduction_tree as tree,
+        mesh_spmd_query as query,
+    )
+
+    out = {}
+    for name, mod in (("custom_partial_reduction_tree", tree),
+                      ("mesh_spmd_query", query)):
+        out[name] = {"spmd": mod.run(device=mesh.device, mesh=mesh)}
+        if mesh.rank == 0:
+            kw = {"coordinated": False} if mod is tree else {}
+            out[name]["in_process"] = mod.run(device=mesh.device,
+                                              num_tasks=mesh.size, **kw)
+    return out
+
+
 def _executing_config(df, num_tasks: int):
     import dataclasses
 
@@ -419,6 +439,8 @@ def run_case(mesh, case: dict, state: dict):
         return {name: run_mesh_case(mesh, name) for name in case["names"]}
     if kind == "metrics":
         return run_metrics_case(mesh)
+    if kind == "examples":
+        return run_examples_case(mesh)
     if kind == "different_sql":
         ctx = state.get("tpch") or tpch_session(mesh.device, case["sf"])
         q = "q1" if mesh.rank == 0 else "q6"
