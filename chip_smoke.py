@@ -839,20 +839,21 @@ def phase_main(sf: float, names, seed: int) -> dict:
         t0 = time.perf_counter()
         first, _ = run_counting_rounds(sql)
         t1 = time.perf_counter()
-        before = dict(hk.LAUNCHES)
+        before = hk.launches()
         second, stats = run_counting_rounds(sql)
         t2 = time.perf_counter()
         check(_identical(first, second), f"{q}: two runs differ")
         rows = len(next(iter(second.values()))) if second else 0
         per_query[q] = {
             "rows": rows, "first_s": t1 - t0, "second_s": t2 - t1,
-            "launches": {k: hk.LAUNCHES[k] - before[k] for k in before},
+            "launches": {k: n - before[k]
+                         for k, n in hk.launches().items()},
             "rounds": stats,
         }
         log(f"[main] {q}: rows={rows} first={t1 - t0:.3f}s "
             f"second={t2 - t1:.3f}s launches={per_query[q]['launches']} "
             f"rounds={stats}")
-    launches = dict(hk.LAUNCHES)
+    launches = hk.launches()
     launches_by_k = _launches_by_k(hk)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
@@ -1129,7 +1130,7 @@ def phase_window(sf: float, check_sf: float, seed: int) -> dict:
         per_query[name] = {"rows": len(next(iter(second.values()))),
                            "first_s": t1 - t0, "second_s": t2 - t1}
         log(f"[window] {name}: {per_query[name]}")
-    launches = dict(hk.LAUNCHES)
+    launches = hk.launches()
     for k in WINDOW_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by the window "
               "queries")
@@ -1283,7 +1284,7 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
         per_query[q] = {"rows": len(next(iter(second.values()))),
                         "first_s": t1 - t0, "staged_s": t2 - t1,
                         "retries": df.last_retry_count}
-    launches = dict(hk.LAUNCHES)
+    launches = hk.launches()
     by_k = _launches_by_k(hk)
     _builds, probe_shapes = kernel_shapes(hk, "distributed")
     for k in DISTRIBUTED_KERNELS:
@@ -1598,7 +1599,7 @@ def phase_tasks(sf: float, check_sf: float, names, seed: int) -> dict:
                             rows=len(next(iter(warm.values()))))
         check(_identical(results[q], warm), f"{q}: two runs at T={TASKS} "
               "differ")
-    launches = dict(hk.LAUNCHES)
+    launches = hk.launches()
     by_k = _launches_by_k(hk)
     builds, probes = kernel_shapes(hk, "tasks")
     # kernel 3 fuses a single-mode GROUP BY, which 8 tasks split into
@@ -1634,7 +1635,7 @@ def phase_tasks(sf: float, check_sf: float, names, seed: int) -> dict:
                       rtol)
         check(diff == "", f"{q}: T={TASKS} with and without multiway "
               f"fusion differ in {diff}")
-    mw_launches = dict(hk.LAUNCHES)
+    mw_launches = hk.launches()
     mw_by_k = _launches_by_k(hk)
     mw_builds, mw_probes = kernel_shapes(hk, "tasks multiway")
     del fused_off, results
@@ -2086,7 +2087,7 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
                     coord.task_count_decisions)
             check(_identical(first[q], warm), f"{q}: two {mode} "
                   "coordinated runs differ")
-        launches = dict(hk.LAUNCHES)
+        launches = hk.launches()
         for k in COORD_KERNELS:
             check(launches[k] > 0, f"kernel {k} was not launched by the "
                   f"{mode} coordinator")
@@ -2546,7 +2547,7 @@ def _serving_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
             hk.reset_launch_counts()
         r = _closed_loop(ctx, cluster, sqls, arm, seed)
         if name == "fair_share":
-            out["launches"] = dict(hk.LAUNCHES)
+            out["launches"] = hk.launches()
         for _ci, q, _h, table in r.pop("records"):
             check(_identical(table.to_numpy(), base[q]),
                   f"{q} in the {name} arm differs from its sequential run")
@@ -3207,7 +3208,7 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
                 if name == "no_fault_off" and run == "warm":
                     plain[q] = got
             if name == "straggler_on" and run == "warm":
-                out["launches"] = dict(hk.LAUNCHES)
+                out["launches"] = hk.launches()
                 _drain_shapes(hk, shapes)
         counters = {k: coord.faults.get(k)
                     for k in ("hedges_issued", "hedges_won", "hedges_lost",
@@ -3994,7 +3995,7 @@ def phase_adaptive(sf: float, seed: int) -> dict:
     ctx = _session("cuda", ADAPTIVE_SF, seed)
     hk.reset_launch_counts()
     out["adaptations"] = _adaptations_on_card(ctx, seed, dev)
-    out["launches"] = dict(hk.LAUNCHES)
+    out["launches"] = hk.launches()
     for k in ("build_group_ids", "multiway_probe"):
         check(out["launches"].get(k, 0) > 0,
               f"kernel {k} was not launched by the adaptation arms")
@@ -4349,7 +4350,7 @@ def _wire_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
                 r["s"] = time.perf_counter() - t0
                 r["warm_copies"] = copy_stats()
                 r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-                for k, v in hk.LAUNCHES.items():
+                for k, v in hk.launches().items():
                     launches[k] = launches.get(k, 0) + v
                 _drain_shapes(hk, shapes)
                 r["wire"] = transport.wire_stats()
@@ -4739,7 +4740,7 @@ def phase_tools(sf: float, seed: int) -> dict:
     launches: dict = {}
 
     def take() -> None:
-        for k, v in hk.LAUNCHES.items():
+        for k, v in hk.launches().items():
             launches[k] = launches.get(k, 0) + v
         _drain_shapes(hk, shapes)
 
@@ -5097,7 +5098,7 @@ def phase_mesh(sf: float, seed: int) -> dict:
         warm = _mesh_coordinated(ctx, sql, mesh)
         r["s"] = time.perf_counter() - t0
         r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        for k, v in hk.LAUNCHES.items():
+        for k, v in hk.launches().items():
             launches[k] = launches.get(k, 0) + v
         _drain_shapes(hk, shapes)
         r["spans"] = {u: w.spans_run - runs0[u]
@@ -5151,7 +5152,7 @@ def phase_mesh(sf: float, seed: int) -> dict:
         check(diff == "", f"{q} at SF {MESH_ALL_SF} over mesh workers "
               f"differs from single-node in {diff}")
         all22[q] = {"rows": len(next(iter(got.values()))), "tied": tied}
-    kernel3 = hk.LAUNCHES.get("group_aggregate", 0)
+    kernel3 = hk.launches().get("group_aggregate", 0)
     _drain_shapes(hk, shapes)
     out["all22"] = {"s": time.perf_counter() - t0, "queries": all22,
                     "group_aggregate_launches": kernel3}
@@ -5276,7 +5277,7 @@ def phase_examples() -> dict:
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         warm, s = run("cuda", EXAMPLE_ROWS)
-        mine = dict(hk.LAUNCHES)
+        mine = hk.launches()
         for k, v in mine.items():
             launches[k] = launches.get(k, 0) + v
         _drain_shapes(hk, shapes)
@@ -5478,7 +5479,7 @@ def spmd_rank(job_path: str, rank: int) -> int:
             ex.reset_spmd_stats()
             torch.cuda.reset_peak_memory_stats()
             warm, s, retries = spmd(big, q)
-            for k, v in hk.LAUNCHES.items():
+            for k, v in hk.launches().items():
                 launches[k] = launches.get(k, 0) + v
             _drain_shapes(hk, shapes)
             log(f"[spmd rank {rank}] {q}: cold {cold_s:.3f}s, warm {s:.3f}s, "
@@ -5870,7 +5871,7 @@ def clickbench_worker(out_path: str) -> int:
                         "first_s": t1 - t0, "second_s": t2 - t1,
                         "retries": df.last_retry_count}
         log(f"[clickbench] {q}: {per_query[q]}")
-    launches = dict(hk.LAUNCHES)
+    launches = hk.launches()
     for k in CLICKBENCH_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by ClickBench")
     build_shapes, probe_shapes = kernel_shapes(hk, "clickbench")
@@ -6064,7 +6065,7 @@ def _clickbench_tasks(hits, queries, checked: set) -> dict:
                                                  precision.test_rtol())
         check(diff == "", f"{q}: T={TASKS} and single-node differ in {diff}")
         log(f"[clickbench] {q} T={TASKS}: {t8[q]}")
-    launches = dict(hk.LAUNCHES)
+    launches = hk.launches()
     for k in CLICKBENCH_KERNELS:
         check(launches[k] > 0,
               f"kernel {k} was not launched by ClickBench at T={TASKS}")

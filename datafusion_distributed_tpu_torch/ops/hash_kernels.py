@@ -23,16 +23,22 @@ VMEM artifacts and are gone.
 
 Dispatch. A wrapper runs the plain version only because its inputs lie on
 the CPU; for CUDA tensors it launches the kernel or raises. Each launch adds
-one to ``LAUNCHES[<wrapper name>]``. Key lanes are int32; int64 lanes
-(``DFTPU_PRECISION=x64``) are split into (lo, hi) int32 pairs, which keeps
-equality — and therefore every slot — unchanged.
+one to its shape in ``BUILD_SHAPES``, ``PROBE_SHAPES`` or ``AGG_SHAPES``;
+`launches()` sums them per wrapper. Each call of a wrapper, on either path,
+is a ``kernel:<wrapper name>`` span (runtime/tracing.py). Key lanes are
+int32; int64 lanes (``DFTPU_PRECISION=x64``) are split into (lo, hi) int32
+pairs, which keeps equality — and therefore every slot — unchanged.
 
 Builds. A build's round count and overflow flag are 0-d tensors on the
 build's device, and each build adds to that device's ``ROUND_STATS``
 counter (the CUDA kernel on the card, the plain path on the CPU), so a
 build on the card makes no host sync; `round_stats()` reads the counters
 when asked. ``BUILD_SHAPES`` counts the launches of kernel 1 by shape,
-``AGG_SHAPES`` those of kernel 3.
+``AGG_SHAPES`` those of kernel 3. While spans are on (the profiler records
+or a single-node trace is open: `tracing.spans_on()`) each build also adds
+its live-row count, which kernel 1 leaves on the card in its scratch, to a
+device counter of its shape (``LIVE_ROWS``: one device add, no sync);
+`live_build_rows()` reads them.
 
 Probe. Kernel 2 walks (row, table) pairs in chunks of two a thread, read
 coalesced, and each thread walks its two chains in lock step, issuing a
@@ -60,12 +66,13 @@ import ctypes
 import functools
 import itertools
 import threading
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from datafusion_distributed_tpu_torch.ops import _build
+from datafusion_distributed_tpu_torch.runtime import tracing
 
 MAX_ROUNDS = 512
 _INT32_MAX = int(np.iinfo(np.int32).max)
@@ -75,8 +82,6 @@ AGG_OPS = {"sum": (0, 0), "min": (1, _INT32_MAX), "max": (2, _INT32_MIN)}
 #: most accumulators of one group_aggregate (two bits of a 64-bit op word each)
 MAX_ACCS = 32
 
-#: kernel launches per wrapper (the plain CPU versions do not count)
-LAUNCHES = {"build_group_ids": 0, "multiway_probe": 0, "group_aggregate": 0}
 #: group-build launches since the last reset, by shape: (rows, int32 key
 #: lanes, slots) -> launches
 BUILD_SHAPES: dict = {}
@@ -96,6 +101,10 @@ MAX_PAIRS = 2**31 - 2**23
 #: and pays only where the probe's reads far outnumber the slots; at 4, the
 #: 22 TPC-H queries spent more device time than at 16 or never (PERF.md)
 PACK_PAIRS_PER_SLOT = 16
+#: live rows of the group builds made while spans were on, since the last
+#: reset: (device, (rows, int32 key lanes, slots)) -> 0-d int64 counter on
+#: that device (the plain path counts on the CPU)
+LIVE_ROWS: dict = {}
 #: claim-loop rounds of the builds since the last reset, one int64 [3]
 #: counter per device (builds, rounds summed, most rounds of one build):
 #: the CUDA builds add to theirs on the card, the plain path to the CPU's
@@ -115,13 +124,48 @@ def _round_stats_of(dev: torch.device) -> torch.Tensor:
         return t
 
 
-def _count_launch(wrapper: str, shapes: Optional[dict] = None,
-                  shape: Optional[tuple] = None) -> None:
-    """One launch of ``wrapper``'s kernel, and of its shape in ``shapes``."""
+def _count_launch(shapes: dict, shape: tuple) -> None:
+    """One launch of a kernel, counted under its shape in ``shapes``."""
     with _COUNT_LOCK:
-        LAUNCHES[wrapper] += 1
-        if shapes is not None:
-            shapes[shape] = shapes.get(shape, 0) + 1
+        shapes[shape] = shapes.get(shape, 0) + 1
+
+
+def launches() -> dict:
+    """Kernel launches per wrapper since the last reset (the plain CPU
+    versions do not count): the sums of the shape counters."""
+    with _COUNT_LOCK:
+        return {"build_group_ids": sum(BUILD_SHAPES.values()),
+                "multiway_probe": sum(PROBE_SHAPES.values()),
+                "group_aggregate": sum(AGG_SHAPES.values())}
+
+
+def _add_live_rows(dev: torch.device, shape: tuple,
+                   rows: torch.Tensor) -> None:
+    """Add a build's live-row count (a 0-d tensor on ``dev``) to its
+    shape's counter: one device add, no sync."""
+    with _COUNT_LOCK:
+        t = LIVE_ROWS.get((dev, shape))
+        if t is None:
+            t = LIVE_ROWS[(dev, shape)] = torch.zeros(
+                (), dtype=torch.int64, device=dev)
+        t.add_(rows)
+
+
+def live_build_rows() -> dict:
+    """Kernel 1's live rows by build shape (rows, int32 key lanes, slots),
+    summed over devices, of the builds made while spans were on since the
+    last reset. Reads each device's counters in one device-to-host copy."""
+    with _COUNT_LOCK:
+        items = list(LIVE_ROWS.items())
+    by_dev: dict = {}
+    for (dev, shape), t in items:
+        by_dev.setdefault(dev, []).append((shape, t))
+    out: dict = {}
+    for pairs in by_dev.values():
+        for (shape, _t), v in zip(pairs,
+                                  torch.stack([t for _s, t in pairs]).tolist()):
+            out[shape] = out.get(shape, 0) + int(v)
+    return out
 
 
 def round_stats() -> dict:
@@ -143,11 +187,10 @@ def reset_round_stats() -> None:
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
         BUILD_SHAPES.clear()
         PROBE_SHAPES.clear()
         AGG_SHAPES.clear()
+        LIVE_ROWS.clear()
     reset_round_stats()
 
 
@@ -294,32 +337,42 @@ def build_group_ids(keys_mat, slot0, live, num_slots: int,
     `build_group_ids_plain`; on the card the overflow flag and the round
     count stay device tensors, so a build makes no host sync."""
     _check_build_args(num_slots, max_rounds, keys_mat.shape[0])
-    lane_dtype = keys_mat.dtype
-    keys = _i32_lanes(keys_mat)
-    if keys.device.type == "cpu":
-        out = build_group_ids_plain(keys, slot0, live, num_slots, max_rounds)
-        _note_rounds_cpu(out[4])
-        return (out[0], _lanes_back(out[1], lane_dtype)) + out[2:]
-    _require_cuda(slot0, live)
-    n, lanes = keys.shape
-    dev = keys.device
-    slot0 = slot0.to(torch.int32).contiguous()
-    live = live.to(torch.bool).contiguous()
-    outs = _build_outputs(n, lanes, num_slots, dev)
-    scratch = _build_scratch(n, num_slots, max_rounds, dev)  # held past launch
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.dftpu_group_build(
-            _ptr(keys), _ptr(slot0), _ptr(live), n, lanes, num_slots,
-            max_rounds, *[_ptr(t) for t in outs],
-            _ptr(_round_stats_of(dev)), *[_ptr(t) for t in scratch],
-            _stream(keys),
-        )
-    _check(lib, err, "dftpu_group_build")
-    _count_launch("build_group_ids", BUILD_SHAPES, (n, lanes, num_slots))
-    gid, slot_keys, slot_used, rounds, overflow = outs
-    return (gid, _lanes_back(slot_keys, lane_dtype), slot_used, overflow,
-            rounds)
+    with tracing.span("kernel", "build_group_ids") as sp:
+        lane_dtype = keys_mat.dtype
+        keys = _i32_lanes(keys_mat)
+        n, lanes = keys.shape
+        shape = (n, lanes, num_slots)
+        sp.note("shape", shape)
+        if keys.device.type == "cpu":
+            out = build_group_ids_plain(keys, slot0, live, num_slots,
+                                        max_rounds)
+            _note_rounds_cpu(out[4])
+            if tracing.spans_on():
+                _add_live_rows(keys.device, shape,
+                               live.to(torch.bool).sum())
+            return (out[0], _lanes_back(out[1], lane_dtype)) + out[2:]
+        _require_cuda(slot0, live)
+        dev = keys.device
+        slot0 = slot0.to(torch.int32).contiguous()
+        live = live.to(torch.bool).contiguous()
+        outs = _build_outputs(n, lanes, num_slots, dev)
+        # held past the launch; its counts[0] is the build's live rows
+        scratch = _build_scratch(n, num_slots, max_rounds, dev)
+        lib = _lib()
+        with torch.cuda.device(dev):
+            err = lib.dftpu_group_build(
+                _ptr(keys), _ptr(slot0), _ptr(live), n, lanes, num_slots,
+                max_rounds, *[_ptr(t) for t in outs],
+                _ptr(_round_stats_of(dev)), *[_ptr(t) for t in scratch],
+                _stream(keys),
+            )
+        _check(lib, err, "dftpu_group_build")
+        _count_launch(BUILD_SHAPES, shape)
+        if tracing.spans_on():
+            _add_live_rows(dev, shape, scratch[2][0])
+        gid, slot_keys, slot_used, rounds, overflow = outs
+        return (gid, _lanes_back(slot_keys, lane_dtype), slot_used, overflow,
+                rounds)
 
 
 def _check_build_args(num_slots: int, max_rounds: int, n: int) -> None:
@@ -403,15 +456,18 @@ def multiway_probe(keys, slot0, active, tkeys_packed, used_packed,
     n, ntab, _ = keys.shape
     if ntab != len(table_slots):
         raise ValueError(f"{ntab} key sets for {len(table_slots)} tables")
-    keys = _i32_lanes(keys)
-    tkeys = _i32_lanes(tkeys_packed)
-    if keys.shape[2] != tkeys.shape[1]:
-        raise ValueError("probe keys and tables have different lane counts")
-    if keys.device.type == "cpu":
-        return multiway_probe_plain(keys, slot0, active, tkeys, used_packed,
-                                    table_slots, max_rounds)
-    return probe_cuda(keys, slot0, active, tkeys, used_packed, table_slots,
-                      max_rounds)
+    with tracing.span("kernel", "multiway_probe") as sp:
+        keys = _i32_lanes(keys)
+        tkeys = _i32_lanes(tkeys_packed)
+        if keys.shape[2] != tkeys.shape[1]:
+            raise ValueError(
+                "probe keys and tables have different lane counts")
+        sp.note("shape", (n, ntab, keys.shape[2], table_slots))
+        if keys.device.type == "cpu":
+            return multiway_probe_plain(keys, slot0, active, tkeys,
+                                        used_packed, table_slots, max_rounds)
+        return probe_cuda(keys, slot0, active, tkeys, used_packed,
+                          table_slots, max_rounds)
 
 
 class ProbeLaunch(NamedTuple):
@@ -521,8 +577,7 @@ def probe_cuda(keys, slot0, active, tkeys, used, table_slots,
                 _ptr(over), _stream(keys),
             )
             _check(lib, err, "dftpu_multiway_probe")
-            _count_launch("multiway_probe", PROBE_SHAPES,
-                          (n, g, lanes, launch.slots))
+            _count_launch(PROBE_SHAPES, (n, g, lanes, launch.slots))
     return found, over
 
 
@@ -578,6 +633,14 @@ def group_aggregate(keys_mat, slot0, live, values, num_slots: int,
         raise ValueError(f"{values.shape[1]} value columns for {len(ops)} ops")
     if keys_mat.dtype != torch.int32 or values.dtype != torch.int32:
         raise TypeError("group_aggregate takes int32 key lanes and values")
+    with tracing.span("kernel", "group_aggregate") as sp:
+        sp.note("shape", (*keys_mat.shape, num_slots, tuple(ops)))
+        return _group_aggregate(keys_mat, slot0, live, values, num_slots,
+                                ops, max_rounds)
+
+
+def _group_aggregate(keys_mat, slot0, live, values, num_slots: int,
+                     ops: tuple, max_rounds: int):
     if keys_mat.device.type == "cpu":
         out = group_aggregate_plain(keys_mat, slot0, live, values, num_slots,
                                     ops, max_rounds)
@@ -607,6 +670,5 @@ def group_aggregate(keys_mat, slot0, live, values, num_slots: int,
             *[_ptr(t) for t in scratch], _stream(keys),
         )
     _check(lib, err, "dftpu_group_aggregate")
-    _count_launch("group_aggregate", AGG_SHAPES,
-                  (n, lanes, num_slots, tuple(ops)))
+    _count_launch(AGG_SHAPES, (n, lanes, num_slots, tuple(ops)))
     return gid, rep, used, acc, overflow, rounds

@@ -27,6 +27,7 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from datafusion_distributed_tpu_torch.runtime import tracing
 from datafusion_distributed_tpu_torch.schema import DataType, Field, Schema
 
 # ---------------------------------------------------------------------------
@@ -523,6 +524,10 @@ class Table:
 
     # -- host materialization -----------------------------------------------
     def to_numpy(self, decode_strings: bool = True) -> dict[str, np.ndarray]:
+        with tracing.span("table", "to_host"):
+            return self._to_numpy(decode_strings)
+
+    def _to_numpy(self, decode_strings: bool) -> dict[str, np.ndarray]:
         n = int(self.num_rows)
         out: dict[str, np.ndarray] = {}
         for name, col in zip(self.names, self.columns):
@@ -667,10 +672,16 @@ def unify_dictionaries(dicts):
     unique = {d.dict_id: d for d in present}
     if len(unique) == 1:
         return present[0], [None] * len(dicts)
+    with tracing.span("expr", "unify", "entries",
+                      sum(len(d) for d in unique.values())):
+        return _unify(dicts, present[0], unique)
+
+
+def _unify(dicts, first, unique: dict):
     vals = [d.values.astype(str) for d in unique.values()]
     if all(np.array_equal(v, vals[0]) for v in vals[1:]):
         # same vocabulary, distinct objects: codes already agree
-        return present[0], [None] * len(dicts)
+        return first, [None] * len(dicts)
     union_vals = np.unique(np.concatenate(vals))
     union = lru_get_or_create(
         _UNION_DICT_CACHE, tuple(sorted(unique)),
@@ -726,7 +737,8 @@ def host_rows(table: Table) -> int:
     transfer for a table on the card) and kept on the table."""
     n = known_rows(table)
     if n is None:
-        n = _with_host_rows(table, int(table.num_rows))._host_rows
+        with tracing.span("table", "host_rows"):
+            n = _with_host_rows(table, int(table.num_rows))._host_rows
     return n
 
 
@@ -741,9 +753,10 @@ def read_rows(tables: Sequence[Table]) -> list:
         if len(group) == 1:
             host_rows(group[0])
             continue
-        vals = torch.stack([t.num_rows.to(torch.int64) for t in group])
-        for t, n in zip(group, vals.cpu().tolist()):
-            _with_host_rows(t, n)
+        with tracing.span("table", "host_rows"):
+            vals = torch.stack([t.num_rows.to(torch.int64) for t in group])
+            for t, n in zip(group, vals.cpu().tolist()):
+                _with_host_rows(t, n)
     return [known_rows(t) for t in tables]
 
 

@@ -28,6 +28,7 @@ from datafusion_distributed_tpu_torch.ops.table import (
     lru_get_or_create,
     unify_dictionaries,
 )
+from datafusion_distributed_tpu_torch.runtime import tracing
 from datafusion_distributed_tpu_torch.schema import DataType, Field, Schema
 
 # Dictionary minting is memoized: the same expression over the same input
@@ -52,9 +53,10 @@ def _derived_dictionary(src: Dictionary, op_key, derive):
         uniq, inverse = np.unique(derived.astype(str), return_inverse=True)
         return (Dictionary(uniq.astype(object)), inverse.astype(np.int32))
 
-    return lru_get_or_create(
-        _DERIVED_DICT_CACHE, (src.dict_id, op_key), mint, cap=256,
-    )
+    with tracing.span("expr", "derive", "entries", len(src)):
+        return lru_get_or_create(
+            _DERIVED_DICT_CACHE, (src.dict_id, op_key), mint, cap=256,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -437,20 +439,22 @@ class Cast(PhysicalExpr):
             # device gathers by code (unparseable entries -> null)
             if c.dictionary is None:
                 raise NotImplementedError("string cast without dictionary")
-            vals = c.dictionary.values.astype(str)
-            parsed = np.zeros(max(len(vals), 1), dtype=self.to.np_dtype)
-            ok = np.zeros(max(len(vals), 1), dtype=np.bool_)
-            for i, v in enumerate(vals):
-                try:
-                    if self.to == DataType.DATE32:
-                        parsed[i] = parse_date(v)
-                    elif self.to.is_float:
-                        parsed[i] = float(v)
-                    else:
-                        parsed[i] = int(float(v))
-                    ok[i] = True
-                except (ValueError, OverflowError):
-                    pass
+            with tracing.span("expr", "cast", "entries",
+                              len(c.dictionary)):
+                vals = c.dictionary.values.astype(str)
+                parsed = np.zeros(max(len(vals), 1), dtype=self.to.np_dtype)
+                ok = np.zeros(max(len(vals), 1), dtype=np.bool_)
+                for i, v in enumerate(vals):
+                    try:
+                        if self.to == DataType.DATE32:
+                            parsed[i] = parse_date(v)
+                        elif self.to.is_float:
+                            parsed[i] = float(v)
+                        else:
+                            parsed[i] = int(float(v))
+                        ok[i] = True
+                    except (ValueError, OverflowError):
+                        pass
             data = apply_lut(parsed, c.data)
             valid = apply_lut(ok, c.data)
             validity = _merge_validity(c.validity, valid)
@@ -501,10 +505,12 @@ class Like(PhysicalExpr):
         c = self.child.evaluate(table)
         if c.dtype != DataType.STRING or c.dictionary is None:
             raise ValueError("LIKE requires a dictionary string column")
-        rx = re.compile(_sql_like_to_regex(self.pattern), re.DOTALL)
-        lut = np.asarray(
-            [bool(rx.fullmatch(v)) for v in c.dictionary.values], dtype=np.bool_
-        )
+        with tracing.span("expr", "like", "entries", len(c.dictionary)):
+            rx = re.compile(_sql_like_to_regex(self.pattern), re.DOTALL)
+            lut = np.asarray(
+                [bool(rx.fullmatch(v)) for v in c.dictionary.values],
+                dtype=np.bool_,
+            )
         if self.negated:
             lut = ~lut
         if len(lut) == 0:
@@ -538,8 +544,9 @@ class InList(PhysicalExpr):
         if c.dtype == DataType.STRING:
             if c.dictionary is None:
                 raise ValueError("IN on string requires dictionary")
-            codes = [c.dictionary.code_of(v) for v in self.values]
-            codes = [x for x in codes if x >= 0]
+            with tracing.span("expr", "in", "entries", len(c.dictionary)):
+                codes = [c.dictionary.code_of(v) for v in self.values]
+                codes = [x for x in codes if x >= 0]
             if not codes:
                 data = torch.zeros(c.data.shape, dtype=torch.bool,
                                    device=c.data.device)
@@ -909,8 +916,9 @@ class StrLength(PhysicalExpr):
         c = self.child.evaluate(table)
         if c.dtype != DataType.STRING or c.dictionary is None:
             raise ValueError("LENGTH requires a dictionary string column")
-        vals = c.dictionary.values.astype(str)
-        lut = np.asarray([len(v) for v in vals], dtype=np.int32)
+        with tracing.span("expr", "length", "entries", len(c.dictionary)):
+            vals = c.dictionary.values.astype(str)
+            lut = np.asarray([len(v) for v in vals], dtype=np.int32)
         if len(lut) == 0:
             data = torch.zeros(c.data.shape, dtype=torch.int32,
                                device=c.data.device)
@@ -966,6 +974,22 @@ _CONCAT_COMBO_CAP = 1 << 22
 _CONCAT_DICT_CACHE: dict = {}
 
 
+def _concat_dictionary(dict_parts: list, total: int) -> tuple:
+    """(Dictionary, int32 inverse LUT) of every combination of the parts'
+    entries, in the cross product's order."""
+    import itertools as _it
+
+    combos = [""] * total
+    for flat, parts in enumerate(
+        _it.product(*[d if len(d) else [""] for _, d in dict_parts])
+    ):
+        combos[flat] = "".join(parts)
+    uniq, inverse = np.unique(
+        np.asarray(combos, dtype=object).astype(str), return_inverse=True,
+    )
+    return Dictionary(uniq.astype(object)), inverse.astype(np.int32)
+
+
 @dataclass
 class ConcatStrings(PhysicalExpr):
     """CONCAT over string columns/literals: the combined dictionary is the
@@ -1001,19 +1025,8 @@ class ConcatStrings(PhysicalExpr):
         cache_key = tuple(v.dictionary.dict_id for v in vals)
         cached = _CONCAT_DICT_CACHE.get(cache_key)
         if cached is None:
-            import itertools as _it
-
-            combos = [""] * total
-            for flat, parts in enumerate(
-                _it.product(*[d if len(d) else [""] for _, d in dict_parts])
-            ):
-                combos[flat] = "".join(parts)
-            uniq, inverse = np.unique(
-                np.asarray(combos, dtype=object).astype(str),
-                return_inverse=True,
-            )
-            cached = (Dictionary(uniq.astype(object)),
-                      inverse.astype(np.int32))
+            with tracing.span("expr", "concat", "entries", total):
+                cached = _concat_dictionary(dict_parts, total)
             if len(_CONCAT_DICT_CACHE) > 64:
                 _CONCAT_DICT_CACHE.clear()
             _CONCAT_DICT_CACHE[cache_key] = cached

@@ -35,6 +35,7 @@ from datafusion_distributed_tpu_torch.plan.expressions import (
     PhysicalExpr,
     expr_to_column,
 )
+from datafusion_distributed_tpu_torch.runtime import tracing
 from datafusion_distributed_tpu_torch.schema import DataType, Field, Schema
 
 
@@ -169,8 +170,9 @@ class ExecutionPlan:
     def execute(self, ctx: ExecContext) -> Table:
         """Run this operator; records the per-node output_rows metric when
         the run keeps metrics (the DataFusion baseline metric set
-        analogue)."""
-        out = self._execute(ctx)
+        analogue). Each run is an ``op:<label>`` span (runtime/tracing.py)."""
+        with tracing.span("op", self.label(), "node_id", self.node_id):
+            out = self._execute(ctx)
         ctx.record_metric(self, "output_rows", out.num_rows)
         return out
 
@@ -658,10 +660,11 @@ def execute_plan(
     task = task or DistributedTaskContext()
     prep = prepare_plan(plan)
     exec_target = prep.plan
-    inputs = {
-        leaf.node_id: leaf.load(task)
-        for leaf in collect_leaves(exec_target) if hasattr(leaf, "load")
-    }
+    with tracing.span("executor", "load"):
+        inputs = {
+            leaf.node_id: leaf.load(task)
+            for leaf in collect_leaves(exec_target) if hasattr(leaf, "load")
+        }
     ctx = ExecContext(task=task, inputs=inputs, config=config or {})
     if metrics_store is not None and ctx.config.get("collect_metrics", True):
         ctx.metrics = []
@@ -671,15 +674,16 @@ def execute_plan(
                  if not name.startswith(_PRECISION_TAG)]
     prec_flags = [f for name, f in ctx.overflow_flags
                   if name.startswith(_PRECISION_TAG)]
-    dev = out.device
-    none = torch.zeros((), dtype=torch.bool, device=dev)
-    any_overflow = torch.stack(cap_flags).any() if cap_flags else none
-    any_precision = torch.stack(prec_flags).any() if prec_flags else none
-    metric_vals = [v for _, _, v in ctx.metrics or ()]
-    fetched = torch.stack(
-        [x.to(torch.int64) for x in
-         [any_overflow, any_precision, out.num_rows] + metric_vals]
-    ).tolist()  # the run's one device-to-host transfer
+    with tracing.span("executor", "flags"):
+        dev = out.device
+        none = torch.zeros((), dtype=torch.bool, device=dev)
+        any_overflow = torch.stack(cap_flags).any() if cap_flags else none
+        any_precision = torch.stack(prec_flags).any() if prec_flags else none
+        metric_vals = [v for _, _, v in ctx.metrics or ()]
+        fetched = torch.stack(
+            [x.to(torch.int64) for x in
+             [any_overflow, any_precision, out.num_rows] + metric_vals]
+        ).tolist()  # the run's one device-to-host transfer
     flags = fetched[:2]
     out._host_rows = fetched[2]
     if metrics_store is not None:

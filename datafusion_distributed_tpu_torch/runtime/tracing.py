@@ -40,6 +40,34 @@ Exports: Chrome trace-event JSON (``to_chrome_trace`` — load the file in
 Perfetto / chrome://tracing), a text profile report (``render_profile``,
 folded into `explain_analyze`), and live aggregate counters
 (`ObservabilityService.get_trace_summary`, console panel).
+
+The single-node path (`DataFrame.collect_table`, `execute_plan` and what
+runs under it) has spans of its own, opened by `span(kind, name)` at fixed
+sites: ``session:sql``, ``planner:physical_plan``, ``executor:attempt``
+(with ``executor:overflow`` around the widening after an overflow),
+``executor:load``, ``executor:flags``, ``op:<operator label>``, the host's
+dictionary work ``expr:like|derive|unify|in|cast|length|concat``, the
+kernel wrappers ``kernel:build_group_ids|multiway_probe|group_aggregate``
+and the host
+reads ``table:to_host`` and ``table:host_rows``. Such a span goes to up to
+three places:
+
+- the profiler: while `torch.profiler` records, the span is also a
+  profiler range named ``dftpu:<kind>:<name>`` (`_RecordFunctionFast`, a
+  function-scope range: it lies on the profiler's clock beside the CUDA
+  runtime calls it encloses, and the profiler gives it no mirror on the
+  device's timeline), so each device activity can be put down to the
+  innermost span open on the thread that launched it;
+- the trace store: under ``SET distributed.tracing = 'on'`` (or sampled)
+  `collect_table` opens a `QueryTrace` (`local_query`) and the thread's
+  spans land in it, on this module's `time.monotonic` clock, so
+  ``ctx.last_trace()`` covers single-node queries too;
+- the span totals: while either is on, each closed span adds its host
+  nanoseconds to `span_totals()` by kind, name and outcome.
+
+Off (no profiler recording, no single-node trace open) a span site costs
+one check of two module-level flags and hands out the shared null
+context: no span object, no clock read, no dict.
 """
 
 from __future__ import annotations
@@ -47,9 +75,17 @@ from __future__ import annotations
 import json
 import threading
 import time
+import uuid
 import zlib
 from collections import deque
 from typing import Any, Optional
+
+import torch.autograd.profiler as _autograd_profiler
+
+try:  # a function-scope profiler range: no device-timeline mirror
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError:  # pragma: no cover - older torch: spans skip the mirror
+    _RecordFunctionFast = None
 
 #: `SET distributed.tracing` modes (validated at SET time, sql/context.py)
 TRACING_MODES = ("off", "on", "sampled")
@@ -147,6 +183,9 @@ class _NullSpan:
     duration = 0.0
 
     def set(self, **attrs) -> "_NullSpan":
+        return self
+
+    def note(self, key, value) -> "_NullSpan":
         return self
 
 
@@ -568,6 +607,164 @@ class TraceStore:
 
 
 DEFAULT_TRACE_STORE = TraceStore()
+
+
+# ---------------------------------------------------------------------------
+# single-node spans: the profiler mirror, the single-node query trace and the
+# span totals (module docstring)
+# ---------------------------------------------------------------------------
+
+#: the prefix of the profiler ranges the single-node spans open
+PROFILER_PREFIX = "dftpu"
+
+_LOCAL_LOCK = threading.Lock()
+#: single-node query traces open in this process (`local_query`); with the
+#: profiler's own flag, what a span site checks
+_local_open = 0  # guarded-by: _LOCAL_LOCK
+#: ``.tracer``: the thread's open single-node Tracer
+_local = threading.local()
+#: (kind, name, outcome) -> [spans, host ns] of the spans closed while on
+_TOTALS: dict = {}  # guarded-by: _LOCAL_LOCK
+
+
+def spans_on() -> bool:
+    """True while `torch.profiler` records or a single-node query trace is
+    open: a span site then records (see `span`)."""
+    return bool(_local_open) or _autograd_profiler._is_profiler_enabled
+
+
+def span(kind: str, name: str, attr: str = "", value: Any = None):
+    """A span of the single-node path, ``<kind>:<name>``, with at most one
+    attribute ``attr`` = ``value`` (more with ``note`` inside). A context
+    manager; off (`spans_on()` false) it is the shared null context, whose
+    span's ``note`` does nothing: no span object, no clock read, no dict."""
+    if not (_local_open or _autograd_profiler._is_profiler_enabled):
+        return _A_NULL_CTX
+    return _LocalSpan(kind, name, attr, value)
+
+
+class _LocalSpan:
+    """One open single-node span: its profiler range while the profiler
+    records, its Span in the thread's single-node trace when one is open,
+    and its host nanoseconds in the totals."""
+
+    __slots__ = ("kind", "name", "attrs", "_range", "_ctx", "_t0")
+
+    def __init__(self, kind: str, name: str, attr: str, value: Any):
+        self.kind = kind
+        self.name = name
+        self.attrs = {attr: value} if attr else {}
+        self._range = None
+        self._ctx = None
+        self._t0 = 0
+
+    def __enter__(self) -> "_LocalSpan":
+        if (_RecordFunctionFast is not None
+                and _autograd_profiler._is_profiler_enabled):
+            self._range = _RecordFunctionFast(
+                f"{PROFILER_PREFIX}:{self.kind}:{self.name}")
+            self._range.__enter__()
+        tracer = getattr(_local, "tracer", None)
+        if tracer is not None:
+            self._ctx = tracer.span(self.name, self.kind)
+            self._ctx.__enter__().attrs = self.attrs  # one dict, shared
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def note(self, key: str, value: Any) -> "_LocalSpan":
+        """Set an attribute known only once the span is open (the plan
+        cache's ``cache``, an attempt's ``outcome``)."""
+        self.attrs[key] = value
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        ns = time.perf_counter_ns() - self._t0
+        if self._ctx is not None:
+            self._ctx.__exit__(exc_type, exc, tb)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        key = (self.kind, self.name, self.attrs.get("outcome"))
+        with _LOCAL_LOCK:
+            slot = _TOTALS.get(key)
+            if slot is None:
+                _TOTALS[key] = [1, ns]
+            else:
+                slot[0] += 1
+                slot[1] += ns
+        return False
+
+
+def span_totals() -> dict:
+    """``{"<kind>:<name>[:<outcome>]": (spans, host seconds)}`` of the
+    single-node spans closed while spans were on, since the last
+    `reset_span_totals()`: the profiler's ranges summed, without a
+    profiler (an attempt's key carries its outcome, ``ok`` or
+    ``overflow``)."""
+    with _LOCAL_LOCK:
+        items = [(k, tuple(v)) for k, v in _TOTALS.items()]
+    out: dict = {}
+    for (kind, name, outcome), (count, ns) in items:
+        key = f"{kind}:{name}" + (f":{outcome}" if outcome else "")
+        out[key] = (count, ns / 1e9)
+    return out
+
+
+def reset_span_totals() -> None:
+    with _LOCAL_LOCK:
+        _TOTALS.clear()
+
+
+def local_query(mode: str, sample_rate: float = 0.125, store=None):
+    """The single-node query trace of one `DataFrame.collect_table`: under
+    ``mode`` ``on`` (or ``sampled``, and sampled) a context manager that
+    opens a `QueryTrace` in ``store`` (`DEFAULT_TRACE_STORE`) with a root
+    span ``query``, makes it the thread's for `span`, and finishes it on
+    exit; ``off`` gives the null context."""
+    if mode == "off":
+        return _A_NULL_CTX
+    return _LocalQuery(store or DEFAULT_TRACE_STORE, mode, sample_rate)
+
+
+class _LocalQuery:
+    __slots__ = ("_store", "_mode", "_rate", "_qid", "_tracer", "_root",
+                 "_prev")
+
+    def __init__(self, store: TraceStore, mode: str, rate: float):
+        self._store = store
+        self._mode = mode
+        self._rate = rate
+        self._qid = uuid.uuid4().hex
+        self._tracer = NULL_TRACER
+        self._root = None
+        self._prev = None
+
+    def __enter__(self):
+        global _local_open
+        tracer = self._store.begin(self._qid, self._mode, self._rate)
+        if tracer is NULL_TRACER:
+            return _A_NULL_SPAN
+        self._tracer = tracer
+        self._root = tracer.start_span("query", "query", query_id=self._qid,
+                                       path="single-node")
+        tracer.trace.root_id = self._root.span_id
+        self._prev = getattr(_local, "tracer", None)
+        _local.tracer = tracer
+        with _LOCAL_LOCK:
+            _local_open += 1
+        return self._root
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        global _local_open
+        if self._tracer is NULL_TRACER:
+            return False
+        with _LOCAL_LOCK:
+            _local_open -= 1
+        _local.tracer = self._prev
+        if exc_type is not None:
+            self._root.attrs.setdefault("error", exc_type.__name__)
+        self._tracer.end_span(self._root)
+        self._store.finish(self._qid)
+        return False
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,7 @@ from datafusion_distributed_tpu_torch.runtime.mesh_executor import (
     execute_on_mesh,
     execute_tasks,
 )
+from datafusion_distributed_tpu_torch.runtime import tracing
 from datafusion_distributed_tpu_torch.schema import Field, Schema
 from datafusion_distributed_tpu_torch.sql.logical import Binder, LogicalPlan
 from datafusion_distributed_tpu_torch.sql.parser import (
@@ -490,44 +491,65 @@ class DataFrame:
             enforce_verification,
         )
 
-        cfg = config or self.ctx.config.planner
-        key = self._pcfg_key(cfg)
-        plan = self._plan_cache_get(key)
-        if plan is None:
-            plan = PhysicalPlanner(self.ctx.catalog, cfg).plan(self.logical)
-            self._plan_cache_put(key, plan)
-        # static verification before the plan runs (memoized on the plan
-        # object, so cache hits and retry-loop re-submissions verify once)
-        enforce_verification(
-            plan, options=self.ctx.config.distributed_options,
-            context="physical plan",
-        )
-        return plan
+        with tracing.span("planner", "physical_plan") as sp:
+            cfg = config or self.ctx.config.planner
+            key = self._pcfg_key(cfg)
+            plan = self._plan_cache_get(key)
+            sp.note("cache", "miss" if plan is None else "hit")
+            if plan is None:
+                plan = PhysicalPlanner(self.ctx.catalog, cfg).plan(
+                    self.logical)
+                self._plan_cache_put(key, plan)
+            # static verification before the plan runs (memoized on the
+            # plan object, so cache hits and retry-loop re-submissions
+            # verify once)
+            enforce_verification(
+                plan, options=self.ctx.config.distributed_options,
+                context="physical plan",
+            )
+            return plan
 
     def collect_table(self) -> Table:
         """Execute, with automatic re-plan on hash/join capacity overflow:
-        capacities are planned optimistically and widened on overflow."""
+        capacities are planned optimistically and widened on overflow.
+        Under ``SET distributed.tracing`` the run is a single-node query
+        trace (runtime/tracing.py `local_query`), each pass of the retry
+        loop an ``executor:attempt`` span with its ``outcome``."""
+        opts = self.ctx.config.distributed_options
+        with tracing.local_query(tracing.resolve_tracing_mode(opts),
+                                 float(opts.get("tracing_sample_rate",
+                                                0.125))):
+            return self._collect_table()
+
+    def _collect_table(self) -> Table:
         cfg = self.ctx.config.planner
         last_err: Optional[Exception] = None
         for attempt in range(self.ctx.config.overflow_retries + 1):
-            try:
-                # planning is inside the try: scalar subqueries execute at
-                # plan time and their overflows must trigger the same retry
-                plan = self.physical_plan(cfg)
-                _overflow_retry_guard(plan, attempt, last_err)
-                out = execute_plan(plan)
-                self.last_retry_count = attempt
-                return out
-            except RuntimeError as e:
-                if isinstance(e, OverflowRetryAbandoned):
-                    raise
-                if "overflow" not in str(e):
-                    raise
-                last_err = e
-                cfg, _ = _widen_for_overflow(
-                    cfg, None, e,
-                    force_all=attempt >= self.ctx.config.overflow_retries - 1,
-                )
+            with tracing.span("executor", "attempt", "attempt",
+                              attempt) as sp:
+                try:
+                    # planning is inside the try: scalar subqueries execute
+                    # at plan time and their overflows must trigger the
+                    # same retry
+                    plan = self.physical_plan(cfg)
+                    _overflow_retry_guard(plan, attempt, last_err)
+                    out = execute_plan(plan)
+                    self.last_retry_count = attempt
+                    sp.note("outcome", "ok")
+                    return out
+                except RuntimeError as e:
+                    if isinstance(e, OverflowRetryAbandoned) \
+                            or "overflow" not in str(e):
+                        sp.note("outcome", "error")
+                        raise
+                    sp.note("outcome", "overflow")
+                    last_err = e
+                    with tracing.span("executor", "overflow"):
+                        cfg, _ = _widen_for_overflow(
+                            cfg, None, e,
+                            force_all=attempt >= (
+                                self.ctx.config.overflow_retries - 1),
+                        )
         raise last_err  # type: ignore[misc]
 
     def collect(self):
@@ -1010,6 +1032,10 @@ class SessionContext:
 
     # -- SQL ------------------------------------------------------------------
     def sql(self, query: str) -> DataFrame:
+        with tracing.span("session", "sql"):
+            return self._sql(query)
+
+    def _sql(self, query: str) -> DataFrame:
         stmts = parse_statements(query)
         result: Optional[DataFrame] = None
         views: dict[str, LogicalPlan] = dict(self.catalog.views)

@@ -80,7 +80,7 @@ def test_group_build_matches_plain(dev, case):
     _rng, keys, slot0, live, h = _inputs(dev, **kwargs)
     hk.reset_launch_counts()
     got = hk.build_group_ids(keys, slot0, live, h, max_rounds)
-    assert hk.LAUNCHES["build_group_ids"] == 1
+    assert hk.launches()["build_group_ids"] == 1
     lanes = keys.shape[1] * keys.element_size() // 4  # int64 -> (lo, hi)
     assert hk.BUILD_SHAPES == {(keys.shape[0], lanes, h): 1}
     ref = hk.build_group_ids_plain(keys, slot0, live, h, max_rounds)
@@ -122,7 +122,7 @@ def test_group_aggregate_matches_plain(dev, case):
     vals = torch.from_numpy(vals_np.astype(np.int32)).to(dev)
     hk.reset_launch_counts()
     got = hk.group_aggregate(keys, slot0, live, vals, h, OPS, max_rounds)
-    assert hk.LAUNCHES["group_aggregate"] == 1
+    assert hk.launches()["group_aggregate"] == 1
     ref = hk.group_aggregate_plain(keys, slot0, live, vals, h, OPS,
                                    max_rounds)
     for a, b in zip(got[:5], ref[:5]):
@@ -223,7 +223,7 @@ def test_probe_matches_plain(dev, case, pack_used):
         got = hk.multiway_probe(*args, max_rounds)
     else:
         got = hk.probe_cuda(*args, max_rounds, pack_used)
-    assert hk.LAUNCHES["multiway_probe"] == len(launches)
+    assert hk.launches()["multiway_probe"] == len(launches)
     assert sum(hk.PROBE_SHAPES.values()) == len(launches)
     ref = hk.multiway_probe_plain(*args, max_rounds)
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
@@ -429,7 +429,7 @@ def test_launch_counts_exact_under_threads(dev):
     for t in threads:
         t.join()
     torch.cuda.synchronize()
-    assert hk.LAUNCHES["build_group_ids"] == 8 * per_thread
+    assert hk.launches()["build_group_ids"] == 8 * per_thread
     assert hk.BUILD_SHAPES == {(4096, 2, h): 8 * per_thread}
 
 

@@ -280,7 +280,7 @@ def test_round_stats_stay_bounded_aggregates():
                                 "max": max(r1, r3)}
     assert list(hk.ROUND_STATS) == [torch.device("cpu")]
     assert hk.ROUND_STATS[torch.device("cpu")].shape == (3,)
-    assert set(hk.LAUNCHES.values()) == {0}
+    assert set(hk.launches().values()) == {0}
     hk.reset_round_stats()
     assert hk.round_stats() == {"builds": 0, "total": 0, "max": 0}
 
@@ -421,7 +421,7 @@ def test_probe_on_the_cpu_runs_the_plain_version_only():
     found, over = hk.multiway_probe(*args)
     ref = hk.multiway_probe_plain(*args)
     assert torch.equal(found, ref[0]) and torch.equal(over, ref[1])
-    assert hk.LAUNCHES["multiway_probe"] == 0 and hk.PROBE_SHAPES == {}
+    assert hk.launches()["multiway_probe"] == 0 and hk.PROBE_SHAPES == {}
 
 
 def test_build_on_the_cpu_runs_the_plain_version_only():
@@ -435,7 +435,7 @@ def test_build_on_the_cpu_runs_the_plain_version_only():
     ref = hk.build_group_ids_plain(*args)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    assert hk.LAUNCHES["build_group_ids"] == 0 and hk.BUILD_SHAPES == {}
+    assert hk.launches()["build_group_ids"] == 0 and hk.BUILD_SHAPES == {}
 
 
 @pytest.mark.parametrize("live_fraction", [0.0, 0.9])

@@ -15,6 +15,7 @@ import json
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -145,3 +146,222 @@ def test_traced_result_equals_the_references(traced):
     assert list(port) == list(ref)
     assert all(len(port[k]) == len(ref[k]) for k in ref)
     assert port["l_orderkey"].tolist() == ref["l_orderkey"].tolist()
+
+
+# ---------------------------------------------------------------------------
+# The single-node path's spans (runtime/tracing.py `span`, `local_query`):
+# the port's own, with no counterpart in the reference
+# ---------------------------------------------------------------------------
+
+SINGLE = "select k, sum(f) from t where s like 's1%' group by k"
+
+
+@pytest.fixture()
+def single(monkeypatch):
+    """A session over a small table, with a trace store of its own (the
+    process-wide one feeds other tests' consoles)."""
+    import pyarrow as pa
+
+    monkeypatch.setattr(ttr, "DEFAULT_TRACE_STORE", ttr.TraceStore())
+    rng = np.random.default_rng(3)
+    n = 4000
+    ctx = TContext(device="cpu")
+    ctx.register_arrow("t", pa.table({
+        "k": rng.integers(0, 3000, n), "f": rng.random(n),
+        "s": pa.array([f"s{i % 37}" for i in range(n)])}))
+    ttr.reset_span_totals()
+    yield ctx
+    ttr.reset_span_totals()
+
+
+def _run_as_the_benchmark(ctx, sql):
+    """One query as portbench's session entry runs it, each step inside
+    its `portbench:<step>:<query>` range."""
+    from torch.profiler import record_function
+
+    with record_function("portbench:plan:q"):
+        df = ctx.sql(sql)
+        df.physical_plan()
+    with record_function("portbench:execute:q"):
+        table = df.collect_table()
+    with record_function("portbench:to_host:q"):
+        return table.to_numpy()
+
+
+def _ranges(prof) -> list:
+    """(name, thread, start_ns, end_ns) of the benchmark's and the
+    program's ranges, on the profiler's one clock."""
+    return sorted(
+        (e.name(), e.start_thread_id(), e.start_ns(),
+         e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.name().startswith(("dftpu:", "portbench:")))
+
+
+def _parent(ranges, r):
+    """The innermost range that holds ``r`` on its thread."""
+    holders = [p for p in ranges if p is not r and p[1] == r[1]
+               and p[2] <= r[2] and r[3] <= p[3]]
+    return min(holders, key=lambda p: p[3] - p[2]) if holders else None
+
+
+def test_single_node_spans_nest_inside_the_benchmarks_ranges(single):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = _run_as_the_benchmark(single, SINGLE)
+    assert len(out["k"]) > 0
+    ranges = _ranges(prof)
+    parent = {r: _parent(ranges, r) for r in ranges}
+
+    def chain(name):
+        r = next(x for x in ranges if x[0] == name)
+        names = []
+        while r is not None:
+            names.append(r[0])
+            r = parent[r]
+        return names
+
+    assert chain("dftpu:session:sql") == ["dftpu:session:sql",
+                                          "portbench:plan:q"]
+    assert chain("dftpu:expr:like")[-4:] == [
+        "dftpu:op:HashAggregate", "dftpu:op:Projection",
+        "dftpu:executor:attempt", "portbench:execute:q"]
+    assert chain("dftpu:expr:like")[:2] == ["dftpu:expr:like",
+                                            "dftpu:op:Filter"]
+    assert chain("dftpu:kernel:build_group_ids")[:2] == [
+        "dftpu:kernel:build_group_ids", "dftpu:op:HashAggregate"]
+    assert chain("dftpu:table:to_host") == ["dftpu:table:to_host",
+                                            "portbench:to_host:q"]
+    plans = [r for r in ranges if r[0] == "dftpu:planner:physical_plan"]
+    assert [parent[r][0] for r in plans] == ["portbench:plan:q",
+                                             "dftpu:executor:attempt"]
+    for name in ("dftpu:executor:load", "dftpu:executor:flags"):
+        assert parent[next(r for r in ranges if r[0] == name)][0] == \
+            "dftpu:executor:attempt"
+    totals = ttr.span_totals()
+    assert totals["executor:attempt:ok"][0] == 1
+    assert totals["planner:physical_plan"][0] == 2
+    assert all(seconds >= 0.0 for _n, seconds in totals.values())
+
+
+def test_span_sites_make_nothing_when_off(single, monkeypatch):
+    """With the profiler not recording and `distributed.tracing` off, a
+    span site builds no span, reads no clock and records nothing."""
+
+    class Boom:
+        def __getattr__(self, name):
+            raise AssertionError(f"time.{name} read with spans off")
+
+    def boom(*a, **kw):
+        raise AssertionError("a span was made with spans off")
+
+    assert not ttr.spans_on()
+    monkeypatch.setattr(ttr, "time", Boom())
+    monkeypatch.setattr(ttr, "Span", boom)
+    monkeypatch.setattr(ttr, "_LocalSpan", boom)
+    out = _run_as_the_benchmark(single, SINGLE)
+    assert len(out["k"]) > 0
+    assert ttr.span_totals() == {}
+    with ttr.span("op", "X", "node_id", 1) as sp:
+        assert sp.note("outcome", "ok") is sp
+
+
+def test_last_trace_covers_a_single_node_query(single):
+    single.sql("SET distributed.tracing = 'on'")
+    df = single.sql(SINGLE)
+    df.collect_table()
+    trace = ttr.DEFAULT_TRACE_STORE.last()
+    root = trace.root_span()
+    assert root.kind == "query" and root.attrs["path"] == "single-node"
+    spans = trace.span_list()
+    kinds = collections.Counter(s.kind for s in spans)
+    assert {"executor", "op", "expr", "kernel", "planner"} <= set(kinds)
+    by_id = {s.span_id: s for s in spans}
+    agg = next(s for s in spans if s.name == "HashAggregate")
+    attempt = by_id[by_id[agg.parent_id].parent_id]
+    assert (attempt.kind, attempt.name) == ("executor", "attempt")
+    assert attempt.attrs == {"attempt": 0, "outcome": "ok"}
+    assert attempt.parent_id == root.span_id
+    build = next(s for s in spans if s.name == "build_group_ids")
+    assert by_id[build.parent_id] is agg
+    assert agg.attrs["node_id"] is not None
+    events = {e["name"] for e in single.last_trace()["traceEvents"]}
+    assert {"query", "attempt", "HashAggregate", "like"} <= events
+    single.sql("SET distributed.tracing = 'off'")
+    assert not ttr.spans_on()
+
+
+def test_a_forced_overflow_is_an_attempt_with_outcome_overflow(single):
+    single.sql("SET distributed.tracing = 'on'")
+    single.sql("SET planner.agg_slot_factor = 0.1")
+    df = single.sql(SINGLE)
+    df.collect_table()
+    assert df.last_retry_count == 1
+    spans = ttr.DEFAULT_TRACE_STORE.last().span_list()
+    attempts = sorted((s.t0, s.attrs["attempt"], s.attrs["outcome"])
+                      for s in spans if s.name == "attempt")
+    assert [a[1:] for a in attempts] == [(0, "overflow"), (1, "ok")]
+    widen = next(s for s in spans if s.name == "overflow")
+    first = next(s for s in spans if s.name == "attempt"
+                 and s.attrs["attempt"] == 0)
+    assert widen.parent_id == first.span_id
+    totals = ttr.span_totals()
+    assert totals["executor:attempt:overflow"][0] == 1
+    assert totals["executor:attempt:ok"][0] == 1
+
+
+def test_live_build_rows_count_only_while_spans_are_on(single):
+    from torch.profiler import ProfilerActivity, profile
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+
+    hk.reset_launch_counts()
+    single.sql(SINGLE).collect_table()
+    assert hk.live_build_rows() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = single.sql(SINGLE).collect_table().to_numpy()
+    live = hk.live_build_rows()
+    # one build over the filter's surviving rows, padded to its capacity
+    assert len(live) == 1 and list(live.values()) == [
+        sum(1 for i in range(4000) if f"s{i % 37}".startswith("s1"))]
+    assert len(out["k"]) > 0
+    hk.reset_launch_counts()
+    assert hk.live_build_rows() == {}
+
+
+def test_span_totals_lose_no_update_across_threads(single):
+    """Spans closed on many threads at once, with a short switch interval:
+    every one lands in the totals (they are updated under a lock)."""
+    import sys
+    import threading
+
+    per_thread, threads = 300, 8
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ttr.local_query("on", store=ttr.TraceStore()):
+            def work():
+                for _ in range(per_thread):
+                    with ttr.span("op", "Stress"):
+                        pass
+            pool = [threading.Thread(target=work) for _ in range(threads)]
+            for t in pool:
+                t.start()
+            for t in pool:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(interval)
+    assert ttr.span_totals()["op:Stress"][0] == per_thread * threads
+    assert not ttr.spans_on()
+
+
+def test_string_length_and_concat_are_expr_spans(single):
+    single.sql("SET distributed.tracing = 'on'")
+    single.sql("select concat(s, s) as c, length(s) as l, count(*) from t "
+               "group by 1, 2").collect_table()
+    totals = ttr.span_totals()
+    assert totals["expr:concat"][0] == 1 and totals["expr:length"][0] == 1
+    spans = ttr.DEFAULT_TRACE_STORE.last().span_list()
+    assert {s.attrs["entries"] for s in spans if s.name == "length"} == {37}
