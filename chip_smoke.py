@@ -9,11 +9,14 @@ Phases, each of which must pass:
    started together) and print the card's name and power limit.
 2. kernels — each hash-table kernel against its plain PyTorch version on the
    card at main-path shapes (8,388,608 rows = lineitem's padded capacity at
-   TPC-H SF 1, 2^21 slots; probe tables at the main path's sizes): bit-exact,
-   with call, kernel-only, plain and library times and the bytes bound.
+   TPC-H SF 1, 2^21 slots; probe tables at the main path's sizes; kernel 4
+   at the ClickBench cell's fold shapes, 2^25 rows, in every value dtype):
+   bit-exact, with call, kernel-only, plain and library times and the bytes
+   bound.
 3. main   — TPC-H SF 1 generated by the port, every query through
    SessionContext(device="cuda").sql(...).collect_table().to_numpy(), twice:
-   both runs byte-identical, and every kernel's launch count above 0.
+   both runs byte-identical, every kernel's launch count above 0, and
+   kernel 4 at every shape the runs logged.
 4. check  — the same queries at SF 0.01 on "cuda" and on "cpu": integers,
    strings and row order exact, floats at precision.test_rtol() of the
    column's scale.
@@ -188,6 +191,10 @@ Phases, each of which must pass:
    process, TPC-H q3 and q18 at SF 0.1 through the coordinator over
    InMemoryCluster(4), cold then warm, against single-node.
 
+Every phase that holds kernels against their plain versions at the shapes
+it logged (the distributed, tasks and coordinator phases, and from
+serving on) holds kernel 4 at its logged (rows, slots, op, value dtype)
+shapes too, on seeded ids and values drawn on the card.
 The check phase also runs q22 and q13 over `orders` without the customers
 whose key is divisible by 3, card against CPU (7 and 22 rows at SF 0.01).
 The main phase, the window phase, the one-task staged path, each
@@ -229,6 +236,7 @@ SOURCES = {
     "build_group_ids": f"{CSRC}/hash_table.cu",
     "multiway_probe": f"{CSRC}/probe.cu",
     "group_aggregate": f"{CSRC}/hash_table.cu",
+    "group_fold": f"{CSRC}/group_fold.cu",
 }
 REPLACES = {
     "build_group_ids":
@@ -237,6 +245,8 @@ REPLACES = {
         "datafusion_distributed_tpu/ops/pallas_hash.py:259",
     "group_aggregate":
         "datafusion_distributed_tpu/ops/pallas_hash.py:433",
+    "group_fold": "no TPU kernel: the GROUP BYs' index_add_ and "
+                  "scatter_reduce_ (ops/aggregate.py)",
 }
 _GLOBAL = re.compile(
     r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
@@ -715,8 +725,155 @@ def phase_kernels(n: int, h: int, reps: int) -> dict:
         log(f"[kernels] group_aggregate {name}: {case}")
         del keys, s0, vals, got, ref
     out["group_aggregate"] = dict(k3["skewed L=3"], cases=k3)
+    out["group_fold"] = phase_fold(dev, reps, kernels)
     torch.cuda.synchronize()
     return out
+
+
+#: kernel 4's cases, shapes that the ClickBench cell's GROUP BYs log at its
+#: 2^25 rows: (slots, live rows or None for all, distinct ids, 0 for
+#: near-distinct). A GROUP BY-less aggregate's 8 slots over every row (q0,
+#: q2, q29); SearchPhrase's 13 values in the planner's 256 slots, over
+#: every row and with 5% live (a filter's compacted prefix, the rest in the
+#: drop slot; q12, q21, q22 keep 10-60%); the hot-slot cache: 4 groups in
+#: 2^26 slots at 2/3 live (q28) and 1,320 in 2^18 at 90% live (q39);
+#: near-distinct keys into 2^26 slots (q30-q32)
+FOLD_ROWS = 1 << 25
+FOLD_CASES = {
+    "global 8": (8, None, 1),
+    "13 hot": (256, None, 13),
+    "13 hot, 5% live": (256, FOLD_ROWS // 20, 13),
+    "4 hot in 2^26": (1 << 26, FOLD_ROWS * 2 // 3, 4),
+    "1,320 in 2^18": (1 << 18, FOLD_ROWS * 9 // 10, 1320),
+    "near-distinct": (1 << 26, None, 0),
+}
+#: the value dtypes kernel 4 is checked in at every case: x64's int64, the
+#: `tpu` mode's int32 sums, ClickBench's narrow MIN/MAX columns, bool
+FOLD_DTYPES = ("int64", "int32", "int16", "uint8", "bool")
+
+
+def fold_values(gen, n: int, dtype: str, dev):
+    """[n] values of ``dtype`` drawn on the card over its whole range, the
+    first four rows its extremes."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    if dt == torch.bool:
+        return torch.rand(n, generator=gen, device=dev) < 0.5
+    info = torch.iinfo(dt)
+    if dt == torch.int64:  # both words vary
+        hi = torch.randint(-2**31, 2**31, (n,), generator=gen, device=dev)
+        v = hi * 2**32 + torch.randint(0, 2**32, (n,), generator=gen,
+                                       device=dev)
+    else:
+        v = torch.randint(info.min, info.max + 1, (n,), generator=gen,
+                          device=dev).to(dt)
+    v[:4] = torch.tensor([info.min, info.max, info.min, info.max], dtype=dt)
+    return v
+
+
+def fold_ops(dtype) -> tuple:
+    """The folds the aggregates run on values of ``dtype`` (a COUNT takes
+    none; bool is only MIN/MAX)."""
+    return ("min", "max") if dtype == "bool" else ("sum", "min", "max",
+                                                   "count")
+
+
+def fold_against_plain(gid, vals, slots: int, op: str, num_rows) -> dict:
+    """One kernel-4 call against group_fold_plain on the same inputs, bit
+    for bit and in dtype: its mismatching slots and the plain version's
+    device time."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+
+    got = hk.group_fold(gid, vals, slots, op, num_rows)
+    ref, plain_ms = timed_once(
+        lambda: hk.group_fold_plain(gid, vals, slots, op, num_rows))
+    same = got.dtype == ref.dtype and torch.equal(got, ref)
+    return {"max_abs_err": 0 if same else max(1, int((got != ref).sum())),
+            "plain_ms": plain_ms}
+
+
+def fold_inputs(name: str, dev) -> tuple:
+    """A kernel-4 case of ``FOLD_CASES``, drawn on the card from its name:
+    (group ids int32, the rows past the live prefix in the drop slot;
+    int64 values; the live prefix as a 0-d int32 tensor; live rows;
+    slots)."""
+    import torch
+
+    slots, live, hot = FOLD_CASES[name]
+    gen = _device_rng(name, dev)
+    n = FOLD_ROWS
+    if hot:
+        ids = torch.randint(0, slots, (hot,), generator=gen, device=dev)
+        gid = ids[torch.randint(0, hot, (n,), generator=gen, device=dev)]
+    else:
+        gid = torch.randint(0, slots, (n,), generator=gen, device=dev)
+    gid = gid.to(torch.int32)
+    live = n if live is None else live
+    gid[live:] = slots
+    num_rows = torch.tensor(live, dtype=torch.int32, device=dev)
+    vals = torch.randint(-2**62, 2**62, (n,), generator=gen, device=dev)
+    return gid, vals, num_rows, live, slots
+
+
+def phase_fold(dev, reps: int, kernels) -> dict:
+    """Kernel 4 against its plain version, bit for bit, for every op and
+    every value dtype of ``FOLD_DTYPES`` over int32 ids, then timed for
+    SUM and MIN of int64 values beside the library call each replaces
+    (index_add_ and scatter_reduce_ over every row and the drop slot, on
+    int64 ids, as SegmentSum and segment_minmax called them). Bound: each
+    live row's group id and value read once and each slot written once;
+    validity reaches the fold folded into the group id (the drop slot), so
+    it reads none."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+
+    cases = {}
+    for name in FOLD_CASES:
+        gid, vals, num_rows, live, slots = fold_inputs(name, dev)
+        gid64 = gid.long()
+        gen = _device_rng(f"{name} values", dev)
+        err = 0
+        for dtype in FOLD_DTYPES:
+            dv = vals if dtype == "int64" else fold_values(gen, FOLD_ROWS,
+                                                           dtype, dev)
+            for op in fold_ops(dtype):
+                v = None if op == "count" else dv
+                e = fold_against_plain(gid, v, slots, op,
+                                       num_rows)["max_abs_err"]
+                err = max(err, e)
+                check(e == 0, f"group_fold {name} {op} {dtype}: kernel != "
+                      "plain")
+            del dv
+        case = {"slots": slots, "live_rows": live, "max_abs_err": err,
+                "bound_ms": bound_ms(live * (gid.element_size()
+                                             + vals.element_size())
+                                     + slots * vals.element_size())}
+        for op in ("sum", "min"):
+            fold = (lambda op=op: hk.group_fold(gid, vals, slots, op, num_rows))
+            if op == "sum":
+                lib = (lambda: torch.zeros(slots + 1, dtype=vals.dtype,
+                                           device=dev).index_add_(0, gid64, vals))
+            else:
+                lib = (lambda: torch.full(
+                    (slots + 1,), torch.iinfo(vals.dtype).max,
+                    dtype=vals.dtype, device=dev).scatter_reduce_(
+                        0, gid64, vals, reduce="amin"))
+            key = "" if op == "sum" else "min_"
+            case[f"{key}ms"] = time_ms(fold, reps)
+            case[f"{key}kernel_ms"] = kernel_ms(fold, reps, kernels)
+            case[f"{key}plain_ms"] = time_ms(
+                lambda op=op: hk.group_fold_plain(gid, vals, slots, op,
+                                                  num_rows), 1)
+            case[f"{key}library_ms"] = time_ms(lib, reps)
+        case["bound_share"] = case["bound_ms"] / case["ms"]
+        cases[name] = case
+        log(f"[kernels] group_fold {name}: {case}")
+        del gid, gid64, vals, num_rows
+    return dict(cases["13 hot"], cases=cases)
 
 
 # ---------------------------------------------------------------------------
@@ -858,10 +1015,13 @@ def phase_main(sf: float, names, seed: int) -> dict:
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
     build_shapes, probe_shapes = kernel_shapes(hk, "main")
+    folds = fold_shapes(hk, "main")
+    fold_checks = fold_shape_checks(folds, torch.device("cuda"), "main")
     return {
         "setup_s": setup_s, "queries": per_query, "launches": launches,
         "launches_by_k": launches_by_k,
         "build_shapes": build_shapes, "probe_shapes": probe_shapes,
+        "kernel_checks": {"group_fold": fold_checks},
         "rounds": {"builds": rounds["builds"], "max": rounds["max"],
                    "mean": (rounds["total"] / rounds["builds"]
                             if rounds["builds"] else 0.0)},
@@ -1287,6 +1447,7 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
     launches = hk.launches()
     by_k = _launches_by_k(hk)
     _builds, probe_shapes = kernel_shapes(hk, "distributed")
+    folds = fold_shapes(hk, "distributed")
     for k in DISTRIBUTED_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by the one-task "
               "staged path")
@@ -1307,6 +1468,8 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
     # kernel 2 at every probe shape the staged run logged, on seeded tables
     probe_checks = probe_shape_checks(probe_shapes, torch.device("cuda"),
                                       "distributed")
+    fold_checks = fold_shape_checks(folds, torch.device("cuda"),
+                                    "distributed")
 
     # --- 4. card against CPU ----------------------------------------------
     gpu = _session("cuda", check_sf, seed)
@@ -1331,7 +1494,8 @@ def phase_distributed(sf: float, check_sf: float, names, seed: int) -> dict:
         "fused_steps": fused_at, "queries": per_query,
         "launches": launches, "multiway_probe_launches_by_k": by_k,
         "probe_shapes": probe_shapes,
-        "kernel_checks": {"multiway_probe": probe_checks},
+        "kernel_checks": {"multiway_probe": probe_checks,
+                          "group_fold": fold_checks},
         "peak_gb": peak_gb,
         "staged_s": sum(v["staged_s"] for v in per_query.values()),
         "single_s": sum(v["single_s"] for v in per_query.values()),
@@ -1602,6 +1766,7 @@ def phase_tasks(sf: float, check_sf: float, names, seed: int) -> dict:
     launches = hk.launches()
     by_k = _launches_by_k(hk)
     builds, probes = kernel_shapes(hk, "tasks")
+    folds = fold_shapes(hk, "tasks")
     # kernel 3 fuses a single-mode GROUP BY, which 8 tasks split into
     # partial and final: its launches are reported, not required
     for k in ("build_group_ids", "multiway_probe"):
@@ -1638,6 +1803,7 @@ def phase_tasks(sf: float, check_sf: float, names, seed: int) -> dict:
     mw_launches = hk.launches()
     mw_by_k = _launches_by_k(hk)
     mw_builds, mw_probes = kernel_shapes(hk, "tasks multiway")
+    folds.update(fold_shapes(hk, "tasks multiway"))
     del fused_off, results
     # the star queries' fused nodes at T = 1 and 8 at SF ``sf``, and where
     # they do not fuse there (over 8 tasks their broadcast builds pass the
@@ -1667,6 +1833,7 @@ def phase_tasks(sf: float, check_sf: float, names, seed: int) -> dict:
     probe_checks = probe_shape_checks(
         list({str(p[:4]): p for p in probes + mw_probes}.values()),
         dev, "tasks")
+    fold_checks = fold_shape_checks(folds, dev, "tasks")
     log(f"[tasks] shapes checked ({_since(t_phase)})")
 
     # --- 4. card against CPU ----------------------------------------------
@@ -1693,7 +1860,8 @@ def phase_tasks(sf: float, check_sf: float, names, seed: int) -> dict:
         "multiway_probe_launches_by_k_fused": mw_by_k,
         "build_shapes": builds, "probe_shapes": probes,
         "kernel_checks": {"build_group_ids": build_checks,
-                          "multiway_probe": probe_checks},
+                          "multiway_probe": probe_checks,
+                          "group_fold": fold_checks},
         "fused_nodes": nodes,
         "card_cpu_identical": identical,
         "warm_s": sum(v["warm_s"] for v in per_query.values()),
@@ -2093,7 +2261,8 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
                   f"{mode} coordinator")
         builds, probes = kernel_shapes(hk, f"coordinator {mode}")
         by_mode[mode] = {"launches": launches, "build_shapes": builds,
-                         "probe_shapes": probes}
+                         "probe_shapes": probes,
+                         "folds": fold_shapes(hk, f"coordinator {mode}")}
         runs[mode] = first
         warm_s = sum(v[f"{mode}_s"] for v in per_query.values())
         log(f"[coordinator] {mode}: warm {warm_s:.3f}s, launches "
@@ -2171,6 +2340,9 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
     probe_checks = probe_shape_checks(
         list({str(p[:4]): p for p in all_probes}.values()), dev,
         "coordinator")
+    fold_checks = fold_shape_checks(
+        {k: c for m in by_mode.values() for k, c in m["folds"].items()}, dev,
+        "coordinator")
     log(f"[coordinator] shapes checked ({_since(t_phase)})")
 
     # --- 4. card against CPU ----------------------------------------------
@@ -2206,7 +2378,8 @@ def phase_coordinator(sf: float, check_sf: float, names, seed: int) -> dict:
         "adaptive_build_shapes": by_mode["adaptive"]["build_shapes"],
         "adaptive_probe_shapes": by_mode["adaptive"]["probe_shapes"],
         "kernel_checks": {"build_group_ids": build_checks,
-                          "multiway_probe": probe_checks},
+                          "multiway_probe": probe_checks,
+                          "group_fold": fold_checks},
         "card_cpu_identical": identical,
         "summary": {
             k: total(k) for k in (
@@ -2511,7 +2684,7 @@ def _serving_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
     ctx = _session("cuda", sf, seed)
     sqls = dict(_queries(sorted(set(SERVING_SOLO) | {"q3"})))
     hk.reset_launch_counts()
-    shapes_before: dict = {"build": {}, "probe": {}}
+    shapes_before: dict = {"build": {}, "probe": {}, "fold": {}}
 
     # --- 1. baselines, and each query served alone ------------------------
     base: dict = {}
@@ -2543,7 +2716,8 @@ def _serving_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
     for name, arm in SERVING_ARMS.items():
         if name == "fair_share":
             shapes_before = {"build": dict(hk.BUILD_SHAPES),
-                             "probe": dict(hk.PROBE_SHAPES)}
+                             "probe": dict(hk.PROBE_SHAPES),
+                             "fold": dict(hk.FOLD_SHAPES)}
             hk.reset_launch_counts()
         r = _closed_loop(ctx, cluster, sqls, arm, seed)
         if name == "fair_share":
@@ -2701,6 +2875,7 @@ def _serving_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
     probes = dict(shapes_before["probe"])
     for k, c in hk.PROBE_SHAPES.items():
         probes[k] = probes.get(k, 0) + c
+    folds = {**shapes_before["fold"], **hk.FOLD_SHAPES}
     dev = torch.device("cuda")
     out["kernel_checks"] = {
         "build_group_ids": build_shape_checks(
@@ -2709,6 +2884,7 @@ def _serving_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
         "multiway_probe": probe_shape_checks(
             [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
              in probes.items()], dev, "serving"),
+        "group_fold": fold_shape_checks(folds, dev, "serving"),
     }
     out["build_shapes"] = len(builds)
     out["probe_shapes"] = len(probes)
@@ -3052,7 +3228,7 @@ def _tracked_live() -> int:
 def _drain_shapes(hk, acc: dict) -> None:
     """Add the kernels' logged shapes to ``acc`` and set the counts to 0."""
     for name, shapes in (("build", hk.BUILD_SHAPES), ("probe", hk.PROBE_SHAPES),
-                         ("agg", hk.AGG_SHAPES)):
+                         ("agg", hk.AGG_SHAPES), ("fold", hk.FOLD_SHAPES)):
         for k, c in shapes.items():
             acc[name][k] = acc[name].get(k, 0) + c
     hk.reset_launch_counts()
@@ -3102,6 +3278,66 @@ def agg_shape_checks(agg_shapes, dev, tag: str) -> dict:
     return aggs
 
 
+def fold_shapes(hk, tag: str) -> dict:
+    """Kernel 4's launches since the last reset, by shape ((rows, slots,
+    op, value dtype) -> launches), logged."""
+    folds = dict(hk.FOLD_SHAPES)
+    for (n, slots, op, dtype), c in sorted(folds.items(), key=str):
+        log(f"[{tag}] fold shape rows={n} slots={slots} op={op} "
+            f"values={dtype} launches={c}")
+    return folds
+
+
+def fold_shape_checks(fold_shapes, dev, tag: str) -> dict:
+    """Kernel 4 at every shape a run logged ((rows, slots, op, value
+    dtype) -> launches), bit for bit against its plain version, on seeded
+    int32 ids and values drawn on the card: half the rows on 13 hot slots,
+    half spread over all the slots (so that past the direct strategy's
+    slots both the hot-slot cache and its spill to device memory run), a
+    sixth in the drop slot, and a live prefix of 90% of the rows past which
+    the ids stay valid (the fold must stop at the prefix, as it must for a
+    GROUP BY-less aggregate's zeros); values over their dtype's whole
+    range. The launches made here are not the path's."""
+    import torch
+
+    from datafusion_distributed_tpu_torch.ops import hash_kernels as hk
+
+    folds = {}
+    skipped: list = []
+    for (n, slots, op, dtype), _count in fold_shapes.items():
+        label = f"{n}/{slots}/{op}/{dtype}"
+        key = ("fold", n, slots, op, dtype)
+        earlier = _checked_earlier(key, skipped)
+        if earlier is not None:
+            folds[label] = earlier
+            continue
+        gen = _device_rng(f"{tag} fold {label}", dev)
+        hot = torch.randint(0, slots, (13,), generator=gen, device=dev)
+        gid = torch.where(
+            torch.rand(n, generator=gen, device=dev) < 0.5,
+            hot[torch.randint(0, 13, (n,), generator=gen, device=dev)],
+            torch.randint(0, slots, (n,), generator=gen, device=dev))
+        gid = torch.where(torch.rand(n, generator=gen, device=dev) < 1 / 6,
+                          slots, gid).to(torch.int32)
+        num_rows = torch.tensor(n - n // 10, dtype=torch.int32, device=dev)
+        vals = (None if dtype is None else
+                fold_values(gen, n, dtype.removeprefix("torch."), dev))
+        case = fold_against_plain(gid, vals, slots, op, num_rows)
+        case["ms"] = time_ms(lambda: hk.group_fold(gid, vals, slots, op,
+                                                   num_rows), 1)
+        check(case["max_abs_err"] == 0, f"group_fold rows={n} slots={slots} "
+              f"op={op} values={dtype}: kernel != plain ({case})")
+        folds[label] = case
+        _CHECKED[key] = {**case, "checked_by": tag}
+        log(f"[{tag}] group_fold rows={n} slots={slots} op={op} "
+            f"values={dtype}: {case}")
+        del gid, vals, num_rows, hot
+    _log_reused(tag, skipped)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return folds
+
+
 def phase_resilience(sf: float, check_sf: float, seed: int) -> dict:
     """Straggler hedging, elastic membership with departed-peer healing and
     the observability service on the card, TPC-H SF ``sf`` through
@@ -3128,7 +3364,7 @@ def phase_resilience(sf: float, check_sf: float, seed: int) -> dict:
     4. q3 checkpointed, a worker holding its slices removed, resumed.
     5. At SF ``check_sf`` q3 churned and q1 hedged against the CPU (a
     subprocess that runs meanwhile).
-    6. Kernels 1, 2 and 3 at every shape the phase logged, bit for bit
+    6. Kernels 1-4 at every shape the phase logged, bit for bit
     against their plain versions.
     7. The leak arms (`leak_arms`), at SF LEAK_SF, cold then warm: the
     serving tier's served mix RESILIENCE_SERVED, LEAK_QUERY churned as in
@@ -3177,7 +3413,7 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
     out: dict = {}
     ctx = _session("cuda", sf, seed)
     sqls = dict(_queries(QUERIES))
-    shapes: dict = {"build": {}, "probe": {}, "agg": {}}
+    shapes: dict = {"build": {}, "probe": {}, "agg": {}, "fold": {}}
     hk.reset_launch_counts()
     # every tracked acquisition from here on is checked for its release
     leakcheck.install()
@@ -3418,6 +3654,7 @@ def _resilience_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
              in shapes["probe"].items()], dev, "resilience"),
         "group_aggregate": agg_shape_checks(shapes["agg"], dev,
                                             "resilience"),
+        "group_fold": fold_shape_checks(shapes["fold"], dev, "resilience"),
     }
     out["shapes"] = {k: len(v) for k, v in shapes.items()}
     log(f"[resilience] shapes checked: {out['shapes']} ({_since(t_phase)})")
@@ -3990,7 +4227,7 @@ def phase_adaptive(sf: float, seed: int) -> dict:
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    shapes: dict = {"build": {}, "probe": {}, "agg": {}}
+    shapes: dict = {"build": {}, "probe": {}, "agg": {}, "fold": {}}
     out: dict = {}
     ctx = _session("cuda", ADAPTIVE_SF, seed)
     hk.reset_launch_counts()
@@ -4022,6 +4259,7 @@ def phase_adaptive(sf: float, seed: int) -> dict:
             [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
              in shapes["probe"].items()], dev, "adaptive"),
         "group_aggregate": agg_shape_checks(shapes["agg"], dev, "adaptive"),
+        "group_fold": fold_shape_checks(shapes["fold"], dev, "adaptive"),
     }
     out["shapes"] = {k: len(v) for k, v in shapes.items()}
     log(f"[adaptive] shapes checked: {out['shapes']} ({_since(t_phase)})")
@@ -4246,7 +4484,7 @@ def phase_wire(sf: float, check_sf: float, seed: int) -> dict:
     copies of SF 1 key columns, bit for bit.
     4. At SF ``check_sf`` the WIRE_CHECK_QUERIES over gRPC on the card
     against the CPU (a subprocess that runs meanwhile).
-    5. Kernels 1, 2 and 3 at every shape the phase logged, bit for bit
+    5. Kernels 1-4 at every shape the phase logged, bit for bit
     against their plain versions. No segment may be left in a pool
     directory and the leak checker must track no live resource."""
     cpu_out = Path(tempfile.mkdtemp()) / "wire_cpu.pkl"
@@ -4295,7 +4533,7 @@ def _wire_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
     # zstandard package is installed; frames ship raw otherwise)
     out: dict = {"codecs": transport.supported_codecs()}
     log(f"[wire] wire codecs here: {out['codecs']}")
-    shapes: dict = {"build": {}, "probe": {}, "agg": {}}
+    shapes: dict = {"build": {}, "probe": {}, "agg": {}, "fold": {}}
     hk.reset_launch_counts()
     leakcheck.install()
     leakcheck.reset()
@@ -4532,6 +4770,7 @@ def _wire_phase(sf, check_sf, seed, cpu_worker, cpu_out) -> dict:
             [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
              in shapes["probe"].items()], dev, "wire"),
         "group_aggregate": agg_shape_checks(shapes["agg"], dev, "wire"),
+        "group_fold": fold_shape_checks(shapes["fold"], dev, "wire"),
     }
     out["shapes"] = {k: len(v) for k, v in shapes.items()}
     log(f"[wire] shapes checked: {out['shapes']} ({_since(t_phase)})")
@@ -4699,7 +4938,7 @@ def phase_tools(sf: float, seed: int) -> dict:
     under TOOLS_FEED_SQL's GROUP BY: equal to the GROUP BY over the whole
     table; every unit's four timestamps.
     Launches are counted from 0 over parts 1-4.
-    5. Kernels 1, 2 and 3 at every shape parts 1-4 logged, bit for bit
+    5. Kernels 1-4 at every shape parts 1-4 logged, bit for bit
     against their plain versions.
     6. lockcheck: the served mix of `lockcheck_worker` at SF TOOLS_LOCK_SF
     in a subprocess with DFTPU_LOCK_CHECK=0 and, at the same time, in one
@@ -4736,7 +4975,7 @@ def phase_tools(sf: float, seed: int) -> dict:
     rtol = precision.test_rtol()
     t_phase = time.perf_counter()
     out: dict = {}
-    shapes: dict = {"build": {}, "probe": {}, "agg": {}}
+    shapes: dict = {"build": {}, "probe": {}, "agg": {}, "fold": {}}
     launches: dict = {}
 
     def take() -> None:
@@ -4926,6 +5165,7 @@ def phase_tools(sf: float, seed: int) -> dict:
             [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
              in shapes["probe"].items()], dev, "tools"),
         "group_aggregate": agg_shape_checks(shapes["agg"], dev, "tools"),
+        "group_fold": fold_shape_checks(shapes["fold"], dev, "tools"),
     }
     out["shapes"] = {k: len(v) for k, v in shapes.items()}
     log(f"[tools] shapes checked: {out['shapes']} ({_since(t_phase)})")
@@ -5043,7 +5283,7 @@ def phase_mesh(sf: float, seed: int) -> dict:
     mesh workers that keep their last spans as the JAX package's do (no
     release when a span's tasks are gone): the bytes they hold after each
     query.
-    4. Kernels 1, 2 and 3 at every shape the phase logged (the
+    4. Kernels 1-4 at every shape the phase logged (the
     single-node reference runs excluded), bit for bit against their plain
     versions; kernel 3's launches are reported by part."""
     import functools
@@ -5064,7 +5304,7 @@ def phase_mesh(sf: float, seed: int) -> dict:
     rtol = precision.test_rtol()
     t_phase = time.perf_counter()
     out: dict = {}
-    shapes: dict = {"build": {}, "probe": {}, "agg": {}}
+    shapes: dict = {"build": {}, "probe": {}, "agg": {}, "fold": {}}
     launches: dict = {}
 
     def settled() -> int:
@@ -5209,6 +5449,7 @@ def phase_mesh(sf: float, seed: int) -> dict:
             [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
              in shapes["probe"].items()], dev, "mesh"),
         "group_aggregate": agg_shape_checks(shapes["agg"], dev, "mesh"),
+        "group_fold": fold_shape_checks(shapes["fold"], dev, "mesh"),
     }
     out["shapes"] = {k: len(v) for k, v in shapes.items()}
     out["checks_s"] = time.perf_counter() - t_checks
@@ -5243,7 +5484,7 @@ def phase_examples() -> dict:
     precision.test_rtol()), and the facts (plans, clamped rows, routes,
     epochs, the refusal, fed rows and sums, the console's sections)
     exactly.
-    3. Kernels 1, 2 and 3 at every shape the card's runs logged, against
+    3. Kernels 1-4 at every shape the card's runs logged, against
     their plain versions.
     The SPMD pair runs over the ranks in the spmd phase."""
     import importlib
@@ -5256,7 +5497,7 @@ def phase_examples() -> dict:
 
     t_phase = time.perf_counter()
     rtol = precision.test_rtol()
-    shapes = {"build": {}, "probe": {}, "agg": {}}
+    shapes = {"build": {}, "probe": {}, "agg": {}, "fold": {}}
     launches: dict = {}
     out: dict = {"rows": EXAMPLE_ROWS, "examples": {}}
     hk.reset_launch_counts()
@@ -5328,6 +5569,7 @@ def phase_examples() -> dict:
             [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
              in shapes["probe"].items()], dev, "examples"),
         "group_aggregate": agg_shape_checks(shapes["agg"], dev, "examples"),
+        "group_fold": fold_shape_checks(shapes["fold"], dev, "examples"),
     }
     out["shapes"] = {k: len(v) for k, v in shapes.items()}
     out["checks_s"] = time.perf_counter() - t_checks
@@ -5450,7 +5692,7 @@ def spmd_rank(job_path: str, rank: int) -> int:
             return run(ctx, q, num_tasks=mesh.size)
 
         # (a) all 22 queries at SPMD_ALL_SF
-        shapes = {"build": {}, "probe": {}, "agg": {}}
+        shapes = {"build": {}, "probe": {}, "agg": {}, "fold": {}}
         t0 = time.perf_counter()
         out["a"] = {q: dict(zip(("result", "s", "retries"), spmd(small, q)))
                     for q in QUERIES}
@@ -5651,7 +5893,7 @@ def phase_spmd(sf: float, seed: int) -> dict:
         t0 = time.perf_counter()
         out["nccl"] = _nccl_world_of_one(str(tmp / "big.pkl"), tmp)
         out["nccl_s"] = time.perf_counter() - t0
-        shapes = {"build": {}, "probe": {}, "agg": {}}
+        shapes = {"build": {}, "probe": {}, "agg": {}, "fold": {}}
         _drain_shapes(hk, shapes)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5769,7 +6011,7 @@ def phase_spmd(sf: float, seed: int) -> dict:
         f"against {out['inproc_s']:.2f}s in process; launches {launches} "
         f"({_since(t_phase)})")
 
-    # kernels 1, 2 and 3 at every shape the ranks and (c) logged
+    # kernels 1-4 at every shape the ranks and (c) logged
     dev = torch.device("cuda")
     out["kernel_checks"] = {
         "build_group_ids": build_shape_checks(
@@ -5779,6 +6021,7 @@ def phase_spmd(sf: float, seed: int) -> dict:
             [[n, k, lanes, list(s), c] for (n, k, lanes, s), c
              in shapes["probe"].items()], dev, "spmd"),
         "group_aggregate": agg_shape_checks(shapes["agg"], dev, "spmd"),
+        "group_fold": fold_shape_checks(shapes["fold"], dev, "spmd"),
     }
     out["shapes"] = {k: len(v) for k, v in shapes.items()}
     log(f"[spmd] shapes checked: {out['shapes']} ({_since(t_phase)})")
@@ -5875,6 +6118,7 @@ def clickbench_worker(out_path: str) -> int:
     for k in CLICKBENCH_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by ClickBench")
     build_shapes, probe_shapes = kernel_shapes(hk, "clickbench")
+    folds = fold_shapes(hk, "clickbench")
     peak_dev = torch.cuda.max_memory_allocated()
 
     peak_host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
@@ -5892,6 +6136,8 @@ def clickbench_worker(out_path: str) -> int:
                                              probe_shapes)
     del key_cols, live
     torch.cuda.empty_cache()
+    kernel_checks["group_fold"] = fold_shape_checks(
+        folds, torch.device("cuda"), "clickbench")
     checked = {tuple(b[:3]) for b in build_shapes} | {
         str(p[:4]) for p in probe_shapes}
     t8 = _clickbench_tasks(_on_device(cut, "cuda"), queries, checked)
@@ -6070,6 +6316,7 @@ def _clickbench_tasks(hits, queries, checked: set) -> dict:
         check(launches[k] > 0,
               f"kernel {k} was not launched by ClickBench at T={TASKS}")
     builds, probes = kernel_shapes(hk, f"clickbench T={TASKS}")
+    folds = fold_shapes(hk, f"clickbench T={TASKS}")
     peak = max(v["peak_gb"] for v in t8.values())
     log(f"[clickbench] T={TASKS}, {rows} rows: "
         f"{sum(v['s'] for v in t8.values()):.3f}s, peak {peak:.2f} GB; "
@@ -6081,6 +6328,8 @@ def _clickbench_tasks(hits, queries, checked: set) -> dict:
         key_cols, hits.row_mask(),
         [b for b in builds if tuple(b[:3]) not in checked],
         [p for p in probes if str(p[:4]) not in checked])
+    checks["group_fold"] = fold_shape_checks(folds, torch.device("cuda"),
+                                             f"clickbench T={TASKS}")
     return {"rows": rows, "queries": t8, "launches": launches,
             "build_shapes": builds, "probe_shapes": probes,
             "kernel_checks": checks,
@@ -6442,15 +6691,15 @@ def main(argv=None) -> int:
              "clickbench_x64": ("clickbench",),
              "clickbench_t8": ("clickbench", "t8")}
     shape_checks = [results.get(phase, {}).get("kernel_checks", {})
-                    for phase in ("distributed", "tasks", "coordinator",
-                                  "serving", "resilience", "adaptive",
-                                  "wire", "tools", "mesh", "examples",
-                                  "spmd", "clickbench")]
+                    for phase in ("main", "distributed", "tasks",
+                                  "coordinator", "serving", "resilience",
+                                  "adaptive", "wire", "tools", "mesh",
+                                  "examples", "spmd", "clickbench")]
     shape_checks.append(results.get("clickbench", {}).get("t8", {})
                         .get("kernel_checks", {}))
     for name, k in results.get("kernels", {}).items():
-        # the kernel phase's cases and the checks at the staged run's and
-        # ClickBench's shapes
+        # the kernel phase's cases and the checks at the main path's, the
+        # staged runs' and ClickBench's shapes
         err = max([k["max_abs_err"]] + [
             c["max_abs_err"] for checks in shape_checks
             for c in checks.get(name, {}).values()])

@@ -5,11 +5,12 @@ the card by the CUDA group-build kernel (`ops/hash_kernels.py`), on the CPU
 by its plain PyTorch version — so every row gets the same slot as in the
 reference and the output row order (slot order) is the same.
 
-Aggregates then reduce by slot id (`SegmentSum`, scatter-min/max). Float
+Aggregates then reduce by slot id (`SegmentSum`, `segment_minmax`). Float
 sums must be run-to-run identical, and a float scatter-add on the card adds
 in whatever order its atomics land, so float sums are sort-based segment
-reductions; integer sums scatter-add, since integer adds do not depend on
-their order.
+reductions; integer sums, counts, minima and maxima go to the per-slot fold
+(`hash_kernels.group_fold`, kernel 4), since integer adds, minima and maxima
+do not depend on their order.
 
 Group keys may be any fixed-width device dtype (dict codes included); nulls
 group together (SQL semantics), tracked via a folded-in validity lane.
@@ -70,37 +71,42 @@ class GroupTable:
 class SegmentSum:
     """Per-slot sums over one group-id vector: ``SegmentSum(gid, H)(vals)``
     -> [H]. Rows with gid == H drop out (the reference's ``mode="drop"``
-    scatter).
+    scatter), and so do the rows at or past ``num_rows`` (a 0-d tensor: the
+    live prefix), when given.
 
-    Integer sums are one scatter-add: integer adds, wrapping included, give
-    the same result in any order. Float sums must be run-to-run identical
-    (the reference promises it), but a float scatter-add on the card adds in
-    the order its atomics land. They reduce the rows sorted by slot instead:
-    one stable sort of ``gid``, shared by every float sum over it, then
+    Integer sums are one per-slot fold (kernel 4): integer adds, wrapping
+    included, give the same result in any order. Float sums must be
+    run-to-run identical (the reference promises it), but a float
+    scatter-add on the card adds in the order its atomics land. They reduce
+    the rows sorted by slot instead: one stable sort of ``gid`` over the
+    whole capacity, shared by every float sum over it, then
     ``torch.segment_reduce``, which reduces each slot's rows in a fixed
     order. (PyTorch's deterministic ``index_add_`` serialises the rows of a
     slot and took seconds per query at TPC-H SF 1: see PERF.md.)
     """
 
-    def __init__(self, gid: torch.Tensor, num_slots: int):
-        self.gid = gid.to(torch.int64)
+    def __init__(self, gid: torch.Tensor, num_slots: int,
+                 num_rows: Optional[torch.Tensor] = None):
+        self.gid = gid
         self.num_slots = num_slots
+        self.num_rows = num_rows
         self._order: Optional[torch.Tensor] = None
         self._lengths: Optional[torch.Tensor] = None
-
-    def _scatter_add(self, vals: torch.Tensor) -> torch.Tensor:
-        z = torch.zeros(self.num_slots + 1, dtype=vals.dtype,
-                        device=vals.device)
-        return z.index_add_(0, self.gid, vals)
 
     def __call__(self, vals: torch.Tensor,
                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         vals = vals.to(dtype or vals.dtype)
         if not vals.dtype.is_floating_point:
-            return self._scatter_add(vals)[:self.num_slots]
+            return hash_kernels.group_fold(self.gid, vals, self.num_slots,
+                                           "sum", self.num_rows)
         if self._order is None:
-            self._order = torch.argsort(self.gid, stable=True)
-            self._lengths = self._scatter_add(torch.ones_like(self.gid))
+            self._order = torch.argsort(self.gid.to(torch.int64), stable=True)
+            # the sort's segments span the whole capacity: every row counts,
+            # and the drop slot H holds the rows no other slot does
+            counts = hash_kernels.group_fold(self.gid, None, self.num_slots,
+                                             "count")
+            dropped = self.gid.shape[0] - counts.sum()
+            self._lengths = torch.cat([counts, dropped.reshape(1)])
         out = torch.segment_reduce(vals[self._order], "sum",
                                    lengths=self._lengths, unsafe=True,
                                    initial=0)
@@ -108,7 +114,14 @@ class SegmentSum:
 
 
 def segment_minmax(vals: torch.Tensor, gid: torch.Tensor, num_slots: int,
-                   op: str) -> torch.Tensor:
+                   op: str, num_rows: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """[num_slots] per-slot MIN or MAX of ``vals``; rows with gid ==
+    num_slots, or at or past ``num_rows`` when given, drop out, and empty
+    slots hold the dtype's identity. Integer, dictionary-code and bool
+    inputs fold in kernel 4; floats scatter-reduce."""
+    if not vals.dtype.is_floating_point:
+        return hash_kernels.group_fold(gid, vals, num_slots, op, num_rows)
     init = _dtype_max(vals.dtype) if op == "min" else _dtype_min(vals.dtype)
     z = torch.full((num_slots + 1,), init, dtype=vals.dtype,
                    device=vals.device)
@@ -237,7 +250,7 @@ def hash_aggregate(
         src = table.column(g)
         out_cols[g] = Column(keys, kv, src.dtype, src.dictionary)
 
-    seg_sum = SegmentSum(gid, num_slots)
+    seg_sum = SegmentSum(gid, num_slots, table.num_rows)
     for spec in aggs:
         out_cols.update(
             _eval_agg(spec, table, gid, live, num_slots, mode, seg_sum,
@@ -380,12 +393,13 @@ def global_aggregate(table: Table, aggs: Sequence[AggSpec], mode: str = "single"
                      prec_flags: Optional[list] = None) -> Table:
     """Aggregation with no GROUP BY: one output row (capacity 8). Shares
     the per-aggregate evaluation with hash_aggregate, with every live row
-    mapped to group 0."""
+    mapped to group 0; the dead rows past the live prefix drop out of its
+    integer folds."""
     live = table.row_mask()
     cap = 8
     gid = torch.zeros(table.capacity, dtype=torch.int32, device=table.device)
 
-    seg_sum = SegmentSum(gid, cap)
+    seg_sum = SegmentSum(gid, cap, table.num_rows)
     cols: dict[str, Column] = {}
     for spec in aggs:
         cols.update(_eval_agg(spec, table, gid, live, cap, mode, seg_sum,
@@ -436,7 +450,7 @@ def _eval_agg(spec, table, gid, live, num_slots, mode, seg_sum,
         else:
             merged = segment_minmax(
                 acc.data, torch.where(valid, gid, num_slots), num_slots,
-                spec.func,
+                spec.func, seg_sum.num_rows,
             )
         nonempty = seg_sum(valid.to(_ACC_INT))
         if spec.func == "count":
@@ -526,7 +540,8 @@ def _eval_agg(spec, table, gid, live, num_slots, mode, seg_sum,
         return {name: Column(avg, cnt > 0, DataType.FLOAT64)}
 
     if spec.func in ("min", "max"):
-        red = segment_minmax(col.data, vgid, num_slots, spec.func)
+        red = segment_minmax(col.data, vgid, num_slots, spec.func,
+                             seg_sum.num_rows)
         nonempty = seg_sum(valid.to(_ACC_INT))
         return {
             name: Column(red, nonempty > 0, col.dtype, col.dictionary)

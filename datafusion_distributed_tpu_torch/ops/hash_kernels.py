@@ -1,8 +1,10 @@
-"""The three hash-table kernels: CUDA wrappers and their plain PyTorch versions.
+"""The port's hand-written kernels: CUDA wrappers and their plain PyTorch versions.
 
-Each kernel replaces one Pallas TPU kernel of the reference package
-(`datafusion_distributed_tpu/ops/pallas_hash.py`); the CUDA sources are
-`csrc/hash_table.cu` (kernels 1 and 3) and `csrc/probe.cu` (kernel 2), whose
+Kernels 1-3 each replace one Pallas TPU kernel of the reference package
+(`datafusion_distributed_tpu/ops/pallas_hash.py`); kernel 4, the per-slot
+fold of integer values, replaces the library scatters the GROUP BYs called
+(`ops/aggregate.py`). The CUDA sources are `csrc/hash_table.cu` (kernels 1
+and 3), `csrc/probe.cu` (kernel 2) and `csrc/group_fold.cu` (kernel 4), whose
 headers say what bounds them on the card and what their design does about it.
 
 =====================  ============================================  ==============================
@@ -11,9 +13,10 @@ wrapper                replaces                                      CUDA entry 
 build_group_ids        pallas_build_group_ids  (pallas_hash.py:94)   dftpu_group_build
 multiway_probe         pallas_multiway_probe   (pallas_hash.py:259)  dftpu_multiway_probe (probe.cu)
 group_aggregate        pallas_global_hash_aggregate (:433)           dftpu_group_aggregate
+group_fold             index_add_ / scatter_reduce_ (no TPU kernel)  dftpu_group_fold (group_fold.cu)
 =====================  ============================================  ==============================
 
-Layout. All three keep the slot layout of the reference's XLA claim loop
+Layout. Kernels 1-3 keep the slot layout of the reference's XLA claim loop
 (`ops/aggregate.py build_group_table`), not the Pallas kernels' sequential
 inserts into 2^16-slot VMEM partitions: the port's GROUP BY output order
 then equals the reference's default path byte for byte. Grouping, the
@@ -23,7 +26,8 @@ VMEM artifacts and are gone.
 
 Dispatch. A wrapper runs the plain version only because its inputs lie on
 the CPU; for CUDA tensors it launches the kernel or raises. Each launch adds
-one to its shape in ``BUILD_SHAPES``, ``PROBE_SHAPES`` or ``AGG_SHAPES``;
+one to its shape in ``BUILD_SHAPES``, ``PROBE_SHAPES``, ``AGG_SHAPES`` or
+``FOLD_SHAPES``;
 `launches()` sums them per wrapper. Each call of a wrapper, on either path,
 is a ``kernel:<wrapper name>`` span (runtime/tracing.py). Key lanes are
 int32; int64 lanes (``DFTPU_PRECISION=x64``) are split into (lo, hi) int32
@@ -91,6 +95,9 @@ PROBE_SHAPES: dict = {}
 #: fused GROUP BY launches since the last reset, by shape: (rows, int32 key
 #: lanes, slots, accumulator ops) -> launches
 AGG_SHAPES: dict = {}
+#: per-slot fold launches since the last reset, by shape: (rows, slots, op,
+#: value dtype or None for a count) -> launches
+FOLD_SHAPES: dict = {}
 #: most tables of one probe launch (csrc/probe.cu kMaxTables)
 MAX_TABLES_PER_LAUNCH = 8
 #: most (row, table) pairs of one probe on the card (csrc/probe.cu kMaxPairs)
@@ -136,7 +143,8 @@ def launches() -> dict:
     with _COUNT_LOCK:
         return {"build_group_ids": sum(BUILD_SHAPES.values()),
                 "multiway_probe": sum(PROBE_SHAPES.values()),
-                "group_aggregate": sum(AGG_SHAPES.values())}
+                "group_aggregate": sum(AGG_SHAPES.values()),
+                "group_fold": sum(FOLD_SHAPES.values())}
 
 
 def _add_live_rows(dev: torch.device, shape: tuple,
@@ -190,6 +198,7 @@ def reset_launch_counts() -> None:
         BUILD_SHAPES.clear()
         PROBE_SHAPES.clear()
         AGG_SHAPES.clear()
+        FOLD_SHAPES.clear()
         LIVE_ROWS.clear()
     reset_round_stats()
 
@@ -224,6 +233,10 @@ _SIGNATURES = {
         "dftpu_multiway_probe": [_P, _P, _P, _P, _P, _PLL, _PLL, _I, _I, _I,
                                  _LL, _I, _I, _I, _P, _P, _P, _P],
         "dftpu_probe_smem_limit": [_PLL],
+    },
+    "group_fold.cu": {
+        "dftpu_group_fold": [_P, _I, _P, _I, _P, _LL, _LL, _I, _I, _LL, _P,
+                             _P],
     },
 }
 
@@ -672,3 +685,112 @@ def _group_aggregate(keys_mat, slot0, live, values, num_slots: int,
     _check(lib, err, "dftpu_group_aggregate")
     _count_launch(AGG_SHAPES, (n, lanes, num_slots, tuple(ops)))
     return gid, rep, used, acc, overflow, rounds
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: per-slot fold of integer values
+# ---------------------------------------------------------------------------
+
+#: ops of group_fold (csrc/group_fold.cu Op; a count is a sum of ones)
+FOLD_OPS = {"sum": 0, "min": 1, "max": 2, "count": 0}
+#: value dtypes the fold reads in place -> csrc/group_fold.cu Kind
+_FOLD_KINDS = {torch.bool: 1, torch.uint8: 1, torch.int8: 2, torch.int16: 3,
+               torch.int32: 4, torch.int64: 5}
+
+
+def _fold_dtypes(vals, op: str) -> tuple:
+    """(accumulator dtype, result dtype) of a fold: 1- to 4-byte values fold
+    in int32 and narrow back, int64 in int64, a count in int64."""
+    if op == "count":
+        return torch.int64, torch.int64
+    if vals.dtype not in _FOLD_KINDS or (op == "sum"
+                                         and vals.dtype == torch.bool):
+        raise TypeError(f"group_fold {op} takes integer values, got "
+                        f"{vals.dtype}")
+    acc = torch.int64 if vals.dtype == torch.int64 else torch.int32
+    return acc, vals.dtype
+
+
+def _fold_identity(op: str, dtype: torch.dtype) -> int:
+    if op in ("sum", "count"):
+        return 0
+    if dtype == torch.bool:
+        return int(op == "min")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def group_fold_plain(gid, vals, num_slots: int, op: str, num_rows=None):
+    """[num_slots] fold, by ``op`` (sum, min, max, or count: the rows), of
+    ``vals`` over the rows whose ``gid`` lies in [0, num_slots) among the
+    first ``num_rows`` (a 0-d tensor; all rows when None). The drop slot
+    ``num_slots`` and any id outside the table add nothing. Sums wrap in
+    the values' dtype, as ``index_add_`` does; slots without rows hold the
+    op's identity in that dtype (the dtype's max for min, min for max)."""
+    acc_dtype, out_dtype = _fold_dtypes(vals, op)
+    n = gid.shape[0] if num_rows is None else min(gid.shape[0],
+                                                  max(int(num_rows), 0))
+    g = gid[:n].to(torch.int64)
+    keep = (g >= 0) & (g < num_slots)
+    g = g[keep]
+    out = torch.full((num_slots,), _fold_identity(op, out_dtype),
+                     dtype=acc_dtype, device=gid.device)
+    if op == "count":
+        return out.index_add_(0, g, torch.ones_like(g))
+    v = vals[:n][keep].to(acc_dtype)
+    if op == "sum":
+        out.index_add_(0, g, v)
+    else:
+        out.scatter_reduce_(0, g, v, reduce="amin" if op == "min" else "amax")
+    return out.to(out_dtype)
+
+
+def group_fold(gid, vals, num_slots: int, op: str, num_rows=None):
+    """Per-slot fold of integer values (`group_fold_plain`'s outputs): the
+    GROUP BYs' integer SUMs, COUNTs, MINs and MAXes. ``gid`` [N] int32 or
+    int64, ``vals`` [N] bool or integer (None for a count), ``num_rows`` a
+    0-d integer tensor on their device bounding the live prefix, or None.
+    On the card the live prefix is read by the kernel: no host sync."""
+    if op not in FOLD_OPS:
+        raise ValueError(f"unknown fold op {op!r}")
+    if (vals is None) != (op == "count"):
+        raise ValueError("a count takes no values; every other fold does")
+    if gid.dtype not in (torch.int32, torch.int64) or gid.dim() != 1:
+        raise TypeError(f"group ids must be [N] int32 or int64, got "
+                        f"{tuple(gid.shape)} {gid.dtype}")
+    if vals is not None and vals.shape != gid.shape:
+        raise ValueError(f"{tuple(vals.shape)} values for "
+                         f"{tuple(gid.shape)} group ids")
+    if not 1 <= num_slots <= _INT32_MAX:
+        raise ValueError(f"num_slots must lie in [1, 2^31), got {num_slots}")
+    acc_dtype, out_dtype = _fold_dtypes(vals, op)
+    n = gid.shape[0]
+    with tracing.span("kernel", "group_fold") as sp:
+        shape = (n, num_slots, op, None if vals is None else str(vals.dtype))
+        sp.note("shape", shape)
+        if gid.device.type == "cpu":
+            return group_fold_plain(gid, vals, num_slots, op, num_rows)
+        _require_cuda(*(t for t in (vals, num_rows) if t is not None))
+        dev = gid.device
+        gid = gid.contiguous()
+        if vals is not None:
+            vals = vals.contiguous()
+        if num_rows is not None:
+            num_rows = num_rows.to(torch.int32).reshape(())
+        ident = _fold_identity(op, out_dtype)
+        acc_bytes = 8 if acc_dtype == torch.int64 else 4
+        out = torch.full((num_slots,), ident, dtype=acc_dtype, device=dev)
+        if n == 0:
+            return out.to(out_dtype)
+        lib = _lib("group_fold.cu")
+        with torch.cuda.device(dev):
+            err = lib.dftpu_group_fold(
+                _ptr(gid), gid.element_size(),
+                None if vals is None else _ptr(vals),
+                0 if vals is None else _FOLD_KINDS[vals.dtype],
+                None if num_rows is None else _ptr(num_rows), n, num_slots,
+                FOLD_OPS[op], acc_bytes, ident, _ptr(out), _stream(out),
+            )
+        _check(lib, err, "dftpu_group_fold")
+        _count_launch(FOLD_SHAPES, shape)
+        return out.to(out_dtype)

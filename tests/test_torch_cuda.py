@@ -131,6 +131,125 @@ def test_group_aggregate_matches_plain(dev, case):
     assert hk.round_stats()["builds"] == 1
 
 
+FOLD_OPS = ("sum", "min", "max", "count")
+FOLD_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32,
+               torch.int64)
+#: slots: one; a GROUP BY-less aggregate's 8; the most that fit the direct
+#: strategy's shared memory in int64 (2^12) and int32 (2^13); the hot-slot
+#: cache beyond
+FOLD_SLOTS = (1, 8, 1 << 12, 1 << 13, 1 << 16)
+
+
+def _fold_values(gen, dtype, n, dev):
+    if dtype == torch.bool:
+        return torch.rand(n, generator=gen, device=dev) < 0.5
+    info = torch.iinfo(dtype)
+    if dtype == torch.int64:  # both words vary; sums wrap
+        hi = torch.randint(-2**31, 2**31, (n,), generator=gen, device=dev)
+        lo = torch.randint(0, 2**32, (n,), generator=gen, device=dev)
+        v = hi * 2**32 + lo
+    else:
+        v = torch.randint(info.min, info.max + 1, (n,), generator=gen,
+                          device=dev).to(dtype)
+    v[:4] = torch.tensor([info.min, info.max, info.min, info.max],
+                         dtype=dtype)
+    return v
+
+
+def _fold_case(dev, n, num_slots, live, seed, dtype=torch.int64, hot=0):
+    """Group ids over ``num_slots`` (``hot`` distinct ids when given), a
+    sixth of them the drop slot; the rows past the live prefix (``live``
+    rows, None for no bound) in the drop slot too, as the GROUP BYs pass
+    them. -> (gid int32, values, num_rows or None)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if hot:
+        ids = torch.randint(0, num_slots, (hot,), generator=gen, device=dev)
+        gid = ids[torch.randint(0, hot, (n,), generator=gen, device=dev)]
+    else:
+        gid = torch.randint(0, num_slots, (n,), generator=gen, device=dev)
+    drop = torch.rand(n, generator=gen, device=dev) < 1 / 6
+    gid = torch.where(drop, num_slots, gid).to(torch.int32)
+    num_rows = None
+    if live is not None:
+        num_rows = torch.tensor(live, dtype=torch.int32, device=dev)
+        gid[live:] = num_slots
+    return gid, _fold_values(gen, dtype, n, dev), num_rows
+
+
+def _check_fold(gid, vals, num_slots, op, num_rows):
+    v = None if op == "count" else vals
+    if op == "sum" and vals.dtype == torch.bool:
+        v = vals.to(torch.int32)  # a COUNT's valid.to(int)
+    got = hk.group_fold(gid, v, num_slots, op, num_rows)
+    ref = hk.group_fold_plain(gid, v, num_slots, op, num_rows)
+    assert got.dtype == ref.dtype and torch.equal(got, ref), op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [None, 0, 1, 4321, 70001])
+@pytest.mark.parametrize("num_slots", FOLD_SLOTS)
+@pytest.mark.parametrize("dtype", FOLD_DTYPES)
+def test_group_fold_matches_plain(dev, dtype, num_slots, live):
+    """Kernel 4 equals its plain version bit for bit in every value dtype,
+    op and strategy, over a ragged row count with live prefixes of none,
+    0, 1, part of and all of the rows; int32 and int64 ids alike. The
+    launch makes no host sync and counts under its shape."""
+    n = 70001
+    gid, vals, num_rows = _fold_case(dev, n, num_slots, live, num_slots,
+                                     dtype)
+    hk.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hk.group_fold(gid, vals if dtype != torch.bool else
+                      vals.to(torch.int32), num_slots, "sum", num_rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert hk.launches()["group_fold"] == 1
+    for op in FOLD_OPS:
+        _check_fold(gid, vals, num_slots, op, num_rows)
+        _check_fold(gid.long(), vals, num_slots, op, num_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 20, 33])
+def test_group_fold_below_a_warp(dev, n):
+    for num_slots in (8, 1 << 16):
+        gid, vals, _ = _fold_case(dev, max(n, 4), num_slots, None, n)
+        for op in FOLD_OPS:
+            _check_fold(gid[:n], vals[:n], num_slots, op, None)
+
+
+#: shapes that the ClickBench cell's GROUP BYs log (2^25 rows): a GROUP
+#: BY-less aggregate (8 slots, every row live; q0, q2, q29); SearchPhrase's
+#: 13 values in the planner's 256 slots, over every row and with 5% of the
+#: rows live and the rest dead (q12, q21, q22); the hot-slot cache: 4
+#: groups in 2^26 slots at 2/3 live (q28) and 1,320 groups in 2^18 slots at
+#: 90% live (q39); near-distinct keys into 2^26 slots (q30-q32)
+#: -> (slots, live rows or None, hot ids)
+FOLD_MAIN_SHAPES = {
+    "global 8": (8, None, 1),
+    "13 hot": (256, None, 13),
+    "13 hot, 5% live": (256, (1 << 25) // 20, 13),
+    "4 hot in 2^26": (1 << 26, (1 << 25) * 2 // 3, 4),
+    "1,320 in 2^18": (1 << 18, (1 << 25) * 9 // 10, 1320),
+    "near-distinct": (1 << 26, None, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(FOLD_MAIN_SHAPES))
+def test_group_fold_at_main_path_shapes(dev, shape):
+    num_slots, live, hot = FOLD_MAIN_SHAPES[shape]
+    gid, vals, num_rows = _fold_case(dev, 1 << 25, num_slots, live, 25,
+                                     hot=hot)
+    if shape == "global 8":  # every row in slot 0, the prefix bounds them
+        gid.zero_()
+        num_rows = torch.tensor(1 << 25, dtype=torch.int32, device=dev)
+    for op in FOLD_OPS:
+        _check_fold(gid, vals, num_slots, op, num_rows)
+
+
 def _probe_inputs(dev, slots=(1 << 16,), n=1 << 16, lanes=2, seed=0,
                   dtype=np.int32, active=0.9, full=False):
     """n probe rows against tables of ``slots`` slots each: built from a
